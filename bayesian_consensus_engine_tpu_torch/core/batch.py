@@ -1,0 +1,359 @@
+"""Host packing layer — the host half of ``core/batch.py``.
+
+This is the seam where ragged, string-keyed payloads become dense int32 and
+float arrays: (market, source) pairs are ordered by **sorted source id
+within each market** so the device sums floats in the same order the
+scalar engine does, and duplicate signals from one source average in
+original signal order.
+
+The JAX package runs these passes in its C extension when it is built and
+pins the numpy/Python twins bit-identical to it; the port keeps the twins
+only, so every output here equals the JAX package's for the same input.
+The device half (batched consensus documents) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping, Sequence
+
+import numpy as np
+
+from bayesian_consensus_engine_tpu_torch.utils.config import (
+    DEFAULT_CONFIDENCE,
+    DEFAULT_RELIABILITY,
+)
+from bayesian_consensus_engine_tpu_torch.utils.interning import IdInterner
+
+#: host lookup: (source_id, market_id) → (reliability, confidence, known)
+ReliabilityLookup = Callable[[str, str], tuple[float, float, bool]]
+
+
+def cold_start_lookup(_sid: str, _mid: str) -> tuple[float, float, bool]:
+    return DEFAULT_RELIABILITY, DEFAULT_CONFIDENCE, False
+
+
+@dataclass(frozen=True)
+class PackedBatch:
+    """Dense packing of M markets' signals.
+
+    Pairs are ordered (market row asc, source id asc) — the float-summation
+    order of the scalar engine. ``pair_slice(m)`` gives market *m*'s pairs.
+    """
+
+    market_keys: list[str]            # row → market id
+    pair_market: np.ndarray           # i32[P]
+    pair_source_ids: list[str]        # row → source id (sorted within market)
+    pair_reliability: np.ndarray      # f[P]
+    pair_confidence: np.ndarray       # f[P]
+    pair_known: np.ndarray            # bool[P] — False ⇒ coldStartSources
+    flat_probs: np.ndarray            # f[N] raw signal probabilities
+    flat_pair: np.ndarray             # i32[N]
+    signals_per_market: np.ndarray    # i32[M] raw signal counts (diagnostics)
+    pair_offsets: np.ndarray          # i32[M+1] pair range per market
+
+    @property
+    def num_markets(self) -> int:
+        return len(self.market_keys)
+
+    @property
+    def num_pairs(self) -> int:
+        return len(self.pair_source_ids)
+
+    def pair_slice(self, market_row: int) -> slice:
+        return slice(
+            int(self.pair_offsets[market_row]), int(self.pair_offsets[market_row + 1])
+        )
+
+
+class SourceCodes:
+    """Per-signal source column as int32 codes + a code → id table.
+
+    Accepted anywhere a per-signal ``source_ids`` sequence is
+    (:func:`topology_fingerprint`,
+    :func:`~.pipeline.build_settlement_plan_columnar`); equivalent string
+    and coded columns produce identical plans and fingerprints. The table
+    must be unique (two codes mapping to one id would alias a pair).
+    """
+
+    __slots__ = ("codes", "table")
+
+    def __init__(self, codes, table: Sequence[str]) -> None:
+        self.codes = np.ascontiguousarray(codes, dtype=np.int32)
+        self.table = list(table)
+        if len(set(self.table)) != len(self.table):
+            raise ValueError("SourceCodes table entries must be unique")
+        if len(self.codes) and len(self.table) == 0:
+            raise ValueError("SourceCodes has signals but an empty table")
+        if len(self.codes) and (
+            int(self.codes.min()) < 0
+            or int(self.codes.max()) >= len(self.table)
+        ):
+            # Checked HERE: the fingerprint indexes the table with these
+            # codes, and a negative code would wrap into an aliased digest.
+            raise ValueError("SourceCodes codes out of table range")
+
+    def __len__(self) -> int:
+        return len(self.codes)
+
+
+def encode_source_ids(source_ids: Sequence[str]) -> SourceCodes:
+    """Strings → :class:`SourceCodes` (one first-seen interning pass)."""
+    codes, table = _intern_source_codes(source_ids)
+    return SourceCodes(codes, table)
+
+
+def _intern_source_codes(source_ids):
+    """Strings → first-seen int32 codes + unique table."""
+    interner = IdInterner()
+    codes = np.asarray(interner.intern_all(source_ids), dtype=np.int32)
+    return codes, interner.ids()
+
+
+def topology_fingerprint(
+    market_keys: Sequence[str],
+    source_ids: "Sequence[str] | SourceCodes",
+    offsets,
+) -> bytes:
+    """Order-sensitive fingerprint of a batch's SIGNAL TOPOLOGY.
+
+    The topology is everything about a batch except the probabilities and
+    outcomes: the market ids (in payload order), the raw per-signal source
+    ids (markets back to back, original signal order), and the CSR
+    *offsets*. Equal fingerprints mean plans identical up to the
+    probability columns. The encoding is injective (ids are
+    length-delimited, counts are part of the digest), and a
+    :class:`SourceCodes` column digests identically to its decoded strings.
+    """
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    digest = hashlib.blake2b(digest_size=16)
+    digest.update(
+        np.asarray([len(market_keys), len(source_ids)], np.int64).tobytes()
+    )
+    digest.update(
+        np.fromiter(map(len, market_keys), np.int64, len(market_keys))
+        .tobytes()
+    )
+    digest.update("".join(market_keys).encode("utf-8"))
+    if isinstance(source_ids, SourceCodes):
+        table_lens = np.fromiter(
+            map(len, source_ids.table), np.int64, len(source_ids.table)
+        )
+        if len(source_ids):
+            digest.update(table_lens[source_ids.codes].tobytes())
+        table = source_ids.table
+        digest.update(
+            "".join([table[c] for c in source_ids.codes.tolist()]).encode("utf-8")
+        )
+    else:
+        digest.update(
+            np.fromiter(map(len, source_ids), np.int64, len(source_ids))
+            .tobytes()
+        )
+        digest.update("".join(source_ids).encode("utf-8"))
+    digest.update(offsets.tobytes())
+    return digest.digest()
+
+
+def pair_fingerprint(
+    market_keys: Sequence[str],
+    sid_of_rank: Sequence[str],
+    pair_market,
+    pair_rank,
+    pair_offsets,
+) -> bytes:
+    """Order-sensitive fingerprint of a batch's RESOLVED PAIR SET: the
+    market table in payload order, the code-point-sorted source table, and
+    the grouped (market, source-rank) pair list with its CSR offsets."""
+    pair_market = np.ascontiguousarray(pair_market, dtype=np.int32)
+    pair_rank = np.ascontiguousarray(pair_rank, dtype=np.int32)
+    pair_offsets = np.ascontiguousarray(pair_offsets, dtype=np.int64)
+    digest = hashlib.blake2b(digest_size=16)
+    digest.update(
+        np.asarray(
+            [len(market_keys), len(sid_of_rank), len(pair_market)], np.int64
+        ).tobytes()
+    )
+    digest.update(
+        np.fromiter(map(len, market_keys), np.int64, len(market_keys))
+        .tobytes()
+    )
+    digest.update("".join(market_keys).encode("utf-8"))
+    digest.update(
+        np.fromiter(map(len, sid_of_rank), np.int64, len(sid_of_rank))
+        .tobytes()
+    )
+    digest.update("".join(sid_of_rank).encode("utf-8"))
+    digest.update(pair_market.tobytes())
+    digest.update(pair_rank.tobytes())
+    digest.update(pair_offsets.tobytes())
+    return digest.digest()
+
+
+def columns_from_payloads(payloads):
+    """Flatten dict payloads to ``(market_keys, source_ids, probs, offsets)``:
+    the raw columns in original signal order, the form
+    :func:`~.pipeline.build_settlement_plan_columnar` consumes."""
+    market_keys: list[str] = []
+    source_ids: list[str] = []
+    probs: list[float] = []
+    offsets: list[int] = [0]
+    for market_id, signals in payloads:
+        market_keys.append(market_id)
+        for signal in signals:
+            source_ids.append(signal["sourceId"])
+            probs.append(signal["probability"])
+        offsets.append(len(source_ids))
+    return (
+        market_keys,
+        source_ids,
+        np.asarray(probs, dtype=np.float64),
+        np.asarray(offsets, dtype=np.int64),
+    )
+
+
+def group_columns(
+    codes: np.ndarray,
+    rank_of_code: np.ndarray,
+    offsets: np.ndarray,
+    probabilities: np.ndarray,
+):
+    """The columnar grouping pass: coded signals → ordered pair arrays.
+
+    Given per-signal int32 source *codes*, the code → code-point-rank
+    permutation, int64 CSR *offsets* and float64 *probabilities*, returns
+
+    ``(signal_pairs i64[N], pair_market i32[P], pair_rank i32[P],
+    pair_offsets i64[M+1], pair_sums f64[P], pair_counts i64[P])``
+
+    with pairs ordered market-major, rank ascending within each market
+    (the scalar engine's float-summation order) and per-pair sums
+    accumulated in original signal order (the duplicate-averaging
+    contract).
+    """
+    num_markets = len(offsets) - 1
+    codes = np.asarray(codes)
+    if len(codes) and int(codes.min()) < 0:
+        raise IndexError("source codes must be non-negative")
+    num_uniq = len(rank_of_code)
+    market_of_signal = np.repeat(
+        np.arange(num_markets, dtype=np.int64), np.diff(offsets)
+    )
+    # Composite (market, source-rank) key: its sorted-unique sequence IS
+    # the pair list in the scalar engine's order.
+    stride = max(num_uniq, 1)
+    key = market_of_signal * stride + np.asarray(
+        rank_of_code, dtype=np.int64
+    )[codes]
+    uniq_keys, signal_pairs = np.unique(key, return_inverse=True)
+    pair_market = (uniq_keys // stride).astype(np.int32)
+    pair_rank = (uniq_keys % stride).astype(np.int32)
+    pair_offsets = np.searchsorted(
+        pair_market, np.arange(num_markets + 1)
+    ).astype(np.int64)
+    num_pairs = len(uniq_keys)
+    # np.add.at accumulates in signal order — the scalar path's
+    # left-to-right duplicate sum per pair.
+    sums = np.zeros(num_pairs, dtype=np.float64)
+    np.add.at(sums, signal_pairs, probabilities)
+    counts = np.bincount(signal_pairs, minlength=num_pairs)
+    return (
+        signal_pairs, pair_market, pair_rank, pair_offsets, sums, counts,
+    )
+
+
+def pair_accumulate(
+    pair_idx: np.ndarray,
+    probabilities: np.ndarray,
+    num_pairs: int,
+) -> np.ndarray:
+    """Ordered per-pair probability sums: ``sums[pair_idx[i]] +=
+    probabilities[i]`` in signal order (the scalar engine's left-to-right
+    duplicate sum)."""
+    sums = np.zeros(num_pairs, dtype=np.float64)
+    pair_idx = np.asarray(pair_idx)
+    if len(pair_idx) and int(pair_idx.min()) < 0:
+        raise IndexError("pair indices must be non-negative")
+    np.add.at(sums, pair_idx, probabilities)
+    return sums
+
+
+def _pack_grouping_python(markets):
+    """The grouping pass over dict payloads."""
+    pair_market: list[int] = []
+    pair_source_ids: list[str] = []
+    flat_probs: list[float] = []
+    flat_pair: list[int] = []
+    signals_per_market: list[int] = []
+    pair_offsets: list[int] = [0]
+
+    for market_row, (_market_id, signals) in enumerate(markets):
+        signals_per_market.append(len(signals))
+        seen: dict[str, None] = {}
+        for signal in signals:
+            seen[signal["sourceId"]] = None
+
+        base = len(pair_source_ids)
+        ordered = sorted(seen)
+        slot_of = {sid: base + i for i, sid in enumerate(ordered)}
+        pair_market.extend([market_row] * len(ordered))
+        pair_source_ids.extend(ordered)
+
+        # Raw signals in original order → duplicate averaging keeps the
+        # scalar path's left-to-right accumulation order per pair.
+        for signal in signals:
+            flat_probs.append(signal["probability"])
+            flat_pair.append(slot_of[signal["sourceId"]])
+
+        pair_offsets.append(len(pair_source_ids))
+
+    return (
+        pair_market, pair_source_ids, flat_probs, flat_pair,
+        signals_per_market, pair_offsets,
+    )
+
+
+def pack_markets(
+    markets: Sequence[tuple[str, Sequence[Mapping[str, Any]]]],
+    lookup: ReliabilityLookup = cold_start_lookup,
+) -> PackedBatch:
+    """Sort and flatten raw (market_id, signals) payloads.
+
+    The reliability ``lookup`` is a user callable, run once per unique
+    pair; the settlement planner leaves it at the cold-start default and
+    reads state from the store's rows instead.
+    """
+    markets = list(markets)  # consumed twice (grouping pass + key/lookup pass)
+    (pair_market, pair_source_ids, flat_probs, flat_pair,
+     signals_per_market, pair_offsets) = _pack_grouping_python(markets)
+
+    market_keys = [market_id for market_id, _signals in markets]
+    num_pairs = len(pair_source_ids)
+    if lookup is cold_start_lookup:
+        pair_rel = np.full(num_pairs, DEFAULT_RELIABILITY)
+        pair_conf = np.full(num_pairs, DEFAULT_CONFIDENCE)
+        pair_known = [False] * num_pairs
+    else:
+        pair_rel = []
+        pair_conf = []
+        pair_known = []
+        for sid, market_row in zip(pair_source_ids, pair_market):
+            reliability, confidence, known = lookup(sid, market_keys[market_row])
+            pair_rel.append(reliability)
+            pair_conf.append(confidence)
+            pair_known.append(known)
+
+    dtype = np.float64  # host packing always f64; cast on device transfer
+    return PackedBatch(
+        market_keys=market_keys,
+        pair_market=np.asarray(pair_market, dtype=np.int32),
+        pair_source_ids=list(pair_source_ids),
+        pair_reliability=np.asarray(pair_rel, dtype=dtype),
+        pair_confidence=np.asarray(pair_conf, dtype=dtype),
+        pair_known=np.asarray(pair_known, dtype=bool),
+        flat_probs=np.asarray(flat_probs, dtype=dtype),
+        flat_pair=np.asarray(flat_pair, dtype=np.int32),
+        signals_per_market=np.asarray(signals_per_market, dtype=np.int32),
+        pair_offsets=np.asarray(pair_offsets, dtype=np.int32),
+    )

@@ -1,0 +1,871 @@
+"""Device-tensor reliability store — the port of ``state/tensor_store.py``.
+
+The same state as the JAX package's store, as flat arrays indexed by
+interned (source, market) pair row:
+
+    reliability f[R]   confidence f[R]   updated_days f[R]   exists bool[R]
+
+The host keeps the authoritative float64 arrays plus the string sidecars
+(pair interner, ISO timestamps); the device tier holds torch tensors on the
+store's device. Three access tiers:
+
+  1. **Record API** — get/update/list/put with the reference's cold-start
+     semantics, scalar host math.
+  2. **Row API** — ``rows_for_pairs`` / ``rows_for_arrays`` /
+     ``rows_for_indexed``: one interning pass per batch.
+  3. **Device tier** — ``take_device_state`` hands the flat state to the
+     settle kernel, ``defer_absorb`` adopts the settled state as pending,
+     and the host merges it lazily (``sync``), fetching only the rows a
+     settle touched.
+
+Durability: ``from_sqlite`` / ``flush_to_sqlite`` keep on-disk checkpoints
+byte-compatible with the JAX package's and the reference's DB files.
+
+The device is explicit (``device=None`` means CUDA, and a machine without
+CUDA raises unless ``device="cpu"`` was asked for). Not ported yet: the
+delta pair table (``rows_for_pairs_delta``), asynchronous flushes, the
+journal, the orbax checkpoint and the native C writer.
+"""
+
+from __future__ import annotations
+
+import threading
+from functools import wraps
+from pathlib import Path
+from typing import List, NamedTuple, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from bayesian_consensus_engine_tpu_torch.state.decay import (
+    apply_reliability_decay,
+    days_since_update,
+)
+from bayesian_consensus_engine_tpu_torch.state.records import ReliabilityRecord
+from bayesian_consensus_engine_tpu_torch.state.sqlite_store import (
+    SQLiteReliabilityStore,
+    interchange_fingerprint,
+)
+from bayesian_consensus_engine_tpu_torch.state.update_math import apply_outcome
+from bayesian_consensus_engine_tpu_torch.utils.config import (
+    DECAY_HALF_LIFE_DAYS,
+    DECAY_MINIMUM,
+    DEFAULT_CONFIDENCE,
+    DEFAULT_RELIABILITY,
+)
+from bayesian_consensus_engine_tpu_torch.utils.device import (
+    resolve_device,
+    resolve_dtype,
+)
+from bayesian_consensus_engine_tpu_torch.utils.interning import make_pair_interner
+from bayesian_consensus_engine_tpu_torch.utils.timeconv import (
+    NEVER,
+    days_to_iso,
+    iso_to_days,
+    utc_now_iso,
+)
+
+_GROW = 2
+_MIN_CAPACITY = 64
+# Deferred settle recipes pin device memory; beyond this, the oldest links
+# apply early — always safe, they describe values that were final when
+# gathered.
+_MAX_DEFERRED_BYTES = 2 * 1024**3
+
+
+def _to_numpy(value) -> np.ndarray:
+    """Host copy of a tensor (or array-like) as numpy."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def _device_take(tensor: torch.Tensor, rows: np.ndarray) -> np.ndarray:
+    """Device-side gather of *rows*, fetched to the host."""
+    index = torch.as_tensor(rows, dtype=torch.int64, device=tensor.device)
+    return _to_numpy(tensor[index])
+
+
+def _locked(method):
+    """Serialise a host-tier method on the store's reentrant lock, so plan
+    building on one thread and settle-side host reads on another cannot
+    lose a write when interning grows the flat arrays."""
+
+    @wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with self._host_lock:
+            return method(self, *args, **kwargs)
+
+    return wrapper
+
+
+class DeviceReliabilityState(NamedTuple):
+    """The flat device state the settle kernel consumes.
+
+    ``updated_days`` is epoch-days relative to the ``epoch0`` that travels
+    beside it (small magnitudes keep float32 elapsed-time subtraction
+    exact to ~seconds); 0 means never updated.
+    """
+
+    reliability: torch.Tensor
+    confidence: torch.Tensor
+    updated_days: torch.Tensor
+    exists: torch.Tensor
+
+
+class TensorReliabilityStore:
+    """Reliability scores in flat tensors with interned (source, market) rows."""
+
+    def __init__(self, capacity: int = _MIN_CAPACITY, device=None) -> None:
+        self.device = resolve_device(device)
+        capacity = max(capacity, _MIN_CAPACITY)
+        self._pairs = make_pair_interner()
+        self._rel = np.full(capacity, DEFAULT_RELIABILITY, dtype=np.float64)
+        self._conf = np.full(capacity, DEFAULT_CONFIDENCE, dtype=np.float64)
+        self._days = np.full(capacity, NEVER, dtype=np.float64)
+        self._exists = np.zeros(capacity, dtype=bool)
+        self._iso: List[str] = []
+        self._device_cache = None  # (DeviceReliabilityState, epoch0)
+        # Deferred-absorb pending state: a settled device state whose
+        # rel/days/exists the host has NOT yet merged (confidences are
+        # host-authoritative throughout — the settle path replays them
+        # exactly). Synced lazily on the first host read/write that needs
+        # it; chained settles hand it forward device-resident instead.
+        self._pending = None  # (DeviceReliabilityState, epoch0)
+        # Settle sync recipes: [(touched_rows, rel_touched_dev, epoch0,
+        # stamp_rel)] — the cheap path _sync_pending takes when set (fetch
+        # only touched rows; stamps/existence are closed-form).
+        self._pending_sync = None
+        # True when _device_cache's confidences are the device trajectory
+        # (ulp-drifted from the authoritative host replay): acceptable for
+        # the settle chain, refreshed from host for device_state consumers.
+        self._cache_conf_drifted = False
+        # Rows changed since the last flush to ``_last_flush_path``
+        # (UPSERT only what changed), and the content identity that flush
+        # left there.
+        self._dirty = np.zeros(capacity, dtype=bool)
+        self._last_flush_path: Optional[str] = None
+        self._last_flush_fp = None
+        self._host_lock = threading.RLock()
+
+    # -- row management ------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self._pairs)
+
+    def _ensure_capacity(self, needed: int) -> None:
+        if needed <= len(self._rel):
+            return
+        new_cap = len(self._rel)
+        while new_cap < needed:
+            new_cap *= _GROW
+
+        def grow(array: np.ndarray, fill) -> np.ndarray:
+            out = np.full(new_cap, fill, dtype=array.dtype)
+            out[: len(array)] = array
+            return out
+
+        self._rel = grow(self._rel, DEFAULT_RELIABILITY)
+        self._conf = grow(self._conf, DEFAULT_CONFIDENCE)
+        self._days = grow(self._days, NEVER)
+        self._exists = grow(self._exists, False)
+        self._dirty = grow(self._dirty, False)
+
+    def _row_for(self, source_id: str, market_id: str) -> int:
+        """Row for a pair, allocating (but NOT marking existing) if new."""
+        before = len(self._pairs)
+        row = self._pairs.intern((source_id, market_id))
+        if row == before:  # freshly allocated
+            self._iso.append("")
+            self._ensure_capacity(row + 1)
+        return row
+
+    def _invalidate(self) -> None:
+        # Pending state survives cache invalidation: it holds un-merged
+        # settlement results and is dropped only by sync or hand-forward.
+        self._device_cache = None
+        self._cache_conf_drifted = False
+
+    def _sync_pending(self) -> None:
+        """Merge any deferred settlement results into the host arrays.
+
+        Confidences are NOT merged — the host's are authoritative (the
+        settle path replays the exact trajectory eagerly); rel/days/exists
+        come from the device. With settle sync recipes the merge is
+        DELTA-SHAPED: the pending flat state subsumes every recipe of the
+        chain, so one device-side take of the UNION of touched rows feeds
+        :meth:`_merge_device_rows`, and the cost scales with the rows
+        touched since the last sync, not the store size.
+        """
+        if self._pending is None and self._pending_sync is None:
+            return
+        recipes = self._pending_sync
+        self._pending_sync = None
+        if recipes is not None:
+            pend = self._pending
+            self._pending = None
+            if pend is not None:
+                state, epoch0 = pend
+                union = np.unique(np.concatenate(
+                    [np.asarray(t, dtype=np.int64) for t, _r, _e, _s
+                     in recipes]
+                    + [np.empty(0, dtype=np.int64)]
+                ))
+                if union.size and int(union[-1]) >= int(
+                    state.reliability.shape[0]
+                ):
+                    raise ValueError(
+                        "sync recipe touches rows beyond the pending state"
+                    )
+                if union.size:
+                    rel_u = _device_take(state.reliability, union)
+                    days_u = _device_take(state.updated_days, union)
+                    exists_u = _device_take(state.exists, union).astype(bool)
+                    self._merge_device_rows(
+                        union, rel_u, None, days_u, exists_u, epoch0
+                    )
+            else:
+                # Orphaned recipes (the pending state was handed forward
+                # and its successor never deferred): their own gathered
+                # reliabilities are still exact.
+                for (touched, rel_touched_dev, recipe_epoch0,
+                     stamp_rel) in recipes:
+                    self._apply_settle_recipe(
+                        touched, _to_numpy(rel_touched_dev),
+                        recipe_epoch0, stamp_rel,
+                    )
+            # The flat device state is still EXACTLY the host's truth for
+            # rel/days/exists, so it stays as the cache: a settle after a
+            # flush or read chains with zero re-upload. Only its
+            # confidences carry the device trajectory's ulp drift (flagged).
+            if pend is not None:
+                self._device_cache = pend
+                self._cache_conf_drifted = True
+            else:
+                self._device_cache = None
+            return
+        state, epoch0 = self._pending
+        self._pending = None
+        # Merge at the PENDING state's length: pairs interned after the
+        # settle have host-only (cold) rows — correct.
+        used = int(state.reliability.shape[0])
+        self._merge_device_rows(
+            slice(0, used),
+            _to_numpy(state.reliability),
+            None,  # confidences: host-authoritative
+            _to_numpy(state.updated_days),
+            _to_numpy(state.exists).astype(bool),
+            epoch0,
+        )
+        self._device_cache = None
+        self._cache_conf_drifted = False
+
+    def _append_sync_recipe(
+        self, recipes, touched_rows, rel_touched, epoch0: float, stamp_rel
+    ):
+        """Recipe-chain maintenance: a link covering the same rows as an
+        earlier one replaces it (same array object for a cached plan,
+        content equality for a rebuilt one); the chain is bounded by length
+        and pinned bytes, applying the oldest links early (always safe)."""
+        kept = [
+            r for r in (recipes or [])
+            if r[0] is not touched_rows
+            and not (
+                len(r[0]) == len(touched_rows)
+                and np.array_equal(r[0], touched_rows)
+            )
+        ]
+        kept.append((touched_rows, rel_touched, epoch0, stamp_rel))
+
+        def held_bytes():
+            return sum(r[1].numel() * r[1].element_size() for r in kept)
+
+        while len(kept) > 8 or (
+            len(kept) > 1 and held_bytes() > _MAX_DEFERRED_BYTES
+        ):
+            touched, rel_dev, r_epoch0, r_stamp = kept.pop(0)
+            self._apply_settle_recipe(
+                touched, _to_numpy(rel_dev), r_epoch0, r_stamp
+            )
+        return kept
+
+    def _apply_settle_recipe(
+        self, touched: np.ndarray, rel_new, epoch0: float, stamp_rel
+    ) -> None:
+        """Merge one settle's results: device reliabilities for *touched*
+        rows plus closed-form stamps/existence — row for row what
+        :meth:`_merge_device_rows` does over the full state."""
+        if touched.size == 0:
+            return
+        device_dtype = rel_new.dtype
+        host_rel = self._rel[touched]
+        rel_changed = rel_new != host_rel.astype(device_dtype)
+        self._rel[touched] = np.where(
+            rel_changed, rel_new.astype(np.float64), host_rel
+        )
+
+        host_days = self._days[touched]
+        host_relative = np.where(
+            host_days > NEVER, host_days - epoch0, 0.0
+        ).astype(device_dtype)
+        stamps_changed = host_relative != stamp_rel
+        stamp_abs = float(np.float64(stamp_rel) + epoch0)
+        self._days[touched] = np.where(stamps_changed, stamp_abs, host_days)
+
+        newly_existing = ~self._exists[touched]
+        self._exists[touched] = True
+        changed = touched[rel_changed | stamps_changed | newly_existing]
+        self._dirty[changed] = True
+        changed_rows = touched[stamps_changed]
+        if changed_rows.size:
+            iso_value = days_to_iso(stamp_abs)
+            iso = self._iso
+            for row in changed_rows.tolist():
+                iso[row] = iso_value
+
+    # -- record API ----------------------------------------------------------
+
+    @_locked
+    def get_reliability(
+        self,
+        source_id: str,
+        market_id: str,
+        apply_decay: bool = False,
+    ) -> ReliabilityRecord:
+        """Scalar read; cold-start defaults (never allocating) when absent."""
+        self._sync_pending()
+        row = self._pairs.get((source_id, market_id))
+        if row < 0 or not self._exists[row]:
+            return ReliabilityRecord(
+                source_id=source_id,
+                market_id=market_id,
+                reliability=DEFAULT_RELIABILITY,
+                confidence=DEFAULT_CONFIDENCE,
+                updated_at="",
+            )
+        reliability = float(self._rel[row])
+        updated_at = self._iso[row]
+        if apply_decay and updated_at:
+            elapsed = days_since_update(updated_at)
+            if elapsed > 0:
+                reliability = apply_reliability_decay(
+                    reliability, elapsed, DECAY_HALF_LIFE_DAYS, DECAY_MINIMUM
+                )
+        return ReliabilityRecord(
+            source_id=source_id,
+            market_id=market_id,
+            reliability=reliability,
+            confidence=float(self._conf[row]),
+            updated_at=updated_at,
+        )
+
+    @_locked
+    def compute_update(
+        self,
+        source_id: str,
+        market_id: str,
+        outcome_correct: bool,
+    ) -> ReliabilityRecord:
+        """Dry-run update math on the undecayed stored value; zero writes."""
+        current = self.get_reliability(source_id, market_id)
+        new_rel, new_conf = apply_outcome(
+            current.reliability, current.confidence, outcome_correct
+        )
+        return ReliabilityRecord(
+            source_id=source_id,
+            market_id=market_id,
+            reliability=new_rel,
+            confidence=new_conf,
+            updated_at=utc_now_iso(),
+        )
+
+    @_locked
+    def update_reliability(
+        self,
+        source_id: str,
+        market_id: str,
+        outcome_correct: bool,
+        dry_run: bool = False,
+    ) -> ReliabilityRecord:
+        record = self.compute_update(source_id, market_id, outcome_correct)
+        if dry_run:
+            return record
+        self.put_record(record)
+        return record
+
+    @_locked
+    def put_record(self, record: ReliabilityRecord) -> None:
+        """Upsert a fully-specified record (import/seed path)."""
+        self._sync_pending()
+        row = self._row_for(record.source_id, record.market_id)
+        self._rel[row] = record.reliability
+        self._conf[row] = record.confidence
+        self._days[row] = iso_to_days(record.updated_at)
+        self._exists[row] = True
+        self._iso[row] = record.updated_at
+        self._dirty[row] = True
+        self._invalidate()
+
+    @_locked
+    def list_sources(self, market_id: Optional[str] = None) -> List[ReliabilityRecord]:
+        self._sync_pending()
+        selected = [
+            (key, row)
+            for key, row in self._pairs.items()
+            if self._exists[row] and (market_id is None or key[1] == market_id)
+        ]
+        selected.sort(key=lambda item: item[0])  # (source_id, market_id) order
+        return [
+            ReliabilityRecord(
+                source_id=key[0],
+                market_id=key[1],
+                reliability=float(self._rel[row]),
+                confidence=float(self._conf[row]),
+                updated_at=self._iso[row],
+            )
+            for key, row in selected
+        ]
+
+    def close(self) -> None:
+        """Nothing runs in the background yet; kept for the store protocol."""
+
+    def __enter__(self) -> "TensorReliabilityStore":
+        return self
+
+    def __exit__(self, *exc_info: object) -> None:
+        self.close()
+
+    # -- row API -------------------------------------------------------------
+
+    @_locked
+    def rows_for_pairs(
+        self,
+        pairs: Sequence[tuple[str, str]],
+        allocate: bool = True,
+    ) -> np.ndarray:
+        """Intern pairs → int32 rows (−1 for unknown when not allocating).
+        Newly allocated rows get sidecar slots but are NOT marked existing."""
+        return self.rows_for_arrays(
+            [p[0] for p in pairs], [p[1] for p in pairs], allocate=allocate
+        )
+
+    @_locked
+    def rows_for_arrays(
+        self,
+        sources: Sequence[str],
+        markets: Sequence[str],
+        allocate: bool = True,
+    ) -> np.ndarray:
+        """Column-form twin of :meth:`rows_for_pairs`."""
+        if not allocate:
+            return self._pairs.lookup_arrays(sources, markets)
+        try:
+            return self._pairs.intern_arrays(sources, markets)
+        finally:
+            self._resync_sidecars()
+
+    def _resync_sidecars(self) -> None:
+        """Grow sidecars/columns to the interner's row count — also after
+        an interning pass that raised mid-batch, so rows interned before
+        the failure still get their sidecar slots. A grown store makes any
+        cached device state the wrong SHAPE, so the cache is dropped;
+        pending state is unaffected (take_device_state shape-checks it)."""
+        after = len(self._pairs)
+        if after > len(self._iso):
+            self._iso.extend([""] * (after - len(self._iso)))
+            self._ensure_capacity(after)
+            self._invalidate()
+
+    @_locked
+    def rows_for_indexed(
+        self,
+        source_table: Sequence[str],
+        source_codes: np.ndarray,
+        market_table: Sequence[str],
+        market_codes: np.ndarray,
+    ) -> np.ndarray:
+        """Interning twin of :meth:`rows_for_arrays` for tabled ids: pairs
+        arrive as (unique string table, int32 codes) per half, in batch
+        order. Always allocates."""
+        try:
+            return self._pairs.intern_arrays(
+                [source_table[c] for c in np.asarray(source_codes).tolist()],
+                [market_table[c] for c in np.asarray(market_codes).tolist()],
+            )
+        finally:
+            self._resync_sidecars()
+
+    @_locked
+    def host_confidences(self, rows: np.ndarray) -> np.ndarray:
+        """Exact f64 host confidences for *rows* (a copy; defaults when cold).
+
+        Deliberately does NOT sync pending state: host confidences are
+        authoritative at all times (the settle replay maintains them), and
+        skipping the sync is what lets chained settles stay device-resident.
+        """
+        return self._conf[rows].copy()
+
+    @_locked
+    def overwrite_confidences(self, rows: np.ndarray, values: np.ndarray) -> None:
+        """Replace confidences for *rows* with exact host-computed values.
+
+        The settlement pipeline keeps stored confidences bit-identical to
+        the scalar chain this way: the growth trajectory is data-independent
+        (one step per settled cycle), so the host replays it exactly
+        whatever rounding the device used.
+        """
+        self._conf[rows] = values
+        self._dirty[rows] = True
+        if self._pending is None:
+            self._invalidate()
+        # With a pending settled state the cache stays: stored confidences
+        # are always restored from the host side.
+
+    # -- device tier ---------------------------------------------------------
+
+    @_locked
+    def device_state(self, dtype=None):
+        """The flat device state, exactly ``len(store)`` rows, cached until
+        the next host write. Returns ``(DeviceReliabilityState, epoch0)``
+        with ``updated_days`` relative to ``epoch0``. Pending settlement
+        state is synced first, so the values are host-exact.
+
+        The tensors are the store's cache; the next settle may take them
+        over and update them in place.
+        """
+        self._sync_pending()
+        wanted = resolve_dtype(dtype)
+        if self._device_cache is not None:
+            state, cached_epoch0 = self._device_cache
+            if (
+                state.reliability.shape[0] != len(self._pairs)
+                or state.reliability.dtype != wanted
+            ):
+                self._device_cache = None
+                self._cache_conf_drifted = False
+            else:
+                if self._cache_conf_drifted:
+                    # Restore the host-exact confidences (one column upload)
+                    # before handing the cache to a host-exact consumer.
+                    used = int(state.confidence.shape[0])
+                    state = state._replace(
+                        confidence=torch.tensor(
+                            self._conf[:used], dtype=wanted, device=self.device
+                        )
+                    )
+                    self._device_cache = (state, cached_epoch0)
+                    self._cache_conf_drifted = False
+                return self._device_cache
+
+        self._device_cache = self._build_device_export(len(self._pairs), wanted)
+        self._cache_conf_drifted = False
+        return self._device_cache
+
+    def _build_device_export(self, length: int, dtype: torch.dtype):
+        """Host→device build of the first *length* rows (relative stamps).
+        Always a copy: on the CPU a shared buffer would let host writes
+        leak into a device state the settle chain still holds."""
+        stamps = self._days[:length]
+        epoch0 = self.epoch_origin()
+        relative = np.where(stamps > NEVER, stamps - epoch0, 0.0)
+        state = DeviceReliabilityState(
+            reliability=torch.tensor(
+                self._rel[:length], dtype=dtype, device=self.device
+            ),
+            confidence=torch.tensor(
+                self._conf[:length], dtype=dtype, device=self.device
+            ),
+            updated_days=torch.tensor(relative, dtype=dtype, device=self.device),
+            exists=torch.tensor(self._exists[:length], device=self.device),
+        )
+        return state, epoch0
+
+    @_locked
+    def epoch_origin(self) -> float:
+        """The epoch-days origin for relative device stamps (min live −1)."""
+        self._sync_pending()
+        used = len(self._pairs)
+        stamps = self._days[:used]
+        live = stamps[stamps > NEVER]
+        return float(live.min()) - 1.0 if live.size else 0.0
+
+    @_locked
+    def take_device_state(self, dtype=None):
+        """Pop the device state for a consumer that WILL ``defer_absorb`` a
+        successor (the settle path's private entry).
+
+        With a pending settled state, hand it forward WITHOUT syncing: the
+        successor subsumes every change in it, so chained settles stay
+        device-resident. A retained post-sync cache is consumed as-is,
+        drifted confidences included (stored confidences are always the
+        host replay). The arrays are CAPACITY-length: rows beyond
+        ``len(store)`` are cold-start pads, so a state survives new
+        interning up to the capacity it was exported at.
+        """
+        wanted = resolve_dtype(dtype)
+
+        if self._pending is not None:
+            state, epoch0 = self._pending
+            if (
+                state.reliability.shape[0] >= len(self._pairs)
+                and state.reliability.dtype == wanted
+            ):
+                self._pending = None
+                self._device_cache = None
+                self._cache_conf_drifted = False
+                return state, epoch0
+            # The store outgrew the pending arrays, or the caller wants a
+            # different precision: merge and rebuild from the host.
+            self._sync_pending()
+        if self._device_cache is not None:
+            state, epoch0 = self._device_cache
+            if (
+                state.reliability.shape[0] >= len(self._pairs)
+                and state.reliability.dtype == wanted
+            ):
+                self._device_cache = None
+                self._cache_conf_drifted = False
+                return state, epoch0
+        self._sync_pending()
+        return self._build_device_export(self._rel.shape[0], wanted)
+
+    @_locked
+    def defer_absorb(
+        self,
+        state: DeviceReliabilityState,
+        epoch0: float,
+        sync_recipe=None,
+    ) -> None:
+        """Adopt a settled device state as the pending (unsynced) state.
+
+        rel/days/exists merge into the host lazily, on the first host
+        read/write that needs them; confidences must be kept host-exact by
+        the caller via ``overwrite_confidences``. *state* also serves as
+        the device cache for a chained settle.
+
+        ``sync_recipe`` — ``(touched_rows, rel_touched_dev, stamp_rel)`` —
+        lets the eventual sync fetch only the touched rows. Recipes
+        accumulate across chained settles; without one, the sync falls
+        back to the full-state merge (which subsumes them).
+        """
+        if state.reliability.shape[0] > self._rel.shape[0]:
+            raise ValueError("pending state size exceeds the store capacity")
+        if self._pending is not None:
+            # Not chained through take_device_state: the predecessor's
+            # changes are not in *state* — merge them first.
+            self._sync_pending()
+        if sync_recipe is None:
+            self._pending_sync = None
+        else:
+            touched_rows, rel_touched_dev, stamp_rel = sync_recipe
+            self._pending_sync = self._append_sync_recipe(
+                self._pending_sync, touched_rows, rel_touched_dev, epoch0,
+                stamp_rel,
+            )
+        self._pending = (state, epoch0)
+        self._device_cache = (state, epoch0)
+
+    @_locked
+    def sync(self) -> None:
+        """Force any deferred settlement state into the host arrays now."""
+        self._sync_pending()
+
+    @_locked
+    def absorb(self, state: DeviceReliabilityState, epoch0: float) -> None:
+        """Write a mutated device state back into host-authoritative state.
+
+        Rows whose timestamp changed get a fresh ISO string derived from the
+        device stamp; all other sidecar strings are preserved exactly.
+        """
+        self._sync_pending()
+        used = len(self._pairs)
+        new_rel = _to_numpy(state.reliability)
+        if len(new_rel) != used:
+            raise ValueError(
+                f"device state has {len(new_rel)} rows, store has {used}"
+            )
+        self._merge_device_rows(
+            slice(0, used),
+            new_rel,
+            _to_numpy(state.confidence),
+            _to_numpy(state.updated_days),
+            _to_numpy(state.exists).astype(bool),
+            epoch0,
+        )
+
+    def _merge_device_rows(
+        self, idx, new_rel, new_conf, new_days_rel, new_exists, epoch0
+    ) -> None:
+        """Shared device→host merge. ``idx`` selects host rows: a ZERO-BASED
+        slice (whose positions are then the row numbers) or a unique row
+        array. ``new_conf=None`` skips the confidence merge."""
+        # The device may run float32; an untouched row's value round-trips
+        # through f32 and must NOT clobber the exact f64 host value.
+        # Overwrite only where the value changed *in device precision*.
+        device_dtype = new_rel.dtype
+        new_days = np.where(
+            new_days_rel > 0, new_days_rel.astype(np.float64) + epoch0, NEVER
+        )
+        host_days = self._days[idx]
+        host_relative = np.where(
+            host_days > NEVER, host_days - epoch0, 0.0
+        ).astype(device_dtype)
+        stamps_changed = new_days_rel != host_relative
+
+        host_rel = self._rel[idx]
+        rel_changed = new_rel != host_rel.astype(device_dtype)
+        self._rel[idx] = np.where(
+            rel_changed, new_rel.astype(np.float64), host_rel
+        )
+        if new_conf is None:
+            conf_changed = False
+        else:
+            host_conf = self._conf[idx]
+            conf_changed = new_conf != host_conf.astype(device_dtype)
+            self._conf[idx] = np.where(
+                conf_changed, new_conf.astype(np.float64), host_conf
+            )
+        self._days[idx] = np.where(stamps_changed, new_days, host_days)
+        touched = (
+            rel_changed | conf_changed | stamps_changed
+            | (new_exists != self._exists[idx])
+        )
+        self._exists[idx] = new_exists
+        if isinstance(idx, slice):
+            self._dirty[idx] |= touched
+        else:
+            self._dirty[idx[touched]] = True
+        # A settlement stamps every touched row with the same handful of
+        # day values, so format each UNIQUE stamp once.
+        changed_rows = (
+            np.nonzero(stamps_changed)[0] if isinstance(idx, slice)
+            else idx[stamps_changed]
+        )
+        if changed_rows.size:
+            uniq, inverse = np.unique(
+                self._days[changed_rows], return_inverse=True
+            )
+            iso_by_stamp = [days_to_iso(float(v)) for v in uniq]
+            for row, j in zip(changed_rows.tolist(), inverse.tolist()):
+                self._iso[row] = iso_by_stamp[j]
+        self._invalidate()
+
+    # -- durability (SQLite checkpoint format) -------------------------------
+
+    @classmethod
+    def from_sqlite(
+        cls, db_path: Union[str, Path], device=None
+    ) -> "TensorReliabilityStore":
+        """Load a reference-format SQLite DB into a store (checkpoint resume)."""
+        store = cls(device=device)
+        with SQLiteReliabilityStore(db_path) as sqlite_store:
+            for record in sqlite_store.list_sources():
+                store.put_record(record)
+        # The freshly-loaded state IS the file's state: flushing back to the
+        # same path stays incremental while the file still carries it.
+        used = len(store._pairs)
+        store._dirty[:used] = False
+        if str(db_path) != ":memory:":
+            store._last_flush_path = str(Path(db_path).resolve())
+            store._last_flush_fp = interchange_fingerprint(db_path)
+        return store
+
+    @_locked
+    def flush_to_sqlite(
+        self, db_path: Union[str, Path], incremental: Optional[bool] = None
+    ) -> int:
+        """Checkpoint existing rows into a reference-format SQLite DB.
+
+        Returns the number of rows written. ``incremental=None`` (auto)
+        upserts ONLY rows dirtied since the last flush when *db_path* is
+        the file that flush (or ``from_sqlite``) targeted and still carries
+        its content; otherwise it writes every row. Forcing ``True``
+        against another target raises. Rows are written in
+        (source_id, market_id) order, so repeated full flushes of the same
+        state produce identical DB bytes.
+        """
+        target, incremental, selected, dead, used = self._plan_flush(
+            db_path, incremental
+        )
+        written = self._write_sqlite_rows(db_path, selected, incremental, used)
+        if dead:
+            with SQLiteReliabilityStore(db_path) as sqlite_store:
+                id_of = self._pairs.id_of
+                sqlite_store.delete_rows(id_of(r) for r in dead)
+        if target is not None:
+            self._dirty[:used] = False
+            self._last_flush_path = target
+            self._last_flush_fp = interchange_fingerprint(target)
+        return written
+
+    def _plan_flush(self, db_path, incremental: Optional[bool]):
+        """Sync pending device state, resolve the incremental mode, and
+        select the rows to write / delete. Returns
+        ``(target, incremental, selected, dead, used)``."""
+        self._sync_pending()
+        in_memory = str(db_path) == ":memory:"
+        target = None if in_memory else str(Path(db_path).resolve())
+        same_target = (
+            target is not None
+            and self._last_flush_path == target
+            and Path(target).exists()
+            and (
+                self._last_flush_fp is None
+                or interchange_fingerprint(target) == self._last_flush_fp
+            )
+        )
+        if incremental is None:
+            incremental = same_target
+        elif incremental and not same_target:
+            raise ValueError(
+                f"incremental flush to {db_path} but the last full flush "
+                f"went to {self._last_flush_path!r} (or the file's content "
+                "fingerprint no longer matches that export) — an "
+                "incremental write would be an incomplete checkpoint"
+            )
+
+        used = len(self._pairs)
+        select = self._exists[:used].copy()
+        if incremental:
+            select &= self._dirty[:used]
+        # Rows whose exists flag flipped False since the last flush (only
+        # reachable through absorb() of a mutated device state) are DELETED
+        # from the file, or an incremental flush would strand them.
+        dead_mask = self._dirty[:used] & ~self._exists[:used]
+        dead = np.nonzero(dead_mask)[0].tolist() if same_target else []
+        selected = np.nonzero(select)[0]
+        return target, incremental, selected, dead, used
+
+    def _ordered_flush_rows(self, selected, incremental, used):
+        """Selected rows in (source_id, market_id) key order + a row→key
+        accessor; touches only the selected rows when few are selected."""
+        rows = selected.tolist()
+        if incremental and len(rows) * 8 < used:
+            id_of = self._pairs.id_of
+            keys = {r: id_of(r) for r in rows}
+        else:
+            keys = self._pairs.ids()
+        rows.sort(key=keys.__getitem__)
+        return rows, keys
+
+    def _write_sqlite_rows(
+        self, db_path, selected: np.ndarray, incremental: bool, used: int
+    ) -> int:
+        """Write *selected* rows in (source_id, market_id) order through the
+        sqlite3 module; returns the row count."""
+        rows, keys = self._ordered_flush_rows(selected, incremental, used)
+        order = np.asarray(rows, dtype=np.int64)
+        rel = self._rel[order].tolist()
+        conf = self._conf[order].tolist()
+        iso = self._iso
+        key_sel = [keys[r] for r in rows]
+        params = zip(
+            [k[0] for k in key_sel],
+            [k[1] for k in key_sel],
+            rel,
+            conf,
+            [iso[r] for r in rows],
+        )
+        with SQLiteReliabilityStore(db_path) as sqlite_store:
+            sqlite_store.put_rows(params)
+        return len(rows)

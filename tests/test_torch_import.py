@@ -1,0 +1,70 @@
+"""The port stands alone: importing it and settling on the CPU loads
+neither JAX nor any module of the JAX package, and its device policy is
+explicit (CUDA unless the CPU is asked for; no silent fallback)."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from bayesian_consensus_engine_tpu_torch import TensorReliabilityStore
+from bayesian_consensus_engine_tpu_torch.utils import device as device_policy
+
+_ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import sys
+sys.path.insert(0, {root!r})
+
+import bayesian_consensus_engine_tpu_torch as port
+from bayesian_consensus_engine_tpu_torch import convert
+
+store = port.TensorReliabilityStore(device="cpu")
+payloads = [
+    ("m1", [{{"sourceId": "a", "probability": 0.9}},
+            {{"sourceId": "b", "probability": 0.2}}]),
+    ("m2", []),
+]
+result = port.settle_payloads(store, payloads, [True, False], steps=3,
+                              now=20000.0)
+assert len(result.consensus) == 2 and len(store.list_sources()) == 2
+
+PACKAGE = "bayesian_consensus_engine_tpu"
+loaded = sorted(
+    name for name in sys.modules
+    if name == "jax" or name.startswith("jax.")
+    or name == PACKAGE or name.startswith(PACKAGE + ".")
+)
+assert not loaded, loaded
+assert any(name.startswith("bayesian_consensus_engine_tpu_torch")
+           for name in sys.modules)
+print("PORT_STANDS_ALONE")
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(root=str(_ROOT))],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PORT_STANDS_ALONE" in proc.stdout
+
+
+def test_store_without_cuda_raises_unless_cpu_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TensorReliabilityStore()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TensorReliabilityStore(device="cuda")
+    store = TensorReliabilityStore(device="cpu")
+    assert store.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int32, "float32"])
+def test_unsupported_dtypes_raise(dtype):
+    with pytest.raises(ValueError, match="float32 or"):
+        device_policy.resolve_dtype(dtype)
+    assert device_policy.resolve_dtype(None) is torch.float32
