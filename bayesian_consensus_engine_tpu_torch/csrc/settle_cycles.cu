@@ -33,12 +33,12 @@
 // library and the K-sum runs in slot order. Built without
 // --use_fast_math (it would change exp2f and division and flush denormals).
 //
-// Bound. Device-memory bytes: per real slot the row's rel, conf and exists
-// are read (and its stamp when steps == 1) and rel, conf and stamp are
-// written (exists only where it turns true); per plan slot the row index,
-// probability and mask are read; per market the outcome and its
-// rel_touched offset are read and the consensus written; per touched row
-// its settled reliability is written. The random row gather is what will
+// Bound. Device-memory bytes: per plan slot the mask is read; per real
+// slot its row index, probability and its row's exists are read, the row's
+// rel and conf only if it exists (and its stamp when steps == 1), and rel,
+// conf, stamp and rel_touched are written (exists only where it turns
+// true); per market the outcome and its rel_touched offset are read and
+// the consensus written. The random row gather is what will
 // hold the kernel back: each 4- or 8-byte access pulls a 32-byte sector.
 
 #include <cuda_runtime.h>

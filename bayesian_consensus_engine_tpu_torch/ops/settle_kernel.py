@@ -9,14 +9,14 @@ the gather, the N-step loop and the scatter that
 called through ``ctypes``.
 
 What bounds it. Device-memory bytes, not arithmetic (a few dozen
-operations per slot per step): per real slot, its row's reliability,
-confidence and existence are read (and its stamp when ``steps == 1``) and
-reliability, confidence and stamp written (existence only where it turns
-true); per plan slot, the row index, probability and mask are read; per
-market, the outcome and a ``touched_offsets`` entry are read and the
-consensus written; per touched row, its settled reliability is written.
-:func:`bound_bytes` counts exactly that, and its quotient by the card's
-memory rate is the kernel's bound. The random row gather is what will hold
+operations per slot per step): per plan slot, the mask is read; per real
+slot, its row index, probability and its row's existence are read, its
+row's reliability and confidence only if the row exists (and its stamp
+when ``steps == 1``), and reliability, confidence, stamp and
+``rel_touched`` written (existence only where it turns true); per market,
+the outcome and a ``touched_offsets`` entry are read and the consensus
+written. :func:`bound_bytes` counts exactly that for the inputs at hand,
+and its quotient by the card's memory rate is the kernel's bound. The random row gather is what will hold
 it back: each element pulls a whole 32-byte sector.
 
 What the design does about it. One thread per market walks its K slots;
@@ -317,16 +317,29 @@ def settle_cycles(
 
 
 def bound_bytes(
-    num_slots: int, num_markets: int, num_touched: int, newly_existing: int,
+    num_slots: int, num_markets: int, num_touched: int, num_existing: int,
     steps: int, itemsize: int,
 ) -> int:
-    """Device-memory bytes one settle must move: each input read once and
-    each output written once (see the module note)."""
-    plan = num_slots * num_markets * (4 + itemsize + 1)
-    markets = num_markets * (1 + 8 + itemsize)
-    touched = num_touched * itemsize  # rel_touched
+    """Device-memory bytes one settle must move on these inputs: each byte
+    the kernel needs read once and each output written once.
+
+    ``num_touched`` counts the masked slots (each owns one row) and
+    ``num_existing`` those whose row already exists: only those rows'
+    reliability and confidence (and, when ``steps == 1``, stamp) are read.
+    The mask is read for every plan slot, the row index and probability
+    only for masked ones.
+    """
+    mask = num_slots * num_markets
+    rel_touched = num_touched * itemsize
     if steps == 0:
-        return plan + markets + touched + num_touched * itemsize
-    reads = num_touched * (2 * itemsize + 1 + (itemsize if steps == 1 else 0))
-    writes = num_touched * 3 * itemsize + newly_existing
-    return plan + markets + touched + reads + writes
+        # Row index and stored reliability in, rel_touched and a zero
+        # consensus out; offsets per market.
+        return (
+            mask + num_touched * (4 + itemsize) + rel_touched
+            + num_markets * (8 + itemsize)
+        )
+    slots = num_touched * (4 + itemsize + 1)  # row index, probability, exists
+    markets = num_markets * (1 + 8 + itemsize)  # outcome, offset, consensus
+    state_reads = num_existing * itemsize * (3 if steps == 1 else 2)
+    state_writes = num_touched * 3 * itemsize + (num_touched - num_existing)
+    return mask + slots + markets + state_reads + state_writes + rel_touched

@@ -136,15 +136,22 @@ def test_wrapper_refuses_other_devices():
 
 
 def test_bound_bytes_counts_each_byte_once():
-    # f32, 2 slots x 3 markets, 4 touched rows, 1 newly existing, 20 steps.
-    plan = 2 * 3 * (4 + 4 + 1)
-    markets = 3 * (1 + 8 + 4)
-    touched = 4 * 4 + 4 * (4 + 4 + 1) + 4 * 12 + 1
-    assert settle_kernel.bound_bytes(2, 3, 4, 1, 20, 4) == plan + markets + touched
-    # steps == 1 also reads each touched row's stamp.
-    assert (
-        settle_kernel.bound_bytes(2, 3, 4, 1, 1, 4)
-        == plan + markets + touched + 4 * 4
+    # f32, 2 slots x 3 markets, 4 masked slots of which 3 rows exist.
+    mask = 2 * 3
+    markets = 3 * (1 + 8 + 4)  # outcome, offset, consensus
+    slots = 4 * (4 + 4 + 1)  # row index, probability, exists
+    writes = 4 * (3 * 4 + 4) + 1  # rel, conf, stamp, rel_touched; 1 turns on
+    reads = 3 * 2 * 4  # rel and conf of the existing rows only
+    steady = mask + markets + slots + writes + reads
+    assert settle_kernel.bound_bytes(2, 3, 4, 3, 20, 4) == steady
+    # A cold block reads no stored state and turns every row on.
+    assert settle_kernel.bound_bytes(2, 3, 4, 0, 20, 4) == steady - reads + 3
+    # steps == 1 also reads each existing row's stamp.
+    assert settle_kernel.bound_bytes(2, 3, 4, 3, 1, 4) == steady + 3 * 4
+    # steps == 0 reads the row index and stored reliability of each
+    # masked slot and writes rel_touched and the consensus.
+    assert settle_kernel.bound_bytes(2, 3, 4, 3, 0, 4) == (
+        mask + 4 * (4 + 4) + 4 * 4 + 3 * (8 + 4)
     )
 
 
