@@ -7,37 +7,51 @@ bottom → top, each module named after its JAX counterpart:
   utils/        constants (``config``), time conversion, interning, and
                 the device/dtype policy (``device``)
   ops/          the cycle as plain tensor math (``decay``, ``update``,
-                ``cycle_math``) and the hand-written CUDA settle kernel
-                (``settle_kernel`` + ``csrc/settle_cycles.cu``)
+                ``cycle_math``), the tie-break and band math
+                (``tiebreak``, ``uncertainty``), and the hand-written CUDA
+                kernels (``settle_kernel`` + ``csrc/settle_cycles.cu``,
+                ``onepass_kernel`` + ``csrc/onepass_settle.cu``, both
+                built by ``cuda_build``)
   core/         host packing: payloads → ordered pair arrays (``batch``)
   state/        scalar decay/update math, the SQLite checkpoint backend,
                 and the device-tensor store (``tensor_store``)
-  pipeline      plan → settle → deferred absorb → SQLite checkpoint
+  parallel/     the fused settle + analytics loop over a resident block
+                (``sharded``, one card)
+  analytics/    the options bag of the analytics entry (``bands``)
+  pipeline      plan → settle → deferred absorb → SQLite checkpoint, and
+                the resident one-card session (``ShardedSettlementSession``)
   convert       build a store from either package's records
 
 The device is explicit: a store is on CUDA unless ``device="cpu"`` is
-passed, and without CUDA it raises. On CUDA every settle is one launch of
-the settle kernel; on the CPU the kernel's plain torch version runs.
+passed, and without CUDA it raises. On CUDA every flat settle is one launch
+of the settle kernel and every session settle one launch of the one-pass
+kernel; on the CPU each kernel's plain torch version runs.
 """
 
+from bayesian_consensus_engine_tpu_torch.analytics import AnalyticsOptions
 from bayesian_consensus_engine_tpu_torch.pipeline import (
     SettlementPlan,
     SettlementResult,
+    ShardedSettlementSession,
     build_settlement_plan,
     build_settlement_plan_columnar,
     settle,
     settle_payloads,
+    settle_sharded,
 )
 from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
     TensorReliabilityStore,
 )
 
 __all__ = [
+    "AnalyticsOptions",
     "SettlementPlan",
     "SettlementResult",
+    "ShardedSettlementSession",
     "TensorReliabilityStore",
     "build_settlement_plan",
     "build_settlement_plan_columnar",
     "settle",
     "settle_payloads",
+    "settle_sharded",
 ]

@@ -1,0 +1,23 @@
+"""Analytics tier of the port: the options bag of the fused session entry.
+
+``ShardedSettlementSession.settle_with_analytics`` runs the settle cycles,
+the ring tie-break and the uncertainty bands in one pass over the resident
+block (on CUDA, one launch of the one-pass kernel). Like the JAX package's
+tier, it is pure-additive: settle results, store state and SQLite bytes
+are the same with analytics on or off. The graph sweep (``MarketGraph``),
+the standalone band program and the chunk tuner are not ported yet.
+"""
+
+from bayesian_consensus_engine_tpu_torch.analytics.bands import AnalyticsOptions
+from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
+    DEFAULT_CHUNK_SLOTS,
+    UncertaintyBands,
+    Z_95,
+)
+
+__all__ = [
+    "AnalyticsOptions",
+    "DEFAULT_CHUNK_SLOTS",
+    "UncertaintyBands",
+    "Z_95",
+]

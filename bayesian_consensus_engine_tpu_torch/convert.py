@@ -5,15 +5,21 @@ either the record list that ``list_sources()`` of either package returns,
 or the same five columns given directly — source ids, market ids,
 reliabilities, confidences and ISO ``updated_at`` strings, as lists or
 numpy arrays. ``TensorReliabilityStore.from_sqlite`` is the file route.
+:func:`block_state_from_numpy` builds a slot-major block state from numpy
+arrays, so that one block can be fed to both packages.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
+from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
 from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
     TensorReliabilityStore,
 )
+from bayesian_consensus_engine_tpu_torch.utils.device import resolve_device
 from bayesian_consensus_engine_tpu_torch.utils.timeconv import iso_to_days
 
 
@@ -60,3 +66,26 @@ def store_from_records(records, device=None) -> TensorReliabilityStore:
     for row, value in zip(rows.tolist(), iso):
         store._iso[row] = value
     return store
+
+
+def block_state_from_numpy(
+    reliability, confidence, updated_days, exists, device=None,
+) -> MarketBlockState:
+    """The port's :class:`MarketBlockState` from a block state given as
+    numpy arrays (as ``np.asarray`` of the JAX package's fields gives
+    them): three float arrays of one dtype and a bool ``exists``, all of
+    one shape. The tensors are copies on *device* (``None`` means CUDA)."""
+    device = resolve_device(device)
+    floats = [np.asarray(x) for x in (reliability, confidence, updated_days)]
+    exists = np.asarray(exists)
+    if len({x.dtype for x in floats}) != 1 or floats[0].dtype.kind != "f":
+        raise ValueError("reliability, confidence and updated_days must share "
+                         "one float dtype")
+    if exists.dtype != np.bool_:
+        raise ValueError(f"exists must be bool, not {exists.dtype}")
+    if len({x.shape for x in floats} | {exists.shape}) != 1:
+        raise ValueError("the block state's arrays differ in shape")
+    return MarketBlockState(
+        *(torch.tensor(x, device=device) for x in floats),
+        exists=torch.tensor(exists, device=device),
+    )

@@ -26,12 +26,10 @@
 // Unmasked slots are neither read nor written: make_loop_math restores
 // them bit-identical, which leaves their rows as they were.
 //
-// Numerics. The state math uses the _rn intrinsics, which nvcc may not
-// contract into an FMA, so the stored reliability, confidence, stamp and
-// existence are bit-equal to the plain version's separately rounded torch
-// operations. Only the consensus differs: exp2 comes from CUDA's math
-// library and the K-sum runs in slot order. Built without
-// --use_fast_math (it would change exp2f and division and flush denormals).
+// Numerics. The per-slot math lives in settle_math.cuh (shared with
+// onepass_settle.cu): stored reliability, confidence, stamp and existence
+// are bit-equal to the plain version's. Only the consensus differs: exp2
+// comes from CUDA's math library and the K-sum runs in slot order.
 //
 // Bound. Device-memory bytes: per plan slot the mask is read; per real
 // slot its row index, probability and its row's exists are read, the row's
@@ -41,59 +39,13 @@
 // the consensus written. The random row gather is what will
 // hold the kernel back: each 4- or 8-byte access pulls a 32-byte sector.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "settle_math.cuh"
 
 namespace {
 
-constexpr double kDefaultReliability = 0.50;
-constexpr double kDefaultConfidence = 0.25;
-constexpr double kHalfLifeDays = 30.0;
-constexpr double kDecayFloor = 0.10;
-constexpr double kBaseLearningRate = 0.15;
-constexpr double kMaxUpdateStep = 0.10;
-constexpr double kConfidenceGrowth = 0.10;
+using namespace settle_math;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float exp2_(float x) { return exp2f(x); }
-__device__ __forceinline__ double exp2_(double x) { return exp2(x); }
-
-// jnp.clip / torch.clamp: NaN passes through.
-template <typename T>
-__device__ __forceinline__ T clip(T x, T lo, T hi) {
-  x = x < lo ? lo : x;
-  return x > hi ? hi : x;
-}
-
-// ops/decay.py::decayed_reliability_at on a slot that is eligible
-// (exists and stamped): decay toward the floor, clamped, where time passed.
-template <typename T>
-__device__ __forceinline__ T decayed(T rel, T elapsed) {
-  const T floor_ = T(kDecayFloor);
-  const T factor = exp2_(-elapsed / T(kHalfLifeDays));
-  const T value = add_rn(floor_, mul_rn(sub_rn(rel, floor_), factor));
-  return elapsed > T(0) ? clip(value, floor_, T(1)) : rel;
-}
-
-// ops/update.py::outcome_update, reliability half.
-template <typename T>
-__device__ __forceinline__ T update_rel(T rel, T delta) {
-  return clip(add_rn(rel, delta), T(0), T(1));
-}
-
-// ops/update.py::outcome_update, confidence half.
-template <typename T>
-__device__ __forceinline__ T grow_conf(T conf) {
-  const T grown = add_rn(conf, mul_rn(sub_rn(T(1), conf), T(kConfidenceGrowth)));
-  return grown > T(1) ? T(1) : grown;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) settle_cycles_kernel(
@@ -127,15 +79,7 @@ __global__ void __launch_bounds__(kThreads) settle_cycles_kernel(
   }
 
   const bool outcome_m = outcome[m] != 0;
-  // Step i runs at now0 + i, rounded in T, as make_loop_math computes it.
-  const T now_last = add_rn(now0, T(steps - 1));
-  // From step 1 on every masked slot carries the previous step's stamp,
-  // so the last step's decay is one scalar (_fast_cycle_math).
-  const T prev_last = add_rn(now0, T(steps - 2));
-  T elapsed_last = sub_rn(now_last, prev_last);
-  elapsed_last = elapsed_last < T(0) ? T(0) : elapsed_last;
-  const bool eligible_last = prev_last > T(0);
-  const T max_step = T(kMaxUpdateStep);
+  const StepTimes<T> times = step_times(now0, steps);
 
   T total_weight = T(0);
   T weighted_prob = T(0);
@@ -157,37 +101,14 @@ __global__ void __launch_bounds__(kThreads) settle_cycles_kernel(
     }
 
     const T p = probs[idx];
-    const bool correct = (p >= T(0.5)) == outcome_m;
-    const T raw = mul_rn(T(kBaseLearningRate), correct ? T(1) : T(-1));
-    const T delta = clip(raw, -max_step, max_step);
-
-    // Steps 0 .. steps-2: their consensus is discarded, so only the
-    // state moves.
-    for (int64_t s = 0; s + 1 < steps; ++s) {
-      r = update_rel(r, delta);
-      c = grow_conf(c);
-    }
-
-    // The last step's decayed read: against the slot's own stamp when it
-    // is step 0 (_cycle_math), against the scalar previous step otherwise.
-    T weight;
-    if (steps == 1) {
-      T elapsed = sub_rn(now0, d);
-      elapsed = elapsed < T(0) ? T(0) : elapsed;
-      weight = d > T(0) ? decayed(r, elapsed) : r;
-    } else {
-      weight = eligible_last ? decayed(r, elapsed_last) : r;
-    }
+    const T weight = settle_slot(r, c, d, p, outcome_m, steps, times);
     total_weight = add_rn(total_weight, weight);
     weighted_prob = add_rn(weighted_prob, mul_rn(p, weight));
-
-    r = update_rel(r, delta);
-    c = grow_conf(c);
 
     if (row >= 0) {
       rel[row] = r;
       conf[row] = c;
-      days[row] = now_last;
+      days[row] = times.now_last;
       if (!existed) exists[row] = 1;
     }
     rel_touched[t++] = r;

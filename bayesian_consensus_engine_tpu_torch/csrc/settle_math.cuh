@@ -1,0 +1,132 @@
+// settle_math.cuh: the per-slot settle-cycle arithmetic both kernels share
+// (settle_cycles.cu, onepass_settle.cu), as device functions.
+//
+// Each function is the CUDA form of one of the plain torch functions in
+// ops/decay.py, ops/update.py and ops/cycle_math.py. The state math uses
+// the _rn intrinsics, which nvcc may not contract into an FMA, and an
+// explicit FMA where the plain version has one (ops/fma.py), so the stored
+// reliability, confidence and stamp are bit-equal to the plain version's. exp2 comes from CUDA's
+// math library; the kernels are built without --use_fast_math.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace settle_math {
+
+constexpr double kDefaultReliability = 0.50;
+constexpr double kDefaultConfidence = 0.25;
+constexpr double kHalfLifeDays = 30.0;
+constexpr double kDecayFloor = 0.10;
+constexpr double kBaseLearningRate = 0.15;
+constexpr double kMaxUpdateStep = 0.10;
+constexpr double kConfidenceGrowth = 0.10;
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float exp2_(float x) { return exp2f(x); }
+__device__ __forceinline__ double exp2_(double x) { return exp2(x); }
+
+// jnp.clip / torch.clamp: NaN passes through.
+template <typename T>
+__device__ __forceinline__ T clip(T x, T lo, T hi) {
+  x = x < lo ? lo : x;
+  return x > hi ? hi : x;
+}
+
+// ops/decay.py::decayed_reliability_at on a slot that is eligible
+// (exists and stamped): decay toward the floor, clamped, where time passed.
+template <typename T>
+__device__ __forceinline__ T decayed(T rel, T elapsed) {
+  const T floor_ = T(kDecayFloor);
+  // -t / h as a multiplication by the reciprocal, as XLA and the plain
+  // version (ops/decay.py) compute it.
+  const T factor = exp2_(mul_rn(-elapsed, T(1.0 / kHalfLifeDays)));
+  const T value = add_rn(floor_, mul_rn(sub_rn(rel, floor_), factor));
+  return elapsed > T(0) ? clip(value, floor_, T(1)) : rel;
+}
+
+// ops/cycle_math.py::read_phase for one slot at `now`: the decayed stored
+// reliability, or the cold-start prior for a slot whose row does not exist.
+template <typename T>
+__device__ __forceinline__ T read_reliability(bool exists, T rel, T days, T now) {
+  if (!exists) return T(kDefaultReliability);
+  T elapsed = sub_rn(now, days);
+  elapsed = elapsed < T(0) ? T(0) : elapsed;
+  return days > T(0) ? decayed(rel, elapsed) : rel;
+}
+
+// ops/update.py::outcome_update, reliability half.
+template <typename T>
+__device__ __forceinline__ T update_rel(T rel, T delta) {
+  return clip(add_rn(rel, delta), T(0), T(1));
+}
+
+// ops/update.py::outcome_update, confidence half: one fused multiply-add,
+// as XLA contracts it in the JAX package's fused settle program.
+template <typename T>
+__device__ __forceinline__ T grow_conf(T conf) {
+  const T grown = fma_rn(sub_rn(T(1), conf), T(kConfidenceGrowth), conf);
+  return grown > T(1) ? T(1) : grown;
+}
+
+// The times every slot of a `steps`-step loop (steps >= 1) shares. Step i
+// runs at now0 + i, rounded in T, as make_loop_math computes it. From step
+// 1 on every masked slot carries the previous step's stamp, so the last
+// step's decay is one scalar (_fast_cycle_math).
+template <typename T>
+struct StepTimes {
+  T now0;
+  T now_last;
+  T elapsed_last;
+  bool eligible_last;
+};
+
+template <typename T>
+__device__ __forceinline__ StepTimes<T> step_times(T now0, int64_t steps) {
+  StepTimes<T> t;
+  t.now0 = now0;
+  t.now_last = add_rn(now0, T(steps - 1));
+  const T prev_last = add_rn(now0, T(steps - 2));
+  const T elapsed = sub_rn(t.now_last, prev_last);
+  t.elapsed_last = elapsed < T(0) ? T(0) : elapsed;
+  t.eligible_last = prev_last > T(0);
+  return t;
+}
+
+// One masked slot's whole `steps`-step loop (steps >= 1) in registers.
+// `rel` and `conf` enter as the slot's sanitised state (the cold-start
+// prior for a cold slot) and leave settled; `days` is its stamp (0 when
+// cold), read only by step 0's decay when steps == 1. Steps 0 .. steps-2
+// only move the state (their consensus is discarded); the return value is
+// the last step's decayed read weight, which feeds the market's sums.
+template <typename T>
+__device__ __forceinline__ T settle_slot(T& rel, T& conf, T days, T prob,
+                                         bool outcome, int64_t steps,
+                                         const StepTimes<T>& t) {
+  const bool correct = (prob >= T(0.5)) == outcome;
+  const T raw = mul_rn(T(kBaseLearningRate), correct ? T(1) : T(-1));
+  const T delta = clip(raw, -T(kMaxUpdateStep), T(kMaxUpdateStep));
+  for (int64_t s = 0; s + 1 < steps; ++s) {
+    rel = update_rel(rel, delta);
+    conf = grow_conf(conf);
+  }
+  // The last step's read: against the slot's own stamp when it is step 0
+  // (_cycle_math), against the scalar previous step otherwise.
+  const T weight = steps == 1
+      ? read_reliability(true, rel, days, t.now0)
+      : (t.eligible_last ? decayed(rel, t.elapsed_last) : rel);
+  rel = update_rel(rel, delta);
+  conf = grow_conf(conf);
+  return weight;
+}
+
+}  // namespace settle_math

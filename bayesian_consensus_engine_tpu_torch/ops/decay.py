@@ -8,7 +8,12 @@ Same contract as the scalar path (``state.decay``):
 Decay is a pure read-time transform; the stored tensor stays undecayed.
 Timestamps live on the device as float epoch-days relative to the store's
 epoch, so "elapsed days" is one subtract. The operations run in the order
-the JAX package writes them, each rounded in the tensor's dtype.
+the JAX package writes them, each rounded in the tensor's dtype. The
+division by the half-life is a multiplication by its reciprocal, rounded
+to the dtype: that is what XLA compiles ``-t / h`` into, what PyTorch's
+CUDA division by a scalar does, and what the kernels do, so the decay's
+argument is the same bits everywhere (PyTorch's CPU division would
+otherwise round differently).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ def decay_factor(
     half_life_days: float = DECAY_HALF_LIFE_DAYS,
 ) -> torch.Tensor:
     """Elementwise ``2^(-t/h)``, pinned to 1 for non-positive elapsed time."""
-    factor = torch.exp2(-elapsed_days / half_life_days)
+    factor = torch.exp2(-elapsed_days * (1.0 / half_life_days))
     return torch.where(elapsed_days > 0, factor, 1.0)
 
 
@@ -41,7 +46,7 @@ def decayed_reliability(
     Entries with non-positive elapsed time pass through UNCLAMPED, matching
     the scalar path's early return.
     """
-    factor = torch.exp2(-elapsed_days / half_life_days)
+    factor = torch.exp2(-elapsed_days * (1.0 / half_life_days))
     decayed = floor + (reliability - floor) * factor
     clamped = torch.clamp(decayed, floor, 1.0)
     return torch.where(elapsed_days > 0, clamped, reliability)

@@ -4,9 +4,9 @@ What it replaces. ``ops/pallas_cycle.py::_fused_cycle_kernel`` of the JAX
 package, which runs one settle cycle on a slot-major (K, TILE_M) tile, and
 the gather, the N-step loop and the scatter that
 ``pipeline.py::_settle_math`` wraps around the cycle. The source is
-``csrc/settle_cycles.cu`` (CUDA C++ for ``sm_90a``); it is compiled with
-``nvcc`` at first use into a shared library with a plain C interface and
-called through ``ctypes``.
+``csrc/settle_cycles.cu`` (CUDA C++ for ``sm_90a``); ``ops/cuda_build``
+compiles it with ``nvcc`` at first use into a shared library with a plain
+C interface, called through ``ctypes``.
 
 What bounds it. Device-memory bytes, not arithmetic (a few dozen
 operations per slot per step): per plan slot, the mask is read; per real
@@ -40,17 +40,14 @@ it cannot; only CPU tensors take the plain version,
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from bayesian_consensus_engine_tpu_torch.ops import cuda_build
+from bayesian_consensus_engine_tpu_torch.ops.cuda_build import check_tensor
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
     MarketBlockState,
     _cycle_math,
@@ -66,13 +63,6 @@ from bayesian_consensus_engine_tpu_torch.utils.config import (
 LAUNCHES = 0
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "settle_cycles.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / ".torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-_library = None
 
 
 class SettleOutputs(NamedTuple):
@@ -84,70 +74,15 @@ class SettleOutputs(NamedTuple):
     rel_touched: torch.Tensor   # (num_touched,) settled rel, market-major
 
 
-def _nvcc() -> str:
-    for candidate in (
-        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if candidate and os.path.isfile(candidate):
-            return candidate
-    raise RuntimeError("nvcc not found: the settle kernel needs the CUDA toolkit")
-
-
-def library_path() -> Path:
-    """Where the build of the current source lives (keyed by its hash)."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"settle_cycles-{digest.hexdigest()[:16]}.so"
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernel if its build is missing; returns (library, log).
-
-    The log is nvcc's output (``-Xptxas -v``: registers, spills), empty
-    when an earlier build of the same source was reused. The library is
-    written under a temporary name and renamed, so concurrent builders
-    never load a half-written file.
-    """
-    target = library_path()
-    if target.exists():
-        return target, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {SOURCE.name}:\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return target, proc.stdout + proc.stderr
-
-
 def _load():
-    global _library
-    if _library is None:
-        path, _log = build()
-        lib = ctypes.CDLL(str(path))
-        argtypes = (
+    return cuda_build.load(SOURCE, {
+        name: (
             [ctypes.c_void_p] * 11
             + [ctypes.c_double, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                ctypes.c_void_p]
         )
-        for name in ("settle_cycles_f32", "settle_cycles_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _library = lib
-    return _library
+        for name in ("settle_cycles_f32", "settle_cycles_f64")
+    })
 
 
 def touched_layout(slot_rows: np.ndarray, mask: np.ndarray):
@@ -229,21 +164,6 @@ def settle_cycles_reference(
     )
 
 
-def _check(name, tensor, dtype, shape, device):
-    if not isinstance(tensor, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if tensor.device != device:
-        raise ValueError(f"{name} is on {tensor.device}, expected {device}")
-    if tensor.dtype != dtype:
-        raise TypeError(f"{name} has dtype {tensor.dtype}, expected {dtype}")
-    if tuple(tensor.shape) != tuple(shape):
-        raise ValueError(
-            f"{name} has shape {tuple(tensor.shape)}, expected {tuple(shape)}"
-        )
-    if not tensor.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def settle_cycles(
     rel, conf, days, exists, slot_rows, probs, mask, outcome,
     touched_offsets, num_touched: int, now0: float, steps: int,
@@ -281,15 +201,15 @@ def settle_cycles(
     if slot_rows.dim() != 2:
         raise ValueError("slot_rows must be (K, M)")
     num_slots, num_markets = slot_rows.shape
-    _check("rel", rel, dtype, (capacity,), device)
-    _check("conf", conf, dtype, (capacity,), device)
-    _check("days", days, dtype, (capacity,), device)
-    _check("exists", exists, torch.bool, (capacity,), device)
-    _check("slot_rows", slot_rows, torch.int32, (num_slots, num_markets), device)
-    _check("probs", probs, dtype, (num_slots, num_markets), device)
-    _check("mask", mask, torch.bool, (num_slots, num_markets), device)
-    _check("outcome", outcome, torch.bool, (num_markets,), device)
-    _check(
+    check_tensor("rel", rel, dtype, (capacity,), device)
+    check_tensor("conf", conf, dtype, (capacity,), device)
+    check_tensor("days", days, dtype, (capacity,), device)
+    check_tensor("exists", exists, torch.bool, (capacity,), device)
+    check_tensor("slot_rows", slot_rows, torch.int32, (num_slots, num_markets), device)
+    check_tensor("probs", probs, dtype, (num_slots, num_markets), device)
+    check_tensor("mask", mask, torch.bool, (num_slots, num_markets), device)
+    check_tensor("outcome", outcome, torch.bool, (num_markets,), device)
+    check_tensor(
         "touched_offsets", touched_offsets, torch.int64, (num_markets + 1,),
         device,
     )

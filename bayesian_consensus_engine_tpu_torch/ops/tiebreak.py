@@ -1,0 +1,239 @@
+"""The ring tie-break at one device — the torch twin of ``ops/tiebreak.py``.
+
+For each market, every valid agent (a signalling slot) enters with a
+prediction, a weight, a confidence and a reliability score. Predictions
+are quantised to ``precision`` decimals (``key = round(p·10^precision)``,
+round half to even); agents with the same key form a group. Groups are
+ranked by the scalar hierarchy (reference: tiebreak.py:112-117): higher
+weight density (group weight over group size), then higher maximum
+reliability, then the smaller key. The result per market is the winning
+group's rescaled key, its density and maximum reliability, how the
+decision fell (``resolved_by``), the number of groups, and the population
+variance of the valid agents' confidences.
+
+Only the one-device form of ``ring_tiebreak_math`` is ported
+(``axis_name=None``, ``axis_size=1``): the ring hops, psums and the
+cross-device top-2 fold wait for the multi-GPU slice. ``chunk_agents``
+keeps its meaning — the local agents are processed in fixed-width chunks
+whose top two groups fold into a per-market carry — and, as in the JAX
+package, no result depends on it.
+
+Summation order. Each group weight and the two confidence sums are taken
+in agent order 0 … A−1, one agent at a time, which is also the order the
+CUDA one-pass kernel (``csrc/onepass_settle.cu``) adds them in. XLA's CPU
+reduction runs in that order for widths up to 16; beyond that its order
+differs, and so do the last bits of a group density.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from bayesian_consensus_engine_tpu_torch.ops.fma import fma
+
+#: The recorded default chunk width (``ops/tiebreak.py`` of the JAX
+#: package): the memory-diet default of the fused resident program.
+DEFAULT_CHUNK_AGENTS = 1024
+
+#: Empty top-2 slot key; a real key never reaches it (|p·10^6| ≪ 2^31).
+_SENTINEL = 2**31 - 1
+#: Key of an invalid agent, distinct from the sentinel.
+_INVALID_KEY = -(2**31)
+
+
+class RingTieBreakResult(NamedTuple):
+    """Tie-break outputs, one entry per market.
+
+    ``resolved_by``: 0 unanimous (one group), 1 weight_density,
+    2 prediction_value_smallest (a full tie on density and maximum
+    reliability). A market with no valid agent reports
+    ``prediction = inf``, ``-inf`` group metrics, 0 groups and variance 0.
+    """
+
+    prediction: torch.Tensor           # f32[M] winning key / 10^precision
+    weight_density: torch.Tensor       # f32[M]
+    max_reliability: torch.Tensor      # f32[M]
+    resolved_by: torch.Tensor          # i32[M]
+    num_groups: torch.Tensor           # i32[M]
+    confidence_variance: torch.Tensor  # f32[M]
+
+
+def _lex_ge(ad, ar, ak, bd, br, bk):
+    """Does group a beat or tie group b under (density, max_rel,
+    smallest key)? Keys are unique per group, so this is a total order."""
+    return (ad > bd) | ((ad == bd) & ((ar > br) | ((ar == br) & (ak <= bk))))
+
+
+def _sel(cond, a, b):
+    return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
+
+
+def _mask_key(entry, key):
+    """Demote *entry* to the empty slot where its key equals *key*."""
+    d, r, k = entry
+    hit = k == key
+    return (
+        torch.where(hit, -torch.inf, d),
+        torch.where(hit, -torch.inf, r),
+        torch.where(hit, _SENTINEL, k),
+    )
+
+
+def _merge_top2(a, b):
+    """Merge two per-market (winner, runner-up) pairs of distinct groups.
+
+    ``a``/``b`` are ``(d1, r1, k1, d2, r2, k2)`` tuples of (M,) tensors,
+    empty slots at ``(-inf, -inf, _SENTINEL)``. The same group seen from
+    both sides carries identical stats, so deduplication is key equality.
+    """
+    a1, a2 = (a[0], a[1], a[2]), (a[3], a[4], a[5])
+    b1, b2 = (b[0], b[1], b[2]), (b[3], b[4], b[5])
+    a_wins = _lex_ge(*a1, *b1)
+    win = _sel(a_wins, a1, b1)
+    lose = _sel(a_wins, b1, a1)
+    cands = [_mask_key(lose, win[2]), _mask_key(a2, win[2]),
+             _mask_key(b2, win[2])]
+    best = cands[0]
+    for cand in cands[1:]:
+        best = _sel(_lex_ge(*best, *cand), best, cand)
+    return win + best
+
+
+def _agent(x: torch.Tensor, i: int, agents_last: bool) -> torch.Tensor:
+    return x[:, i] if agents_last else x[i]
+
+
+def ring_tiebreak_math(
+    pred: torch.Tensor,
+    weight: torch.Tensor,
+    conf: torch.Tensor,
+    rel: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    precision: int = 6,
+    chunk_agents: "int | None" = None,
+    agents_last: bool = True,
+) -> RingTieBreakResult:
+    """Chunked group-metric tie-break over one device's agents.
+
+    Blocks are ``(M, A)`` with ``agents_last=True`` or slot-major
+    ``(A, M)`` with ``agents_last=False`` (the fused settle's layout).
+    Everything is computed in float32, as the JAX package does.
+    ``chunk_agents`` bounds the working set (``None``: one chunk of every
+    agent); a ragged tail runs as one more, narrower chunk.
+    """
+    f32 = torch.float32
+    pred, weight = pred.to(f32), weight.to(f32)
+    conf, rel = conf.to(f32), rel.to(f32)
+    scale = 10.0**precision
+    agents_axis = 1 if agents_last else 0
+    num_agents = pred.shape[agents_axis]
+    markets = pred.shape[0 if agents_last else 1]
+    device = pred.device
+    chunk = (
+        num_agents if chunk_agents is None
+        else max(1, min(int(chunk_agents), num_agents))
+    )
+
+    keys = torch.where(
+        valid, torch.round(pred * scale).to(torch.int32), _INVALID_KEY
+    )
+
+    def expand(per_market):
+        return per_market[:, None] if agents_last else per_market[None, :]
+
+    def reduce(x, op):
+        return op(x, dim=agents_axis)
+
+    def chunk_pass(offset, width, carry):
+        top2, sum_inv = carry
+        local = slice(offset, offset + width)
+        lk = keys[:, local] if agents_last else keys[local]
+        lvalid = valid[:, local] if agents_last else valid[local]
+        count = torch.zeros(lk.shape, dtype=torch.int32, device=device)
+        tw = torch.zeros(lk.shape, dtype=f32, device=device)
+        mr = torch.full(lk.shape, -torch.inf, dtype=f32, device=device)
+        # Group stats against every agent, visited in agent order.
+        for i in range(num_agents):
+            same = (lk == expand(_agent(keys, i, agents_last))) & expand(
+                _agent(valid, i, agents_last)
+            )
+            count = count + same.to(torch.int32)
+            tw = tw + torch.where(same, expand(_agent(weight, i, agents_last)), 0.0)
+            mr = torch.maximum(
+                mr, torch.where(same, expand(_agent(rel, i, agents_last)), -torch.inf)
+            )
+        member = lvalid & (count > 0)
+        safe_count = torch.clamp_min(count, 1).to(f32)
+        density = torch.where(member, tw / safe_count, -torch.inf)
+        mrm = torch.where(member, mr, -torch.inf)
+
+        bd = reduce(density, torch.amax)
+        m1 = member & (density == expand(bd))
+        br = reduce(torch.where(m1, mrm, -torch.inf), torch.amax)
+        m2 = m1 & (mrm == expand(br))
+        bk = reduce(torch.where(m2, lk, _SENTINEL), torch.amin)
+        others = member & (lk != expand(bk))
+        od = reduce(torch.where(others, density, -torch.inf), torch.amax)
+        o1 = others & (density == expand(od))
+        orr = reduce(torch.where(o1, mrm, -torch.inf), torch.amax)
+        o2 = o1 & (mrm == expand(orr))
+        ok = reduce(torch.where(o2, lk, _SENTINEL), torch.amin)
+        top2 = _merge_top2(top2, (bd, br, bk, od, orr, ok))
+        # Σ 1/count over members counts each group once in total.
+        inv = torch.where(member, 1.0 / safe_count, 0.0)
+        return top2, sum_inv + _ordered_sum(inv, agents_axis)
+
+    neg = torch.full((markets,), -torch.inf, dtype=f32, device=device)
+    sent = torch.full((markets,), _SENTINEL, dtype=torch.int32, device=device)
+    empty = (neg, neg, sent)
+    carry = (empty + empty, torch.zeros(markets, dtype=f32, device=device))
+    n_full, tail = divmod(num_agents, chunk) if chunk else (0, 0)
+    for i in range(n_full):
+        carry = chunk_pass(i * chunk, chunk, carry)
+    if tail:
+        carry = chunk_pass(n_full * chunk, tail, carry)
+    (d1, r1, k1, d2, r2, k2), sum_inv = carry
+
+    any_member = k1 != _SENTINEL
+    any_other = k2 != _SENTINEL
+    full_tie = (d1 == d2) & (r1 == r2)
+    resolved_by = torch.where(
+        ~any_other, 0, torch.where(full_tie, 2, 1)
+    ).to(torch.int32)
+    # XLA turns the division by the constant scale into a multiplication
+    # by its float32 reciprocal; the port does the same.
+    recip = torch.tensor(np.float32(1.0) / np.float32(scale), device=device)
+    prediction = torch.where(any_member, k1.to(f32) * recip, torch.inf)
+    num_groups = torch.round(sum_inv).to(torch.int32)
+
+    # Population confidence variance over valid agents, full width (the
+    # expression must not change with the chunk knob).
+    n = torch.sum(valid, dim=agents_axis)
+    s1 = _ordered_sum(torch.where(valid, conf, 0.0), agents_axis)
+    s2 = _ordered_sum(torch.where(valid, conf * conf, 0.0), agents_axis)
+    nf = torch.clamp_min(n, 1).to(f32)
+    mean = s1 / nf
+    # s2/n − mean², contracted into one fused multiply-add as XLA does.
+    variance = torch.clamp_min(fma(s2 / nf, -mean, mean), 0.0)
+
+    return RingTieBreakResult(
+        prediction=prediction,
+        weight_density=d1,
+        max_reliability=r1,
+        resolved_by=resolved_by,
+        num_groups=num_groups,
+        confidence_variance=variance,
+    )
+
+
+def _ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over *dim* one slice at a time, in index order."""
+    shape = x.shape[:dim] + x.shape[dim + 1:]
+    total = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for i in range(x.shape[dim]):
+        total = total + x.select(dim, i)
+    return total

@@ -8,13 +8,16 @@ Contract per element (``state.update_math``):
 
 Updates read the UNDECAYED stored values. The reliability update is one
 add and a clamp in the working dtype, so it is bit-equal to the JAX
-package's on any device.
+package's on any device. The confidence growth is one fused multiply-add
+(``ops/fma.py``), as XLA computes it in the JAX package's fused settle
+program.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bayesian_consensus_engine_tpu_torch.ops.fma import fma
 from bayesian_consensus_engine_tpu_torch.utils.config import (
     BASE_LEARNING_RATE,
     CONFIDENCE_GROWTH_RATE,
@@ -35,9 +38,10 @@ def outcome_update(
     direction = torch.where(correct, 1.0, -1.0).to(reliability.dtype)
     delta = torch.clamp(base_lr * direction, -max_step, max_step)
     new_rel = torch.clamp(reliability + delta, 0.0, 1.0)
-    new_conf = torch.clamp_max(
-        confidence + (1.0 - confidence) * confidence_growth, 1.0
-    )
+    # c + (1 − c)·g as one fused multiply-add: XLA contracts it so in the
+    # JAX package's fused settle program, and the kernels do the same.
+    growth = torch.full_like(confidence, confidence_growth)
+    new_conf = torch.clamp_max(fma(confidence, 1.0 - confidence, growth), 1.0)
     return new_rel, new_conf
 
 

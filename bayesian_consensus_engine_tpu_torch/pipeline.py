@@ -21,10 +21,22 @@ signal topology, then any number of settlements run on the device:
 `settle_payloads` wraps the three steps for the one-shot case. Settlement
 runs on the store's device: on CUDA every settle is one launch of the
 hand-written settle kernel, on the CPU its plain torch version.
+
+The resident one-card session keeps the plan's (K, M) block state on the
+device across settles and adds the analytics entry:
+
+    with ShardedSettlementSession(store, plan) as session:
+        result = session.settle(outcomes, steps, now)
+        result, tiebreak, bands, _ = session.settle_with_analytics(
+            outcomes, steps, now, analytics=AnalyticsOptions())
+
+On CUDA every session call is one launch of the one-pass kernel
+(``ops/onepass_kernel.py``); ``settle_sharded`` is its one-shot wrapper.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Any, Mapping, Optional, Sequence
 
@@ -39,15 +51,34 @@ from bayesian_consensus_engine_tpu_torch.core.batch import (
     pair_accumulate,
     topology_fingerprint,
 )
+from bayesian_consensus_engine_tpu_torch.analytics.bands import AnalyticsOptions
+from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
 from bayesian_consensus_engine_tpu_torch.ops.settle_kernel import (
     settle_cycles,
     touched_layout,
 )
+from bayesian_consensus_engine_tpu_torch.ops.tiebreak import (
+    DEFAULT_CHUNK_AGENTS,
+    RingTieBreakResult,
+)
+from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
+    DEFAULT_CHUNK_SLOTS,
+    UncertaintyBands,
+)
+from bayesian_consensus_engine_tpu_torch.parallel.sharded import (
+    build_cycle_analytics_loop,
+    build_cycle_loop,
+)
 from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
     DeviceReliabilityState,
 )
-from bayesian_consensus_engine_tpu_torch.utils.config import CONFIDENCE_GROWTH_RATE
+from bayesian_consensus_engine_tpu_torch.utils.config import (
+    CONFIDENCE_GROWTH_RATE,
+    DEFAULT_CONFIDENCE,
+    DEFAULT_RELIABILITY,
+)
 from bayesian_consensus_engine_tpu_torch.utils.device import resolve_dtype
+from bayesian_consensus_engine_tpu_torch.utils.timeconv import NEVER
 from bayesian_consensus_engine_tpu_torch.utils.timeconv import now_days as _now_days
 
 Payload = Sequence[tuple[str, Sequence[Mapping[str, Any]]]]
@@ -429,14 +460,18 @@ class SettlementResult:
     @property
     def consensus(self) -> np.ndarray:
         if self._consensus_np is None:
-            self._consensus_np = self._consensus_raw.cpu().numpy()
+            raw = self._consensus_raw
+            self._consensus_np = (
+                raw.cpu().numpy() if isinstance(raw, torch.Tensor)
+                else np.asarray(raw)
+            )
             self._consensus_raw = None  # free the device buffer
         return self._consensus_np
 
     def fence(self) -> None:
         """Block until the settlement's outputs exist on the device,
         fetching only one scalar."""
-        if self._consensus_np is None and self._consensus_raw.numel():
+        if self._consensus_np is None and len(self._consensus_raw):
             float(self._consensus_raw[0])
 
     def by_market(self) -> dict[str, float]:
@@ -639,4 +674,393 @@ def settle_payloads(
     result = settle(store, plan, outcomes, steps=steps, now=now, dtype=dtype)
     if db_path is not None:
         store.flush_to_sqlite(db_path)
+    return result
+
+
+# -- the resident one-card session ---------------------------------------------
+
+_NOT_ON_ONE_CARD = (
+    "the port's session runs on one card, the store's device; meshes and "
+    "process bands wait for the multi-GPU slice (ROADMAP queue 1 item 11)"
+)
+
+
+def _sharded_plan_cache(plan: SettlementPlan, device: torch.device, dtype):
+    """The session's device copies of the plan block, cached on the plan
+    per (device, dtype): ``(band_rows, band_mask, probs_g, mask_g)``.
+
+    One card holds every market and every slot, so there is no padding
+    and the band is the whole plan: ``band_rows``/``band_mask`` are the
+    plan's own (read-only) host arrays.
+    """
+    key = (device, dtype)
+    cache = getattr(plan, "_sharded_cache", None)
+    if cache is None or cache[0] != key:
+        cache = (
+            key,
+            plan.slot_rows,
+            plan.mask,
+            torch.tensor(plan.probs, dtype=dtype, device=device),
+            torch.tensor(plan.mask, device=device),
+        )
+        object.__setattr__(plan, "_sharded_cache", cache)
+    return cache[1:]
+
+
+class _BandGather:
+    """Lazy ``np.asarray``-able view of a resident block's masked slots.
+
+    Resolves to ``block[mask]`` — the session's touched values, in
+    ``band_rows[band_mask]`` (slot-major) order — only when the store's
+    sync needs the bytes, so chained settles move nothing to the host.
+
+    ``held_nbytes`` is the whole block the deferral pins in device memory,
+    which the store's recipe chain counts against its budget. A gather
+    whose block is the live state of a standing session reports 0: the
+    session pins that block with or without the recipe. The session is
+    held by weak reference and consulted live, so the bytes count again
+    once the session moves on, closes or is dropped.
+    """
+
+    __slots__ = ("_block", "_mask", "_session")
+
+    def __init__(self, block: torch.Tensor, mask: torch.Tensor, session=None):
+        self._block = block
+        self._mask = mask
+        self._session = weakref.ref(session) if session is not None else None
+
+    @property
+    def held_nbytes(self) -> int:
+        if self._session is not None:
+            session = self._session()
+            if session is not None and session._standing_gather is self:
+                return 0
+        return self._block.numel() * self._block.element_size()
+
+    def __array__(self, dtype=None, copy=None):
+        values = self._block[self._mask].cpu().numpy()
+        return values.astype(dtype) if dtype is not None else values
+
+
+class _BandView:
+    """Lazy host view of a per-market device vector: ``np.asarray`` fetches
+    it, and a scalar ``[i]`` fetches one element, so
+    ``SettlementResult.fence`` stays a one-scalar fetch."""
+
+    __slots__ = ("_vector",)
+
+    def __init__(self, vector: torch.Tensor) -> None:
+        self._vector = vector
+
+    def __len__(self) -> int:
+        return self._vector.numel()
+
+    def __getitem__(self, index: int):
+        return self._vector[index]
+
+    def __array__(self, dtype=None, copy=None):
+        values = self._vector.cpu().numpy()
+        return values.astype(dtype) if dtype is not None else values
+
+
+class ShardedSettlementSession:
+    """Chained, device-resident settlements of one plan on one card.
+
+    The slot-major (K, M) block state is built from the store ONCE; every
+    settle runs on the retained block (on CUDA one launch of the one-pass
+    kernel, in place), so the only per-settle host→device traffic is the
+    outcomes vector. The store merge is a registered sync recipe
+    (closed-form stamps and existence, plus a lazy gather of the block's
+    reliabilities) that any host read resolves; host confidences stay
+    exact through the eager replay. The session's touched rows are
+    ``band_rows[band_mask]``, slot-major — unlike the flat ``settle``'s
+    market-major order.
+
+    Contract: one live session per store for any given set of rows — a
+    flat :func:`settle` or direct host write to rows this session covers,
+    while it is open, is not seen by the retained block. Use as a context
+    manager, or call :meth:`close`.
+
+    ``mesh=None`` means one card, the store's device; another mesh, or a
+    process ``band``, raises. ``refresh``, ``adopt``, the stream and the
+    serving layer are not ported yet.
+    """
+
+    def __init__(
+        self, store, plan: SettlementPlan, mesh=None, dtype=None, band=None
+    ):
+        if mesh is not None:
+            raise ValueError(f"mesh={mesh!r}: {_NOT_ON_ONE_CARD}")
+        if band is not None:
+            raise ValueError(f"band={band!r}: {_NOT_ON_ONE_CARD}")
+        self._store = store
+        self._plan = plan
+        self._device = store.device
+        self._cdtype = resolve_dtype(dtype)
+        (self._band_rows, self._band_mask, self._probs_g,
+         self._mask_g) = _sharded_plan_cache(plan, self._device, self._cdtype)
+        self._touched = self._band_rows[self._band_mask]
+        self._state = None  # built lazily: the epoch depends on the first now
+        self._epoch0 = None
+        self._loop = None
+        # The last settle's registered gather: while the session is live
+        # its block is session-pinned (the recipe chain must not count
+        # its bytes); close flips it back to counted.
+        self._standing_gather = None
+
+    # -- state lifecycle -----------------------------------------------------
+
+    def _build_state(self, epoch0: float) -> None:
+        store, dtype, device = self._store, self._cdtype, self._device
+        np_dtype = _NUMPY_DTYPE[dtype]
+        band_mask = self._band_mask
+        safe = np.where(self._band_rows >= 0, self._band_rows, 0)
+        # sync=False: the preamble already resolved any deferral touching
+        # this session's rows; padding reads row 0 but is masked.
+        host_rel, host_conf, host_days, host_exists = store.host_rows(
+            safe, sync=False
+        )
+
+        def upload(values):
+            return torch.tensor(values.astype(np_dtype), device=device)
+
+        self._state = MarketBlockState(
+            reliability=upload(np.where(band_mask, host_rel, DEFAULT_RELIABILITY)),
+            confidence=upload(np.where(band_mask, host_conf, DEFAULT_CONFIDENCE)),
+            updated_days=upload(np.where(
+                band_mask & (host_days > NEVER), host_days - epoch0, 0.0
+            )),
+            exists=torch.tensor(band_mask & host_exists, device=device),
+        )
+        self._epoch0 = epoch0
+        if self._loop is None:
+            self._loop = build_cycle_loop(device)
+
+    def _settle_preamble(self, outcomes: Sequence[bool], now: Optional[float]):
+        """The shared pre-launch path of every settle entry: plan/outcome
+        validation, (re)build of the resident state, exact host
+        confidences, and the device outcome vector. Returns ``(now_abs,
+        conf_exact, outcome_g)``."""
+        store, plan = self._store, self._plan
+        _check_plan(store, plan, outcomes)
+        now_abs = _now_days() if now is None else now
+        if self._state is None or now_abs <= self._epoch0:
+            # First settle, or time ran back past the epoch (stamps would
+            # go non-positive): (re)build from the host at an epoch below
+            # now. Deferred settlements merge first only if one touches
+            # this plan's rows.
+            if store.pending_overlaps(self._touched):
+                store.sync()
+            self._build_state(min(store.epoch_origin(sync=False), now_abs - 1.0))
+        conf_exact = store.host_confidences(self._touched)
+        outcome_g = torch.as_tensor(
+            np.asarray(outcomes, dtype=bool), device=self._device
+        )
+        return now_abs, conf_exact, outcome_g
+
+    def _now0(self, now_abs: float) -> float:
+        """The first step's day relative to the epoch, in the state's dtype."""
+        return float(_NUMPY_DTYPE[self._cdtype](now_abs - self._epoch0))
+
+    def _settle_commit(
+        self, new_state, steps: int, now_abs: float, conf_exact
+    ) -> None:
+        """The shared post-launch path: retain the new block, register the
+        merge recipe, and replay the exact host confidences."""
+        self._state = new_state
+        np_dtype = _NUMPY_DTYPE[self._cdtype]
+        stamp_rel = np_dtype(
+            np_dtype(now_abs - self._epoch0) + np_dtype(steps - 1)
+        )
+        gather = _BandGather(new_state.reliability, self._mask_g, session=self)
+        self._store.defer_settle_recipe(
+            self._touched, gather, self._epoch0, stamp_rel,
+        )
+        self._standing_gather = gather
+        _replay_confidences(self._store, self._touched, conf_exact, steps)
+
+    def _band_live(self) -> tuple:
+        """(live, keys): on one card the band is every market of the plan."""
+        return self._plan.num_markets, self._plan.market_keys
+
+    def settle(
+        self,
+        outcomes: Sequence[bool],
+        steps: int = 1,
+        now: Optional[float] = None,
+    ) -> SettlementResult:
+        """Run *steps* cycles on the retained state."""
+        now_abs, conf_exact, outcome_g = self._settle_preamble(outcomes, now)
+        new_state, consensus = self._loop(
+            self._probs_g, self._mask_g, outcome_g, self._state,
+            self._now0(now_abs), steps,
+        )
+        self._settle_commit(new_state, steps, now_abs, conf_exact)
+        _live, keys = self._band_live()
+        return SettlementResult(market_keys=keys, consensus=_BandView(consensus))
+
+    def settle_with_tiebreak(
+        self,
+        outcomes: Sequence[bool],
+        steps: int = 1,
+        now: Optional[float] = None,
+        chunk_agents: "int | str | None" = "default",
+        precision: int = 6,
+    ) -> tuple:
+        """Settle AND tie-break the batch in one pass over the resident
+        block. Returns ``(SettlementResult, RingTieBreakResult)``; each
+        signalling slot enters the tie-break as one agent with its
+        probability as the prediction and its decayed read reliability
+        at *now* (the pre-update view) as weight and reliability.
+        Settlement semantics are exactly :meth:`settle`'s.
+        ``chunk_agents="default"`` takes :data:`DEFAULT_CHUNK_AGENTS`."""
+        if chunk_agents == "default":
+            chunk_agents = DEFAULT_CHUNK_AGENTS
+        elif isinstance(chunk_agents, str):
+            raise ValueError(
+                f"chunk_agents={chunk_agents!r}: the session entry takes an "
+                "int, None (unchunked), or 'default' (the recorded "
+                "DEFAULT_CHUNK_AGENTS)"
+            )
+        loop = build_cycle_analytics_loop(
+            self._device, chunk_agents=chunk_agents, precision=precision,
+            with_bands=False,
+        )
+        now_abs, conf_exact, outcome_g = self._settle_preamble(outcomes, now)
+        new_state, consensus, tiebreak, _bands, _prop = loop(
+            self._probs_g, self._mask_g, outcome_g, self._state,
+            self._now0(now_abs), steps,
+        )
+        self._settle_commit(new_state, steps, now_abs, conf_exact)
+        _live, keys = self._band_live()
+        return (
+            SettlementResult(market_keys=keys, consensus=_BandView(consensus)),
+            RingTieBreakResult(*(_BandView(x) for x in tiebreak)),
+        )
+
+    def settle_with_analytics(
+        self,
+        outcomes: Sequence[bool],
+        steps: int = 1,
+        now: Optional[float] = None,
+        analytics: Optional[AnalyticsOptions] = None,
+        kernel: Optional[str] = None,
+        sweep_kernel: Optional[str] = None,
+    ) -> tuple:
+        """Settle AND analyse the batch in one pass over the resident
+        block: the N-cycle loop, the ring tie-break and the uncertainty
+        bands, all read from the same pre-update state at *now*. Returns
+        ``(SettlementResult, RingTieBreakResult | None, UncertaintyBands,
+        None)``; the last slot is the graph sweep's, not ported yet.
+
+        Settlement semantics — merge recipe, confidence replay, SQLite
+        bytes — and the consensus are exactly :meth:`settle`'s: analytics
+        only reads. *analytics* defaults to ``AnalyticsOptions()``;
+        ``tiebreak=False`` drops the tie-break (``None`` in its slot).
+        ``graph``, ``inference``, ``blocks`` and ``tiebreak="sorted"``
+        raise ``NotImplementedError``. *kernel* and *sweep_kernel*
+        (``None`` defers to the options) take the JAX package's route
+        names and are validated as there; on CUDA every accepted value
+        runs the one-pass kernel.
+        """
+        options = analytics if analytics is not None else AnalyticsOptions()
+
+        def resolve(value, recorded, knob):
+            if value == "default":
+                return recorded
+            if isinstance(value, str):
+                raise ValueError(
+                    f"{knob}={value!r}: the session entry takes an int, "
+                    "None (unchunked), or 'default' (the recorded default)"
+                )
+            return value
+
+        chunk_agents = resolve(
+            options.chunk_agents, DEFAULT_CHUNK_AGENTS, "chunk_agents"
+        )
+        chunk_slots = resolve(
+            options.chunk_slots, DEFAULT_CHUNK_SLOTS, "chunk_slots"
+        )
+        tiebreak_opt = options.tiebreak
+        if tiebreak_opt not in (True, False, "sorted"):
+            raise ValueError(
+                f"tiebreak={tiebreak_opt!r}: True (ring), False (off), "
+                "or 'sorted' (the sort-based grouping kernel)"
+            )
+        for field, item in (("graph", 8), ("inference", 9), ("blocks", 9)):
+            if getattr(options, field) is not None:
+                raise NotImplementedError(
+                    f"analytics.{field} is not ported yet (ROADMAP queue 1 "
+                    f"item {item}); pass {field}=None"
+                )
+        loop = build_cycle_analytics_loop(
+            self._device,
+            chunk_agents=chunk_agents,
+            chunk_slots=chunk_slots,
+            precision=options.precision,
+            z=options.z,
+            with_tiebreak=bool(tiebreak_opt),
+            tiebreak_kind="sorted" if tiebreak_opt == "sorted" else "ring",
+            kernel=kernel if kernel is not None else options.kernel,
+            sweep_kernel=(
+                sweep_kernel if sweep_kernel is not None
+                else options.sweep_kernel
+            ),
+        )
+        now_abs, conf_exact, outcome_g = self._settle_preamble(outcomes, now)
+        new_state, consensus, tiebreak, bands, _prop = loop(
+            self._probs_g, self._mask_g, outcome_g, self._state,
+            self._now0(now_abs), steps,
+        )
+        self._settle_commit(new_state, steps, now_abs, conf_exact)
+        _live, keys = self._band_live()
+        return (
+            SettlementResult(market_keys=keys, consensus=_BandView(consensus)),
+            (
+                RingTieBreakResult(*(_BandView(x) for x in tiebreak))
+                if tiebreak is not None else None
+            ),
+            UncertaintyBands(*(_BandView(x) for x in bands)),
+            None,
+        )
+
+    def _release_standing(self) -> None:
+        """The session is leaving its block: the standing recipe (if any)
+        becomes the only thing pinning it, so its bytes count against the
+        store's deferral budget again."""
+        self._standing_gather = None
+
+    def sync(self) -> None:
+        """Merge every deferred settlement into the host store now."""
+        self._store.sync()
+
+    def close(self) -> None:
+        self.sync()
+        self._release_standing()
+        self._state = None
+
+    def __enter__(self) -> "ShardedSettlementSession":
+        return self
+
+    def __exit__(self, *exc_info: object) -> None:
+        self.close()
+
+
+def settle_sharded(
+    store,
+    plan: SettlementPlan,
+    outcomes: Sequence[bool],
+    mesh=None,
+    steps: int = 1,
+    now: Optional[float] = None,
+    dtype=None,
+) -> SettlementResult:
+    """One-shot session settle: build the resident state, settle once, and
+    sync into the store before returning. Chain settlements through a
+    :class:`ShardedSettlementSession` to keep the block on the device.
+    The stored state equals :func:`settle`'s; the touched rows are merged
+    in the session's slot-major order."""
+    session = ShardedSettlementSession(store, plan, mesh, dtype=dtype)
+    result = session.settle(outcomes, steps=steps, now=now)
+    session.close()
     return result

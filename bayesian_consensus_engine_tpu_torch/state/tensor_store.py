@@ -16,7 +16,9 @@ store's device. Three access tiers:
   3. **Device tier** — ``take_device_state`` hands the flat state to the
      settle kernel, ``defer_absorb`` adopts the settled state as pending,
      and the host merges it lazily (``sync``), fetching only the rows a
-     settle touched.
+     settle touched. The resident session reads its rows with
+     ``host_rows`` and registers its merges with ``defer_settle_recipe``
+     (no flat state; ``pending_overlaps`` says when it must sync first).
 
 Durability: ``from_sqlite`` / ``flush_to_sqlite`` keep on-disk checkpoints
 byte-compatible with the JAX package's and the reference's DB files.
@@ -78,6 +80,14 @@ def _to_numpy(value) -> np.ndarray:
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     return np.asarray(value)
+
+
+def _held_nbytes(rel_touched) -> int:
+    """Device bytes a recipe's reliabilities pin: a tensor's size, or a
+    lazy gather's ``held_nbytes`` (0 while its session holds the block)."""
+    if isinstance(rel_touched, torch.Tensor):
+        return rel_touched.numel() * rel_touched.element_size()
+    return int(rel_touched.held_nbytes)
 
 
 def _device_take(tensor: torch.Tensor, rows: np.ndarray) -> np.ndarray:
@@ -152,6 +162,13 @@ class TensorReliabilityStore:
 
     def __len__(self) -> int:
         return len(self._pairs)
+
+    @_locked
+    def live_row_count(self) -> int:
+        """Rows with a live record (``exists``) — what ``list_sources``
+        would return, without materialising and sorting the records."""
+        self._sync_pending()
+        return int(self._exists[: len(self._pairs)].sum())
 
     def _ensure_capacity(self, needed: int) -> None:
         if needed <= len(self._rel):
@@ -278,7 +295,7 @@ class TensorReliabilityStore:
         kept.append((touched_rows, rel_touched, epoch0, stamp_rel))
 
         def held_bytes():
-            return sum(r[1].numel() * r[1].element_size() for r in kept)
+            return sum(_held_nbytes(r[1]) for r in kept)
 
         while len(kept) > 8 or (
             len(kept) > 1 and held_bytes() > _MAX_DEFERRED_BYTES
@@ -506,6 +523,27 @@ class TensorReliabilityStore:
         return self._conf[rows].copy()
 
     @_locked
+    def host_rows(
+        self, rows: np.ndarray, sync: bool = True
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Raw exact host state for flat *rows*: (rel, conf, days, exists).
+
+        Fancy-indexed copies, no cold-start defaulting — the session's
+        gather (it applies its own masking and defaults per slot).
+        ``sync=False`` skips resolving deferred settlements; only valid
+        after ``pending_overlaps(rows)`` returned False (the host values
+        for *rows* are then exact with the deferral left standing).
+        """
+        if sync:
+            self._sync_pending()
+        return (
+            self._rel[rows],
+            self._conf[rows],
+            self._days[rows],
+            self._exists[rows],
+        )
+
+    @_locked
     def overwrite_confidences(self, rows: np.ndarray, values: np.ndarray) -> None:
         """Replace confidences for *rows* with exact host-computed values.
 
@@ -581,9 +619,16 @@ class TensorReliabilityStore:
         return state, epoch0
 
     @_locked
-    def epoch_origin(self) -> float:
-        """The epoch-days origin for relative device stamps (min live −1)."""
-        self._sync_pending()
+    def epoch_origin(self, sync: bool = True) -> float:
+        """The epoch-days origin for relative device stamps (min live −1).
+
+        ``sync=False`` computes it from the host arrays as they stand.
+        Safe for a caller building state over rows no pending recipe
+        touches: those rows' host stamps are exact and take part in the
+        min, so the origin is ≤ every stamp the caller re-expresses.
+        """
+        if sync:
+            self._sync_pending()
         used = len(self._pairs)
         stamps = self._days[:used]
         live = stamps[stamps > NEVER]
@@ -666,9 +711,55 @@ class TensorReliabilityStore:
         self._device_cache = (state, epoch0)
 
     @_locked
+    def defer_settle_recipe(
+        self, touched_rows: np.ndarray, rel_touched, epoch0: float, stamp_rel
+    ) -> None:
+        """Register a settle's host-merge recipe WITHOUT a flat device state.
+
+        The resident session's deferral: its state lives as a plan-shaped
+        (K, M) block, not in the store's flat layout, so only the merge
+        recipe is registered. ``rel_touched`` may be any
+        ``np.asarray``-able (the session's lazy band gather); it is
+        resolved at sync time. Same rules as :meth:`defer_absorb`'s
+        recipes: a recipe over the same touched rows replaces the older
+        one, the chain is bounded by early application, and orphaned
+        recipes still sync.
+        """
+        if self._pending is not None:
+            # A flat pending state holds changes this recipe does not
+            # describe: merge it first.
+            self._sync_pending()
+        self._pending_sync = self._append_sync_recipe(
+            self._pending_sync, touched_rows, rel_touched, epoch0, stamp_rel
+        )
+        # The flat device cache no longer reflects these rows.
+        self._device_cache = None
+        self._cache_conf_drifted = False
+
+    @_locked
     def sync(self) -> None:
         """Force any deferred settlement state into the host arrays now."""
         self._sync_pending()
+
+    @_locked
+    def pending_overlaps(self, rows) -> bool:
+        """Must deferred state merge before *rows* can be read raw?
+
+        True with a flat pending device state (it covers every row) or any
+        pending settle recipe touching one of *rows*. False means the host
+        arrays are exact for *rows* as they stand; callers that skip the
+        sync read through ``host_rows(..., sync=False)`` and
+        ``epoch_origin(sync=False)`` and touch only *rows*.
+        """
+        if self._pending is not None:
+            return True
+        if not self._pending_sync:
+            return False
+        rows = np.asarray(rows)
+        return any(
+            len(touched) and np.isin(rows, touched).any()
+            for touched, _rel, _epoch0, _stamp in self._pending_sync
+        )
 
     @_locked
     def absorb(self, state: DeviceReliabilityState, epoch0: float) -> None:

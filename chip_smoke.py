@@ -1,17 +1,25 @@
-"""Drive the PyTorch port's settlement main path on one CUDA card and check it.
+"""Drive the PyTorch port's settlement paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
 
 1. ``device``       the card (``nvidia-smi`` name and power limit).
-2. ``build``        compile the settle kernel from the package's ``.cu``.
+2. ``build``        compile both kernels from the package's ``.cu`` sources,
+                    one ``nvcc`` each, started together.
 3. ``kernel_check`` ``settle_cycles`` against its plain torch version on
                     the card, float32 and float64, K in {1, 5, 16, 40}, a
                     ragged M, steps in {0, 1, 2, 20}, with pads, cold slots,
                     empty markets and stamps later than ``now``: state and
                     ``rel_touched`` bit-equal, consensus within tolerance.
-4. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
+4. ``onepass_check`` ``onepass_settle`` against its plain version on the
+                    card: float32 with every combination of the tie-break
+                    and bands stages, float64 with the tie-break off; K in
+                    {1, 5, 16, 40}, M = 1037, steps in {0, 1, 2, 20}, with
+                    cold slots, empty markets, all-tied markets and stamps
+                    on and off multiples of the half-life: state, tie-break
+                    and band moments bit-equal, consensus within tolerance.
+5. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
                     10,000-source universe (seed 7), through
                     ``build_settlement_plan_columnar`` on a CUDA store, two
                     chained 20-step ``settle`` calls, the consensus fetch,
@@ -21,11 +29,27 @@ Phases, one JSON line each:
                     inputs that settle was given, the first settle's state
                     must be bit-equal to the plain version's, and the flush
                     must write every row.
-5. ``kernels``      the kernel's launches, error, time (CUDA events, median
-                    after warm-up), plain-version time and byte bound, on
-                    the chained settle's inputs (every row exists: the
-                    steady state) and, under ``cold``, on the first
-                    settle's (no row exists yet).
+6. ``analytics_path`` the main path's plan and store (1M markets) through a
+                    resident ``ShardedSettlementSession``: two chained
+                    20-step ``settle_with_analytics`` calls with the default
+                    ``AnalyticsOptions``, then ``close`` (which syncs the
+                    store). The one-pass kernel's launch count must rise by
+                    exactly one per call, and each call's outputs must match
+                    the plain version on that call's inputs (state, tie-break
+                    and band moments bit-equal, consensus within tolerance).
+                    Then, on three fresh stores of 20,000 markets: flat
+                    ``settle``, session ``settle`` and session
+                    ``settle_with_analytics`` must leave byte-equal SQLite
+                    files and bit-equal consensus.
+7. ``kernels``      each kernel's launches on its path, error, time (CUDA
+                    events over 21 back-to-back launches after warm-up, each
+                    on fresh input copies), plain-version time and
+                    byte bound: ``settle_cycles`` on the chained flat
+                    settle's inputs (every row exists: the steady state)
+                    and, under ``cold``, on the first settle's (no row
+                    exists yet); ``onepass_settle`` on the chained analytics
+                    call's inputs, and under ``stages_off_ms`` the same
+                    launch with the tie-break and bands off.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -49,6 +73,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 NOW = 20000.25  # epoch-days
 MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000, 4, 10_000, 7, 20
+PARITY_MARKETS = 20_000
 # Consensus tolerance (exp2 and the K-sum order differ); state is bit-equal.
 TOL = {np.dtype(np.float32): dict(rtol=1e-5, atol=1e-6),
        np.dtype(np.float64): dict(rtol=1e-12, atol=0.0)}
@@ -100,6 +125,59 @@ def random_case(rng, num_slots, num_markets, np_dtype):
     )
 
 
+def block_case(rng, num_slots, num_markets, np_dtype, now0):
+    """A resident (K, M) block: pads, empty markets, all-tied markets
+    (every slot one tie-break group), cold slots, and stamps on and off
+    multiples of the 30-day half-life (one after now0)."""
+    shape = (num_slots, num_markets)
+    mask = rng.random(shape) < 0.7
+    mask[:, :: 17] = False
+    probs = rng.random(shape)
+    tied = np.arange(num_markets) % 13 == 5
+    probs[:, tied] = 0.625
+    mask[:, tied] = True
+    stamps = [0.0, now0, now0 - 30.0, now0 - 90.0, 3.0, 35.0, now0 + 12.5]
+    return dict(
+        probs=probs.astype(np_dtype), mask=mask,
+        outcome=rng.random(num_markets) < 0.5,
+        rel=rng.uniform(0.0, 1.0, shape).astype(np_dtype),
+        conf=rng.uniform(0.0, 1.0, shape).astype(np_dtype),
+        days=rng.choice(stamps, shape).astype(np_dtype),
+        exists=rng.random(shape) < 0.6,
+    )
+
+
+def clone_outputs(out):
+    """A copy of a one-pass call's outputs (the kernel updates the state in
+    place, so a later call would overwrite them)."""
+    def copy(x):
+        return None if x is None else x.clone()
+
+    return type(out)(
+        type(out.state)(*(x.clone() for x in out.state)),
+        out.consensus.clone(),
+        None if out.tiebreak is None else type(out.tiebreak)(
+            *(x.clone() for x in out.tiebreak)),
+        copy(out.band_sums), copy(out.band_count),
+    )
+
+
+def compare_onepass(got, want, what):
+    """Kernel outputs against the plain version's: state, tie-break and
+    band moments bit-equal, consensus within TOL; returns the largest
+    absolute difference over the float outputs."""
+    for field, a, b in zip(want.state._fields, got.state, want.state):
+        check_equal(a, b, f"{what} {field}")
+    err = check_consensus(got.consensus, want.consensus, f"{what} consensus")
+    if want.tiebreak is not None:
+        for field, a, b in zip(want.tiebreak._fields, got.tiebreak, want.tiebreak):
+            check_equal(a, b, f"{what} {field}")
+    if want.band_sums is not None:
+        check_equal(got.band_sums, want.band_sums, f"{what} band sums")
+        check_equal(got.band_count, want.band_count, f"{what} band count")
+    return err
+
+
 def kernel_args(case, dtype, steps, settle_kernel):
     touched_rows, offsets = settle_kernel.touched_layout(case["rows"], case["mask"])
     cuda = torch.device("cuda")
@@ -128,22 +206,23 @@ def compare_kernel(args, settle_kernel, what):
 
 
 def time_cuda(fn, prepare, warmup: int, runs: int) -> float:
-    """Median milliseconds of ``fn(prepare())`` by CUDA events; the
-    preparation (fresh input clones) is outside the timed window."""
+    """Milliseconds per call of ``fn`` by CUDA events over ``runs`` calls
+    launched back to back, each on its own fresh inputs from ``prepare``
+    (made beforehand, outside the timed window), after ``warmup`` calls.
+    Back to back, the host's per-call work overlaps the device's, so the
+    figure is the device's time per call, not the launch latency."""
     for _ in range(warmup):
         fn(prepare())
-    times = []
-    for _ in range(runs):
-        inputs = prepare()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn(inputs)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    inputs = [prepare() for _ in range(runs)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for args in inputs:
+        fn(args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def main() -> int:
@@ -151,8 +230,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from bayesian_consensus_engine_tpu_torch import pipeline
+    from bayesian_consensus_engine_tpu_torch.analytics import AnalyticsOptions
     from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
-    from bayesian_consensus_engine_tpu_torch.ops import settle_kernel
+    from bayesian_consensus_engine_tpu_torch.ops import (
+        cuda_build,
+        onepass_kernel,
+        settle_kernel,
+    )
+    from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
+    from bayesian_consensus_engine_tpu_torch.parallel import sharded
     from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
         TensorReliabilityStore,
     )
@@ -166,12 +252,13 @@ def main() -> int:
     emit("device", nvidia_smi=smi, name=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build: one nvcc per source, started together.
     start = time.perf_counter()
-    library, log = settle_kernel.build()
+    built = cuda_build.build(settle_kernel.SOURCE, onepass_kernel.SOURCE)
     emit("build", seconds=time.perf_counter() - start,
-         library=os.path.relpath(library),
-         ptxas=[line for line in log.splitlines() if "registers" in line])
+         libraries=[os.path.relpath(library) for library, _log in built],
+         ptxas=[line for _library, log in built for line in log.splitlines()
+                if "registers" in line or "spill" in line])
 
     # 3. kernel_check
     rng = np.random.default_rng(0)
@@ -190,7 +277,45 @@ def main() -> int:
     emit("kernel_check", cases=cases, markets=1037,
          max_abs_consensus_err=worst)
 
-    # 4. main_path
+    # 4. onepass_check
+    rng = np.random.default_rng(1)
+    onepass_err = {}
+    cases = 0
+    stage_sets = {
+        torch.float32: [(True, True), (True, False), (False, True), (False, False)],
+        torch.float64: [(False, True), (False, False)],
+    }
+    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        for num_slots in (1, 5, 16, 40):
+            case = block_case(rng, num_slots, 1037, np_dtype, 600.0)
+
+            def t(x, dt=None):
+                return torch.tensor(x, dtype=dt, device="cuda")
+
+            for steps in (0, 1, 2, 20):
+                for with_tiebreak, with_bands in stage_sets[dtype]:
+                    state = MarketBlockState(
+                        t(case["rel"], dtype), t(case["conf"], dtype),
+                        t(case["days"], dtype), t(case["exists"]),
+                    )
+                    args = (t(case["probs"], dtype), t(case["mask"]),
+                            t(case["outcome"]))
+                    stages = dict(with_tiebreak=with_tiebreak, with_bands=with_bands)
+                    want = onepass_kernel.onepass_settle_reference(
+                        *args, state, 600.0, steps, **stages)
+                    clone = MarketBlockState(*(x.clone() for x in state))
+                    got = onepass_kernel.onepass_settle(
+                        *args, clone, 600.0, steps, **stages)
+                    torch.cuda.synchronize()
+                    err = compare_onepass(
+                        got, want, f"{dtype} K={num_slots} steps={steps} "
+                        f"stages={with_tiebreak, with_bands}")
+                    onepass_err[str(dtype)] = max(onepass_err.get(str(dtype), 0.0), err)
+                    cases += 1
+    emit("onepass_check", cases=cases, markets=1037,
+         max_abs_consensus_err=onepass_err)
+
+    # 5. main_path
     seconds = {}
     start = time.perf_counter()
     data_rng = np.random.default_rng(SEED)
@@ -290,8 +415,123 @@ def main() -> int:
          seconds=seconds, cut=None,
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 5. kernels: the kernel and its plain version timed on both settles'
+    # 6. analytics_path: the main path's plan and store through a resident
+    # session. Each one-pass call's inputs are copied as the loop hands
+    # them to the kernel (the kernel updates the state in place), so that
+    # the plain version can be run on them afterwards; the copies are made
+    # inside the timed calls.
+    captured = []
+    real_onepass = sharded.onepass_settle
+
+    def capturing(probs, mask, outcome, state, now0, steps, **stages):
+        before = MarketBlockState(*(x.clone() for x in state))
+        out = real_onepass(probs, mask, outcome, state, now0, steps, **stages)
+        torch.cuda.synchronize()
+        captured.append(((probs, mask, outcome, before, now0, steps), stages,
+                         clone_outputs(out)))
+        return out
+
+    analytics_seconds = {}
+    launch_counts = []
+    calls = []
+    sharded.onepass_settle = capturing
+    try:
+        onepass_kernel.LAUNCHES = 0
+        settle_kernel.LAUNCHES = 0
+        start = time.perf_counter()
+        session = pipeline.ShardedSettlementSession(store, plan)
+        analytics_seconds["open"] = time.perf_counter() - start
+        for call, now in enumerate((NOW + 2 * STEPS, NOW + 3 * STEPS), 1):
+            start = time.perf_counter()
+            result, tiebreak, bands, propagated = session.settle_with_analytics(
+                outcomes, steps=STEPS, now=now, analytics=AnalyticsOptions(),
+            )
+            result.fence()
+            analytics_seconds[f"call_{call}"] = time.perf_counter() - start
+            launch_counts.append(onepass_kernel.LAUNCHES)
+            calls.append((result, tiebreak, bands, propagated))
+        start = time.perf_counter()
+        session.close()
+        analytics_seconds["close"] = time.perf_counter() - start
+    finally:
+        sharded.onepass_settle = real_onepass
+    onepass_launches = onepass_kernel.LAUNCHES
+    if launch_counts != [1, 2] or settle_kernel.LAUNCHES != 0:
+        raise AssertionError(
+            f"one-pass launches after each call {launch_counts}, settle "
+            f"kernel launches {settle_kernel.LAUNCHES}: expected [1, 2] and 0"
+        )
+    if store.live_row_count() != len(store):
+        raise AssertionError("a settled row does not exist after close")
+    onepass_main_err = 0.0
+    for call, ((inputs, stages, got), (result, tiebreak, bands, propagated)) in enumerate(
+        zip(captured, calls), 1
+    ):
+        want = onepass_kernel.onepass_settle_reference(*inputs, **stages)
+        onepass_main_err = max(onepass_main_err, compare_onepass(
+            got, want, f"analytics call {call}"))
+        del want
+        consensus = result.consensus
+        if consensus.shape != (MARKETS,) or not np.all(np.isfinite(consensus)):
+            raise AssertionError("analytics consensus is not finite of shape (M,)")
+        for name, values in zip(tiebreak._fields + bands._fields,
+                                tuple(tiebreak) + tuple(bands)):
+            if np.asarray(values).shape != (MARKETS,):
+                raise AssertionError(f"analytics {name} is not of shape (M,)")
+        lo, hi = np.asarray(bands.lo), np.asarray(bands.hi)
+        if not (np.all((0 <= lo) & (lo <= hi) & (hi <= 1)) and propagated is None):
+            raise AssertionError("bands outside [0, 1] or out of order")
+        if not np.array_equal(consensus, got.consensus.cpu().numpy()):
+            raise AssertionError("session consensus differs from the kernel's")
+
+    # Analytics on/off byte parity: the same 20,000 markets settled flat,
+    # through a session, and through a session with analytics.
+    cut = offsets[PARITY_MARKETS]
+    parity_dumps, parity_consensus = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("flat", "session", "analytics"):
+            small = TensorReliabilityStore()
+            small_plan = pipeline.build_settlement_plan_columnar(
+                small, market_keys[:PARITY_MARKETS],
+                SourceCodes(codes[:cut], sources.table),
+                probs[:cut], offsets[: PARITY_MARKETS + 1],
+            )
+            small_outcomes = outcomes[:PARITY_MARKETS]
+            results = []
+            if mode == "flat":
+                for now in (NOW, NOW + STEPS):
+                    results.append(pipeline.settle(
+                        small, small_plan, small_outcomes, steps=STEPS, now=now))
+            else:
+                with pipeline.ShardedSettlementSession(small, small_plan) as s:
+                    for now in (NOW, NOW + STEPS):
+                        if mode == "session":
+                            results.append(s.settle(
+                                small_outcomes, steps=STEPS, now=now))
+                        else:
+                            results.append(s.settle_with_analytics(
+                                small_outcomes, steps=STEPS, now=now)[0])
+            parity_consensus.append([r.consensus for r in results])
+            path = os.path.join(tmp, f"{mode}.db")
+            small.flush_to_sqlite(path)
+            with open(path, "rb") as handle:
+                parity_dumps.append(handle.read())
+    if not all(dump == parity_dumps[0] for dump in parity_dumps):
+        raise AssertionError("SQLite bytes differ between flat, session and "
+                             "analytics settles")
+    for values in parity_consensus[1:]:
+        for got, want in zip(values, parity_consensus[0]):
+            if not np.array_equal(got, want, equal_nan=True):
+                raise AssertionError("consensus differs with analytics on")
+    emit("analytics_path", markets=MARKETS, slots=int(plan.num_slots),
+         steps=STEPS, calls=len(calls), launches=onepass_launches,
+         max_abs_consensus_err=onepass_main_err, seconds=analytics_seconds,
+         parity_markets=PARITY_MARKETS, parity_sqlite_bytes=len(parity_dumps[0]),
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+
+    # 7. kernels: each kernel and its plain version timed on its path's
     # inputs (fresh clones each run, so every run does the same work). The
+
     # chained (warm) settle, where every row exists and is read, is the
     # steady state and the headline; the first (cold) settle reads no
     # stored state and turns every row on.
@@ -321,7 +561,7 @@ def main() -> int:
             bound_ms=bound / HBM_BYTES_PER_S * 1e3, existing_rows=num_existing,
         )
     warm_t, cold_t = timings["warm"], timings["cold"]
-    entry = {
+    settle_entry = {
         "name": "settle_cycles",
         "route": "cuda",
         "source": "bayesian_consensus_engine_tpu_torch/csrc/settle_cycles.cu",
@@ -340,7 +580,52 @@ def main() -> int:
         "cold": {key: cold_t[key] for key in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_bytes")},
     }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    # onepass_settle on the chained analytics call's inputs: every row
+    # exists, and the state is read, settled 20 steps and written in place.
+    inputs, stages, _got = captured[1]
+
+    def prepare_onepass():
+        probs_d, mask_d, outcome_d, state, now0, steps = inputs
+        return (probs_d, mask_d, outcome_d,
+                MarketBlockState(*(x.clone() for x in state)), now0, steps)
+
+    onepass_ms = time_cuda(
+        lambda a: onepass_kernel.onepass_settle(*a, **stages), prepare_onepass,
+        warmup=3, runs=21,
+    )
+    onepass_plain_ms = time_cuda(
+        lambda a: onepass_kernel.onepass_settle_reference(*a, **stages),
+        prepare_onepass, warmup=1, runs=5,
+    )
+    # The same launch with both analytics stages off: what the tie-break
+    # and the bands add to the settle.
+    bare = dict(stages, with_tiebreak=False, with_bands=False)
+    onepass_bare_ms = time_cuda(
+        lambda a: onepass_kernel.onepass_settle(*a, **bare), prepare_onepass,
+        warmup=3, runs=21,
+    )
+    mask_d, state = inputs[1], inputs[3]
+    onepass_bound = onepass_kernel.bound_bytes(
+        plan.num_slots, MARKETS, int(mask_d.sum()),
+        int((state.exists & mask_d).sum()), STEPS, 4,
+    )
+    onepass_entry = {
+        "name": "onepass_settle",
+        "route": "cuda",
+        "source": "bayesian_consensus_engine_tpu_torch/csrc/onepass_settle.cu",
+        "replaces": "bayesian_consensus_engine_tpu/ops/pallas_settle.py:133",
+        "launches": onepass_launches,
+        "max_abs_err": onepass_main_err,
+        "ms": onepass_ms,
+        "kernel_ms": onepass_ms,
+        "plain_ms": onepass_plain_ms,
+        "bound_ms": onepass_bound / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "bound_bytes": onepass_bound,
+        "library_ms": None,
+        "stages_off_ms": onepass_bare_ms,
+    }
+    print(json.dumps({"kernels": [settle_entry, onepass_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,6 +1,8 @@
-"""The port stands alone: importing it and settling on the CPU loads
-neither JAX nor any module of the JAX package, and its device policy is
-explicit (CUDA unless the CPU is asked for; no silent fallback)."""
+"""The port stands alone: importing it (every module of the analytics
+slice included), settling on the CPU and settling through the resident
+session with analytics loads neither JAX nor any module of the JAX
+package, and its device policy is explicit (CUDA unless the CPU is asked
+for; no silent fallback)."""
 
 import pathlib
 import subprocess
@@ -20,6 +22,11 @@ sys.path.insert(0, {root!r})
 
 import bayesian_consensus_engine_tpu_torch as port
 from bayesian_consensus_engine_tpu_torch import convert
+from bayesian_consensus_engine_tpu_torch.analytics import bands
+from bayesian_consensus_engine_tpu_torch.ops import (
+    cuda_build, fma, onepass_kernel, tiebreak, uncertainty,
+)
+from bayesian_consensus_engine_tpu_torch.parallel import sharded
 
 store = port.TensorReliabilityStore(device="cpu")
 payloads = [
@@ -30,6 +37,13 @@ payloads = [
 result = port.settle_payloads(store, payloads, [True, False], steps=3,
                               now=20000.0)
 assert len(result.consensus) == 2 and len(store.list_sources()) == 2
+
+plan = port.build_settlement_plan(store, payloads)
+with port.ShardedSettlementSession(store, plan) as session:
+    _, tb, bands_out, prop = session.settle_with_analytics(
+        [True, False], steps=2, now=20003.0,
+    )
+assert prop is None and len(tb.prediction) == 2 and len(bands_out.lo) == 2
 
 PACKAGE = "bayesian_consensus_engine_tpu"
 loaded = sorted(
