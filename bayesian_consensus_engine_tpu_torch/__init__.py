@@ -7,25 +7,31 @@ bottom → top, each module named after its JAX counterpart:
   utils/        constants (``config``), time conversion, interning, and
                 the device/dtype policy (``device``)
   ops/          the cycle as plain tensor math (``decay``, ``update``,
-                ``cycle_math``), the tie-break and band math
-                (``tiebreak``, ``uncertainty``), and the hand-written CUDA
-                kernels (``settle_kernel`` + ``csrc/settle_cycles.cu``,
-                ``onepass_kernel`` + ``csrc/onepass_settle.cu``, both
-                built by ``cuda_build``)
+                ``cycle_math``), the tie-break, band and belief-sweep math
+                (``tiebreak``, ``uncertainty``, ``propagate``), and the
+                hand-written CUDA kernels (``settle_kernel`` +
+                ``csrc/settle_cycles.cu``, ``onepass_kernel`` +
+                ``csrc/onepass_settle.cu``, ``bp_kernel`` +
+                ``csrc/bp_sweep.cu``, all built by ``cuda_build``)
   core/         host packing: payloads → ordered pair arrays (``batch``)
   state/        scalar decay/update math, the SQLite checkpoint backend,
                 and the device-tensor store (``tensor_store``)
   parallel/     the fused settle + analytics loop over a resident block
                 (``sharded``, one card)
-  analytics/    the options bag of the analytics entry (``bands``)
+  analytics/    the options bag of the analytics entry (``bands``) and
+                the market graph (``graph``)
+  infer/        graph inference: ``InferenceOptions``,
+                ``propagate_beliefs`` and combinatorial ``MarketBlocks``
   pipeline      plan → settle → deferred absorb → SQLite checkpoint, and
                 the resident one-card session (``ShardedSettlementSession``)
-  convert       build a store from either package's records
+  convert       build a store from either package's records, and a graph
+                from a JAX ``MarketGraph``'s fields
 
 The device is explicit: a store is on CUDA unless ``device="cpu"`` is
 passed, and without CUDA it raises. On CUDA every flat settle is one launch
-of the settle kernel and every session settle one launch of the one-pass
-kernel; on the CPU each kernel's plain torch version runs.
+of the settle kernel, every session settle one launch of the one-pass
+kernel, and every graph sweep ``max_steps + 1`` launches of the belief
+sweep kernel; on the CPU each kernel's plain torch version runs.
 """
 
 from bayesian_consensus_engine_tpu_torch.analytics import AnalyticsOptions

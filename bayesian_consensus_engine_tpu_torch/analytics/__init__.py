@@ -1,14 +1,22 @@
-"""Analytics tier of the port: the options bag of the fused session entry.
+"""Analytics tier of the port: the options bag of the fused session entry
+and the market graph its sweep runs over.
 
 ``ShardedSettlementSession.settle_with_analytics`` runs the settle cycles,
 the ring tie-break and the uncertainty bands in one pass over the resident
-block (on CUDA, one launch of the one-pass kernel). Like the JAX package's
-tier, it is pure-additive: settle results, store state and SQLite bytes
-are the same with analytics on or off. The graph sweep (``MarketGraph``),
-the standalone band program and the chunk tuner are not ported yet.
+block (on CUDA, one launch of the one-pass kernel) and, with a
+:class:`MarketGraph` (``graph=`` or ``blocks=``), the belief sweep after it
+(on CUDA, the ``bp_sweep`` kernel). Like the JAX package's tier, it is
+pure-additive: settle results, store state and SQLite bytes are the same
+with analytics on or off. The standalone band program and the chunk tuner
+are not ported yet.
 """
 
 from bayesian_consensus_engine_tpu_torch.analytics.bands import AnalyticsOptions
+from bayesian_consensus_engine_tpu_torch.analytics.graph import MarketGraph
+from bayesian_consensus_engine_tpu_torch.ops.propagate import (
+    DEFAULT_DAMPING,
+    DEFAULT_SWEEP_STEPS,
+)
 from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
     DEFAULT_CHUNK_SLOTS,
     UncertaintyBands,
@@ -18,6 +26,9 @@ from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
 __all__ = [
     "AnalyticsOptions",
     "DEFAULT_CHUNK_SLOTS",
+    "DEFAULT_DAMPING",
+    "DEFAULT_SWEEP_STEPS",
+    "MarketGraph",
     "UncertaintyBands",
     "Z_95",
 ]

@@ -1,11 +1,12 @@
 """The analytics options bag — the port of ``analytics/bands.py``'s
 :class:`AnalyticsOptions`.
 
-Only the dataclass is ported. ``MarketGraph``, ``build_band_program`` and
-the ``chunk_slots="auto"`` tuner wait for later slices; the session
-refuses the fields that need them (``graph``, ``inference``, ``blocks``,
-``tiebreak="sorted"``) with ``NotImplementedError`` rather than ignoring
-them.
+Only the dataclass is ported. ``build_band_program`` and the
+``chunk_slots="auto"`` tuner wait for later slices; the session refuses
+``tiebreak="sorted"`` with ``NotImplementedError`` rather than ignoring it.
+``graph`` (an ``analytics.MarketGraph``), ``inference`` (an
+``infer.InferenceOptions``) and ``blocks`` (an ``infer.MarketBlocks``) run
+the belief sweep after the settle.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ class AnalyticsOptions:
     ``precision`` is the tie-break's quantisation in decimals.
     ``kernel`` and ``sweep_kernel`` take the JAX package's route names
     (``"xla"``, ``"pallas"``, ``"auto"``); on CUDA every accepted value
-    runs the port's one-pass kernel. ``graph``, ``inference`` and
-    ``blocks`` are typed loosely, as in the JAX package, and are refused
-    by the session until the inference slice lands.
+    runs the port's one-pass kernel, and every accepted ``sweep_kernel``
+    the ``bp_sweep`` kernel. ``graph``, ``inference`` and ``blocks`` are
+    typed loosely, as in the JAX package; the session checks them.
     """
 
     z: float = Z_95

@@ -6,7 +6,9 @@ or the same five columns given directly — source ids, market ids,
 reliabilities, confidences and ISO ``updated_at`` strings, as lists or
 numpy arrays. ``TensorReliabilityStore.from_sqlite`` is the file route.
 :func:`block_state_from_numpy` builds a slot-major block state from numpy
-arrays, so that one block can be fed to both packages.
+arrays, so that one block can be fed to both packages, and
+:func:`market_graph_from_fields` builds the port's ``MarketGraph`` from a
+JAX ``MarketGraph``'s fields, so that one graph can.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 import torch
 
+from bayesian_consensus_engine_tpu_torch.analytics.graph import MarketGraph
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
 from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
     TensorReliabilityStore,
@@ -88,4 +91,32 @@ def block_state_from_numpy(
     return MarketBlockState(
         *(torch.tensor(x, device=device) for x in floats),
         exists=torch.tensor(exists, device=device),
+    )
+
+
+def market_graph_from_fields(
+    node_ids, offsets, indices, weights, damping, steps, fingerprint,
+) -> MarketGraph:
+    """The port's :class:`MarketGraph` from a graph's fields, as a JAX
+    package ``MarketGraph`` holds them (``node_ids``, the CSR ``offsets``,
+    ``indices`` and ``weights``, ``damping``, ``steps`` and the
+    ``fingerprint`` bytes). The arrays are copied with the reference's
+    dtypes (int64 offsets, int32 indices, float64 weights); the CSR must
+    be consistent: one offset per node plus one, non-decreasing, ending at
+    the edge count, with every index naming a node."""
+    offsets = np.array(offsets, dtype=np.int64)
+    indices = np.array(indices, dtype=np.int32)
+    weights = np.array(weights, dtype=np.float64)
+    node_ids = [str(node) for node in node_ids]
+    if offsets.shape != (len(node_ids) + 1,) or offsets[0] != 0:
+        raise ValueError("offsets must hold one entry per node plus one, from 0")
+    if np.any(np.diff(offsets) < 0) or offsets[-1] != indices.shape[0]:
+        raise ValueError("offsets must be non-decreasing and end at the edge count")
+    if weights.shape != indices.shape:
+        raise ValueError("indices and weights differ in length")
+    if indices.size and not (0 <= indices.min() and indices.max() < len(node_ids)):
+        raise ValueError("an edge names a node outside node_ids")
+    return MarketGraph(
+        node_ids, offsets, indices, weights, float(damping), int(steps),
+        bytes(fingerprint),
     )

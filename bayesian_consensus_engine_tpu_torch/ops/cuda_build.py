@@ -24,6 +24,11 @@ from pathlib import Path
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / ".torch_kernels"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+#: Every kernel source of the port, one library each.
+SOURCES = tuple(
+    CSRC / name for name in ("settle_cycles.cu", "onepass_settle.cu", "bp_sweep.cu")
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,6 +98,11 @@ def build(*sources: Path) -> list[tuple[Path, str]]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return [(target, logs.get(target, "")) for target in targets]
+
+
+def build_all() -> list[tuple[Path, str]]:
+    """:func:`build` of every kernel source (:data:`SOURCES`), in parallel."""
+    return build(*SOURCES)
 
 
 def load(source: Path, signatures: dict) -> ctypes.CDLL:

@@ -23,15 +23,18 @@ runs on the store's device: on CUDA every settle is one launch of the
 hand-written settle kernel, on the CPU its plain torch version.
 
 The resident one-card session keeps the plan's (K, M) block state on the
-device across settles and adds the analytics entry:
+device across settles and adds the analytics entry, with graph inference
+over correlated markets:
 
     with ShardedSettlementSession(store, plan) as session:
         result = session.settle(outcomes, steps, now)
-        result, tiebreak, bands, _ = session.settle_with_analytics(
-            outcomes, steps, now, analytics=AnalyticsOptions())
+        result, tiebreak, bands, propagated = session.settle_with_analytics(
+            outcomes, steps, now, analytics=AnalyticsOptions(
+                graph=graph, inference=InferenceOptions(tol=1e-5)))
 
 On CUDA every session call is one launch of the one-pass kernel
-(``ops/onepass_kernel.py``); ``settle_sharded`` is its one-shot wrapper.
+(``ops/onepass_kernel.py``) and, with a graph, the belief sweep's launches
+(``ops/bp_kernel.py``); ``settle_sharded`` is the one-shot wrapper.
 """
 
 from __future__ import annotations
@@ -52,7 +55,11 @@ from bayesian_consensus_engine_tpu_torch.core.batch import (
     topology_fingerprint,
 )
 from bayesian_consensus_engine_tpu_torch.analytics.bands import AnalyticsOptions
+from bayesian_consensus_engine_tpu_torch.analytics.graph import MarketGraph
+from bayesian_consensus_engine_tpu_torch.infer.blocks import MarketBlocks
+from bayesian_consensus_engine_tpu_torch.infer.bp import InferenceOptions
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
+from bayesian_consensus_engine_tpu_torch.ops.propagate import PropagatedBeliefs
 from bayesian_consensus_engine_tpu_torch.ops.settle_kernel import (
     settle_cycles,
     touched_layout,
@@ -807,6 +814,9 @@ class ShardedSettlementSession:
         # its block is session-pinned (the recipe chain must not count
         # its bytes); close flips it back to counted.
         self._standing_gather = None
+        # (key, market keys or None, (neighbor_idx, neighbor_w)) of the
+        # last graph aligned to this plan.
+        self._graph_cache = None
 
     # -- state lifecycle -----------------------------------------------------
 
@@ -938,6 +948,41 @@ class ShardedSettlementSession:
             RingTieBreakResult(*(_BandView(x) for x in tiebreak)),
         )
 
+    def _graph_blocks(self, graph) -> tuple:
+        """Device neighbour blocks for *graph* aligned to the plan's market
+        rows, cached on the session per (graph, topology).
+
+        Keyed by :meth:`~.analytics.graph.MarketGraph.extended_fingerprint`
+        over the plan's topology digest when the plan carries one, else by
+        the graph's fingerprint and market-key equality, as in the JAX
+        package. One card holds every market, so the padded total is the
+        plan's market count.
+        """
+        plan = self._plan
+        total = plan.num_markets
+        if plan.fingerprint is not None:
+            key = (graph.extended_fingerprint(plan.fingerprint), total)
+            keys_sig = None
+        else:
+            key = (graph.fingerprint, total)
+            keys_sig = plan.market_keys
+        cached = self._graph_cache
+        if (
+            cached is not None
+            and cached[0] == key
+            and (keys_sig is None or cached[1] == keys_sig)
+        ):
+            return cached[2]
+        neighbor_idx, neighbor_w = graph.align(plan.market_keys, total)
+        blocks = (
+            torch.from_numpy(neighbor_idx).to(self._device),
+            torch.from_numpy(neighbor_w).to(self._device),
+        )
+        self._graph_cache = (
+            key, list(keys_sig) if keys_sig is not None else None, blocks
+        )
+        return blocks
+
     def settle_with_analytics(
         self,
         outcomes: Sequence[bool],
@@ -947,21 +992,28 @@ class ShardedSettlementSession:
         kernel: Optional[str] = None,
         sweep_kernel: Optional[str] = None,
     ) -> tuple:
-        """Settle AND analyse the batch in one pass over the resident
-        block: the N-cycle loop, the ring tie-break and the uncertainty
-        bands, all read from the same pre-update state at *now*. Returns
+        """Settle AND analyse the batch over the resident block: the N-cycle
+        loop, the ring tie-break and the uncertainty bands, all read from
+        the same pre-update state at *now*, and, when *analytics* carries a
+        graph, the belief sweep over the last step's consensus. Returns
         ``(SettlementResult, RingTieBreakResult | None, UncertaintyBands,
-        None)``; the last slot is the graph sweep's, not ported yet.
+        propagated)``: ``propagated`` is a :class:`PropagatedBeliefs` on
+        the moments lane (``inference=InferenceOptions()``), the relaxed
+        mean vector on the point lane (a graph with no ``inference``), and
+        ``None`` with no graph or a sweep depth of 0.
 
         Settlement semantics — merge recipe, confidence replay, SQLite
         bytes — and the consensus are exactly :meth:`settle`'s: analytics
         only reads. *analytics* defaults to ``AnalyticsOptions()``;
-        ``tiebreak=False`` drops the tie-break (``None`` in its slot).
-        ``graph``, ``inference``, ``blocks`` and ``tiebreak="sorted"``
-        raise ``NotImplementedError``. *kernel* and *sweep_kernel*
-        (``None`` defers to the options) take the JAX package's route
-        names and are validated as there; on CUDA every accepted value
-        runs the one-pass kernel.
+        ``tiebreak=False`` drops the tie-break (``None`` in its slot);
+        ``tiebreak="sorted"`` raises ``NotImplementedError``. ``graph`` is
+        an :class:`~.analytics.graph.MarketGraph`; ``blocks`` (an
+        :class:`~.infer.blocks.MarketBlocks`) alone become the graph, and
+        with or without a graph project the propagated output on the
+        host; ``inference`` (an :class:`~.infer.bp.InferenceOptions`)
+        needs a graph. *kernel* and *sweep_kernel* (``None`` defers to the
+        options) take the JAX package's route names and are validated as
+        there; on CUDA every accepted value runs the port's kernels.
         """
         options = analytics if analytics is not None else AnalyticsOptions()
 
@@ -987,18 +1039,50 @@ class ShardedSettlementSession:
                 f"tiebreak={tiebreak_opt!r}: True (ring), False (off), "
                 "or 'sorted' (the sort-based grouping kernel)"
             )
-        for field, item in (("graph", 8), ("inference", 9), ("blocks", 9)):
-            if getattr(options, field) is not None:
-                raise NotImplementedError(
-                    f"analytics.{field} is not ported yet (ROADMAP queue 1 "
-                    f"item {item}); pass {field}=None"
+        graph, inference, blocks = options.graph, options.inference, options.blocks
+        if graph is not None and not isinstance(graph, MarketGraph):
+            raise TypeError(
+                "analytics.graph takes an analytics.MarketGraph; got "
+                f"{type(graph).__name__}"
+            )
+        if blocks is not None:
+            if not isinstance(blocks, MarketBlocks):
+                raise TypeError(
+                    "analytics.blocks takes an infer.MarketBlocks; got "
+                    f"{type(blocks).__name__}"
                 )
+            if graph is None:
+                # Blocks alone ARE the graph; a caller composing blocks
+                # with correlation edges passes blocks.to_graph(
+                # extra_edges=...) as graph= (the projection still applies).
+                graph = blocks.to_graph()
+        sweep_mode, sweep_tol = "point", None
+        sweep_steps = graph.steps if graph is not None else 0
+        damping = graph.damping if graph is not None else 0.0
+        if inference is not None:
+            if not isinstance(inference, InferenceOptions):
+                raise TypeError(
+                    "analytics.inference takes an infer.InferenceOptions; "
+                    f"got {type(inference).__name__}"
+                )
+            if graph is None:
+                raise ValueError(
+                    "analytics.inference needs a graph to sweep over — "
+                    "set graph= (correlation edges) or blocks= "
+                    "(combinatorial constraints)"
+                )
+            damping, sweep_steps, sweep_tol = inference.resolve(graph)
+            sweep_mode = "moments" if inference.moments else "point"
         loop = build_cycle_analytics_loop(
             self._device,
             chunk_agents=chunk_agents,
             chunk_slots=chunk_slots,
             precision=options.precision,
             z=options.z,
+            damping=damping,
+            sweep_steps=sweep_steps,
+            sweep_mode=sweep_mode,
+            sweep_tol=sweep_tol,
             with_tiebreak=bool(tiebreak_opt),
             tiebreak_kind="sorted" if tiebreak_opt == "sorted" else "ring",
             kernel=kernel if kernel is not None else options.kernel,
@@ -1008,12 +1092,22 @@ class ShardedSettlementSession:
             ),
         )
         now_abs, conf_exact, outcome_g = self._settle_preamble(outcomes, now)
-        new_state, consensus, tiebreak, bands, _prop = loop(
+        graph_args = self._graph_blocks(graph) if sweep_steps > 0 else ()
+        new_state, consensus, tiebreak, bands, propagated = loop(
             self._probs_g, self._mask_g, outcome_g, self._state,
-            self._now0(now_abs), steps,
+            self._now0(now_abs), steps, *graph_args,
         )
         self._settle_commit(new_state, steps, now_abs, conf_exact)
         _live, keys = self._band_live()
+        if propagated is not None and blocks is not None:
+            propagated = self._project_blocks(propagated, blocks, keys)
+        if isinstance(propagated, PropagatedBeliefs):
+            propagated = propagated._replace(
+                mean=_BandView(propagated.mean),
+                stderr=_BandView(propagated.stderr),
+            )
+        elif propagated is not None:
+            propagated = _BandView(propagated)
         return (
             SettlementResult(market_keys=keys, consensus=_BandView(consensus)),
             (
@@ -1021,7 +1115,25 @@ class ShardedSettlementSession:
                 if tiebreak is not None else None
             ),
             UncertaintyBands(*(_BandView(x) for x in bands)),
-            None,
+            propagated,
+        )
+
+    def _project_blocks(self, propagated, blocks, keys):
+        """The combinatorial blocks' projection of the propagated output,
+        on the host (``infer/blocks.py``), over the live rows. Only the
+        additive propagated vectors change; the audit pair is kept."""
+        is_moments = isinstance(propagated, PropagatedBeliefs)
+        mean = propagated.mean if is_moments else propagated
+        stderr = propagated.stderr.cpu().numpy() if is_moments else None
+        proj_mean, proj_stderr = blocks.project(keys, mean.cpu().numpy(), stderr)
+
+        def upload(values):
+            return torch.from_numpy(values).to(self._device)
+
+        if not is_moments:
+            return upload(proj_mean)
+        return propagated._replace(
+            mean=upload(proj_mean), stderr=upload(proj_stderr)
         )
 
     def _release_standing(self) -> None:

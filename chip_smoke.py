@@ -5,8 +5,8 @@
 Phases, one JSON line each:
 
 1. ``device``       the card (``nvidia-smi`` name and power limit).
-2. ``build``        compile both kernels from the package's ``.cu`` sources,
-                    one ``nvcc`` each, started together.
+2. ``build``        compile the three kernels from the package's ``.cu``
+                    sources, one ``nvcc`` each, started together.
 3. ``kernel_check`` ``settle_cycles`` against its plain torch version on
                     the card, float32 and float64, K in {1, 5, 16, 40}, a
                     ragged M, steps in {0, 1, 2, 20}, with pads, cold slots,
@@ -19,7 +19,14 @@ Phases, one JSON line each:
                     cold slots, empty markets, all-tied markets and stamps
                     on and off multiples of the half-life: state, tie-break
                     and band moments bit-equal, consensus within tolerance.
-5. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
+5. ``bp_check``     ``bp_sweep`` against its plain version on the card:
+                    M = 1037, D in {1, 2, 8, 33}, the point lane with
+                    either blend contraction and the moments lane, fixed
+                    depth and early exits after 1, 5 or 6 sweeps or none,
+                    ``max_steps`` in {1, 2, 24}, with edgeless rows, NaN
+                    seeds, zero variances and a row whose mix is NaN: mean,
+                    variance, ``iters_run`` and ``residual`` bit-equal.
+6. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
                     10,000-source universe (seed 7), through
                     ``build_settlement_plan_columnar`` on a CUDA store, two
                     chained 20-step ``settle`` calls, the consensus fetch,
@@ -29,7 +36,7 @@ Phases, one JSON line each:
                     inputs that settle was given, the first settle's state
                     must be bit-equal to the plain version's, and the flush
                     must write every row.
-6. ``analytics_path`` the main path's plan and store (1M markets) through a
+7. ``analytics_path`` the main path's plan and store (1M markets) through a
                     resident ``ShardedSettlementSession``: two chained
                     20-step ``settle_with_analytics`` calls with the default
                     ``AnalyticsOptions``, then ``close`` (which syncs the
@@ -41,7 +48,25 @@ Phases, one JSON line each:
                     ``settle``, session ``settle`` and session
                     ``settle_with_analytics`` must leave byte-equal SQLite
                     files and bit-equal consensus.
-7. ``kernels``      each kernel's launches on its path, error, time (CUDA
+8. ``inference_path`` the same plan and store through a session with a
+                    real graph, made from the seed: 250,000 mutually
+                    exclusive events of 4 consecutive markets
+                    (``MarketBlocks``) and 2 correlation edges per market to
+                    random markets of other events, weights U(0.5, 1.5):
+                    D = 5, 5M edges, passed as ``blocks.to_graph(
+                    extra_edges=...)`` with ``blocks=`` and
+                    ``InferenceOptions(tol=1e-5, max_steps=24)``. Two
+                    chained 20-step ``settle_with_analytics`` calls: the
+                    ``bp_sweep`` launch count must rise by exactly
+                    ``max_steps + 1`` per call, each call's sweep must be
+                    bit-equal to the plain version on that call's seeds and
+                    its projection to ``MarketBlocks.project`` of it, every
+                    event's projected means must sum to 1 within 1e-6, and
+                    the second call must reuse the aligned neighbour blocks.
+                    Then, on two fresh stores of 20,000 markets, the session
+                    with a graph and without one must leave byte-equal
+                    SQLite files.
+9. ``kernels``      each kernel's launches on its path, error, time (CUDA
                     events over 21 back-to-back launches after warm-up, each
                     on fresh input copies), plain-version time and
                     byte bound: ``settle_cycles`` on the chained flat
@@ -49,7 +74,10 @@ Phases, one JSON line each:
                     and, under ``cold``, on the first settle's (no row
                     exists yet); ``onepass_settle`` on the chained analytics
                     call's inputs, and under ``stages_off_ms`` the same
-                    launch with the tie-break and bands off.
+                    launch with the tie-break and bands off; ``bp_sweep``
+                    on the chained inference call's seeds (its time per
+                    call of ``max_steps + 1`` launches, the bound for the
+                    sweeps that ran).
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -60,7 +88,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -74,6 +101,8 @@ HBM_BYTES_PER_S = 3.35e12
 NOW = 20000.25  # epoch-days
 MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000, 4, 10_000, 7, 20
 PARITY_MARKETS = 20_000
+# The inference path's graph and sweep.
+EVENT_SIZE, CORRELATIONS, BP_TOL, BP_MAX_STEPS = 4, 2, 1e-5, 24
 # Consensus tolerance (exp2 and the K-sum order differ); state is bit-equal.
 TOL = {np.dtype(np.float32): dict(rtol=1e-5, atol=1e-6),
        np.dtype(np.float64): dict(rtol=1e-12, atol=0.0)}
@@ -225,14 +254,77 @@ def time_cuda(fn, prepare, warmup: int, runs: int) -> float:
     return start.elapsed_time(end) / runs
 
 
+def bp_case(rng, num_markets, degree):
+    """Seeds and neighbour blocks: pads, edgeless rows, NaN seeds, zero
+    variances and, with D = 33, a row whose mix is NaN (infinite weights)."""
+    idx = rng.integers(0, num_markets, (num_markets, degree)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.2] = -1
+    idx[::11] = -1
+    weights = rng.uniform(0.5, 1.5, idx.shape).astype(np.float32)
+    means = rng.random(num_markets).astype(np.float32)
+    variances = (rng.random(num_markets) * 0.01).astype(np.float32)
+    means[rng.random(num_markets) < 0.05] = np.nan
+    variances[rng.random(num_markets) < 0.1] = 0.0
+    if degree == 33:
+        idx[7] = np.arange(degree) + 20
+        weights[7] = np.inf
+    return means, variances, idx, weights
+
+
+def check_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """Bit-equal float tensors, a NaN comparing as NaN whatever its payload."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    nan = np.isnan(want)
+    if got.dtype != want.dtype or got.shape != want.shape or not (
+        np.array_equal(np.isnan(got), nan)
+        and np.array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+    ):
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def compare_sweep(got, want, what):
+    """A bp_sweep result against the plain version's: all four bit-equal."""
+    for field, a, b in zip(("mean", "var", "iters_run", "residual"), got, want):
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"{what} {field}: expected None")
+        elif field == "iters_run":
+            if a.dtype != torch.int32 or int(a) != int(b):
+                raise AssertionError(f"{what}: iters_run {int(a)} != {int(b)}")
+        else:
+            check_bits(a, b, f"{what} {field}")
+
+
+def inference_graph(keys, seed, blocks_module):
+    """The inference path's graph over *keys*: mutually exclusive events of
+    EVENT_SIZE consecutive markets, and CORRELATIONS edges per market to
+    random markets of other events, weights U(0.5, 1.5)."""
+    num = len(keys)
+    rng = np.random.default_rng(seed)
+    blocks = blocks_module.MarketBlocks([
+        blocks_module.MarketBlock(
+            "mutually_exclusive", tuple(keys[e: e + EVENT_SIZE]))
+        for e in range(0, num, EVENT_SIZE)
+    ])
+    src = np.repeat(np.arange(num), CORRELATIONS)
+    other_event = rng.integers(1, num // EVENT_SIZE, src.size)
+    dst = (src // EVENT_SIZE * EVENT_SIZE + other_event * EVENT_SIZE
+           + rng.integers(0, EVENT_SIZE, src.size)) % num
+    weights = rng.uniform(0.5, 1.5, src.size)
+    edges = list(zip([keys[i] for i in src.tolist()],
+                     [keys[i] for i in dst.tolist()], weights.tolist()))
+    return blocks, edges
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from bayesian_consensus_engine_tpu_torch import pipeline
+    from bayesian_consensus_engine_tpu_torch import infer, pipeline
     from bayesian_consensus_engine_tpu_torch.analytics import AnalyticsOptions
     from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
     from bayesian_consensus_engine_tpu_torch.ops import (
+        bp_kernel,
         cuda_build,
         onepass_kernel,
         settle_kernel,
@@ -254,7 +346,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together.
     start = time.perf_counter()
-    built = cuda_build.build(settle_kernel.SOURCE, onepass_kernel.SOURCE)
+    built = cuda_build.build_all()
     emit("build", seconds=time.perf_counter() - start,
          libraries=[os.path.relpath(library) for library, _log in built],
          ptxas=[line for _library, log in built for line in log.splitlines()
@@ -315,7 +407,36 @@ def main() -> int:
     emit("onepass_check", cases=cases, markets=1037,
          max_abs_consensus_err=onepass_err)
 
-    # 5. main_path
+    # 5. bp_check: lanes are (moments, keep_fma).
+    rng = np.random.default_rng(2)
+    lanes = {"point": (False, None), "point_keep": (False, True),
+             "moments": (True, None)}
+    cases = 0
+    stops = set()
+    for degree in (1, 2, 8, 33):
+        case = [torch.tensor(x, device="cuda")
+                for x in bp_case(rng, 1037, degree)]
+        for lane, (moments, keep_fma) in lanes.items():
+            args = (case[0], case[1] if moments else None, case[2], case[3])
+            sweep = dict(damping=0.3, keep_fma=keep_fma)
+            # A tolerance the early exit reaches after 5 or 6 sweeps.
+            mid = float(bp_kernel.bp_sweep_reference(
+                *args, max_steps=5 + degree % 2, **sweep)[3])
+            for tol in (None, 1e-3, mid):
+                for max_steps in (1, 2, BP_MAX_STEPS):
+                    what = f"bp D={degree} {lane} tol={tol} max_steps={max_steps}"
+                    want = bp_kernel.bp_sweep_reference(
+                        *args, max_steps=max_steps, tol=tol, **sweep)
+                    got = bp_kernel.bp_sweep(
+                        *args, max_steps=max_steps, tol=tol, **sweep)
+                    torch.cuda.synchronize()
+                    compare_sweep(got, want, what)
+                    stops.add(int(got[2]))
+                    cases += 1
+    emit("bp_check", cases=cases, markets=1037, degrees=[1, 2, 8, 33],
+         iters_run_seen=sorted(stops), max_abs_err=0.0)
+
+    # 6. main_path
     seconds = {}
     start = time.perf_counter()
     data_rng = np.random.default_rng(SEED)
@@ -415,7 +536,7 @@ def main() -> int:
          seconds=seconds, cut=None,
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 6. analytics_path: the main path's plan and store through a resident
+    # 7. analytics_path: the main path's plan and store through a resident
     # session. Each one-pass call's inputs are copied as the loop hands
     # them to the kernel (the kernel updates the state in place), so that
     # the plain version can be run on them afterwards; the copies are made
@@ -529,9 +650,155 @@ def main() -> int:
          parity_markets=PARITY_MARKETS, parity_sqlite_bytes=len(parity_dumps[0]),
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 7. kernels: each kernel and its plain version timed on its path's
-    # inputs (fresh clones each run, so every run does the same work). The
+    # 8. inference_path: the same plan and store through a session with a
+    # real graph. Each sweep's seeds and outputs are copied as the loop
+    # hands them to the kernel, so that the plain version can be run on
+    # them afterwards; the copies are made inside the timed calls.
+    inference_seconds = {}
+    start = time.perf_counter()
+    blocks, edges = inference_graph(market_keys, SEED + 1, infer)
+    graph = blocks.to_graph(extra_edges=edges)
+    del edges
+    inference_seconds["graph_build"] = time.perf_counter() - start
+    options = AnalyticsOptions(
+        graph=graph, blocks=blocks,
+        inference=infer.InferenceOptions(tol=BP_TOL, max_steps=BP_MAX_STEPS),
+    )
+    bp_captured = []
+    real_bp = sharded.bp_sweep
 
+    def capturing_bp(means, variances, neighbor_idx, neighbor_w, **sweep):
+        seeds = (means.clone(), None if variances is None else variances.clone(),
+                 neighbor_idx, neighbor_w)
+        out = real_bp(means, variances, neighbor_idx, neighbor_w, **sweep)
+        torch.cuda.synchronize()
+        bp_captured.append((seeds, sweep, tuple(
+            None if x is None else x.clone() for x in out)))
+        return out
+
+    session_cls = pipeline.ShardedSettlementSession
+    real_blocks, real_project = session_cls._graph_blocks, session_cls._project_blocks
+
+    def timed(method, name):
+        def run(self, *args):
+            begin = time.perf_counter()
+            out = method(self, *args)
+            torch.cuda.synchronize()
+            key = f"{name}_{sum(k.startswith(name) for k in inference_seconds) + 1}"
+            inference_seconds[key] = time.perf_counter() - begin
+            return out
+        return run
+
+    bp_counts, block_caches, inference_calls = [], [], []
+    sharded.bp_sweep = capturing_bp
+    session_cls._graph_blocks = timed(real_blocks, "align")
+    session_cls._project_blocks = timed(real_project, "project")
+    try:
+        bp_kernel.LAUNCHES = 0
+        onepass_kernel.LAUNCHES = 0
+        settle_kernel.LAUNCHES = 0
+        session = pipeline.ShardedSettlementSession(store, plan)
+        for call, now in enumerate((NOW + 4 * STEPS, NOW + 5 * STEPS), 1):
+            start = time.perf_counter()
+            result, _tb, bands, propagated = session.settle_with_analytics(
+                outcomes, steps=STEPS, now=now, analytics=options,
+            )
+            result.fence()
+            inference_seconds[f"call_{call}"] = time.perf_counter() - start
+            bp_counts.append(bp_kernel.LAUNCHES)
+            block_caches.append(session._graph_cache[2])
+            inference_calls.append(propagated)
+        start = time.perf_counter()
+        session.close()
+        inference_seconds["close"] = time.perf_counter() - start
+    finally:
+        sharded.bp_sweep = real_bp
+        session_cls._graph_blocks, session_cls._project_blocks = (
+            real_blocks, real_project)
+    bp_launches = bp_kernel.LAUNCHES
+    per_call = bp_kernel.launches_per_call(BP_MAX_STEPS)
+    if bp_counts != [per_call, 2 * per_call] or onepass_kernel.LAUNCHES != 2 \
+            or settle_kernel.LAUNCHES != 0:
+        raise AssertionError(
+            f"bp_sweep launches after each call {bp_counts} (expected "
+            f"{[per_call, 2 * per_call]}), one-pass {onepass_kernel.LAUNCHES} "
+            f"(expected 2), settle {settle_kernel.LAUNCHES} (expected 0)")
+    if block_caches[0] is not block_caches[1]:
+        raise AssertionError("the second call aligned the graph again")
+    degree = int(block_caches[0][0].shape[1])
+    iters_run, bp_err, projected_events = [], 0.0, 0
+    for call, ((seeds, sweep, got), propagated) in enumerate(
+        zip(bp_captured, inference_calls), 1
+    ):
+        want = bp_kernel.bp_sweep_reference(*seeds, **sweep)
+        compare_sweep(got, want, f"inference call {call}")
+        finite = torch.isfinite(want[0])
+        bp_err = max(bp_err, float((got[0] - want[0])[finite].abs().max()))
+        iters_run.append(int(got[2]))
+        stderr = torch.sqrt(want[1].double()).to(torch.float32)
+        mean_p, stderr_p = blocks.project(
+            market_keys, want[0].cpu().numpy(), stderr.cpu().numpy())
+        check_bits(torch.from_numpy(np.asarray(propagated.mean)),
+                   torch.from_numpy(mean_p), f"inference call {call} projected mean")
+        check_bits(torch.from_numpy(np.asarray(propagated.stderr)),
+                   torch.from_numpy(stderr_p), f"inference call {call} projected stderr")
+        if int(propagated.iters_run) != int(want[2]):
+            raise AssertionError(f"inference call {call}: iters_run differs")
+        events = mean_p.reshape(-1, EVENT_SIZE).astype(np.float64)
+        if not np.all(np.isfinite(events)) or np.any(
+            np.abs(events.sum(axis=1) - 1.0) > 1e-6
+        ):
+            raise AssertionError(f"inference call {call}: a partition does "
+                                 "not sum to 1 within 1e-6")
+        projected_events = events.shape[0]
+    del want
+
+    # Graph on/off byte parity: the same 20,000 markets through a session
+    # with the graph and one without.
+    small_keys = market_keys[:PARITY_MARKETS]
+    small_blocks, small_edges = inference_graph(small_keys, SEED + 2, infer)
+    small_options = AnalyticsOptions(
+        graph=small_blocks.to_graph(extra_edges=small_edges), blocks=small_blocks,
+        inference=infer.InferenceOptions(tol=BP_TOL, max_steps=BP_MAX_STEPS),
+    )
+    graph_dumps, graph_consensus = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("off", "graph"):
+            small = TensorReliabilityStore()
+            small_plan = pipeline.build_settlement_plan_columnar(
+                small, small_keys, SourceCodes(codes[:cut], sources.table),
+                probs[:cut], offsets[: PARITY_MARKETS + 1],
+            )
+            values = []
+            with pipeline.ShardedSettlementSession(small, small_plan) as s:
+                for now in (NOW, NOW + STEPS):
+                    out = s.settle_with_analytics(
+                        outcomes[:PARITY_MARKETS], steps=STEPS, now=now,
+                        analytics=small_options if mode == "graph" else None)
+                    if (out[3] is None) != (mode == "off"):
+                        raise AssertionError(f"parity {mode}: propagated slot")
+                    values.append(out[0].consensus)
+            graph_consensus.append(values)
+            path = os.path.join(tmp, f"{mode}.db")
+            small.flush_to_sqlite(path)
+            with open(path, "rb") as handle:
+                graph_dumps.append(handle.read())
+    if graph_dumps[0] != graph_dumps[1]:
+        raise AssertionError("SQLite bytes differ with the graph on and off")
+    for got, want in zip(*graph_consensus):
+        if not np.array_equal(got, want, equal_nan=True):
+            raise AssertionError("consensus differs with the graph on")
+    emit("inference_path", markets=MARKETS, events=projected_events,
+         edges=graph.num_edges, degree=degree, steps=STEPS,
+         max_steps=BP_MAX_STEPS, tol=BP_TOL, calls=len(inference_calls),
+         iters_run=iters_run, launches=bp_launches,
+         launches_per_call=per_call, max_abs_err=bp_err,
+         seconds=inference_seconds, parity_markets=PARITY_MARKETS,
+         parity_sqlite_bytes=len(graph_dumps[0]),
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+
+    # 9. kernels: each kernel and its plain version timed on its path's
+    # inputs (fresh clones each run, so every run does the same work). The
     # chained (warm) settle, where every row exists and is read, is the
     # steady state and the headline; the first (cold) settle reads no
     # stored state and turns every row on.
@@ -625,7 +892,34 @@ def main() -> int:
         "library_ms": None,
         "stages_off_ms": onepass_bare_ms,
     }
-    print(json.dumps({"kernels": [settle_entry, onepass_entry]}), flush=True)
+    # bp_sweep on the chained inference call's seeds; the kernel leaves its
+    # inputs untouched, so every run takes the same ones.
+    seeds, sweep, chained = bp_captured[1]
+    bp_ms = time_cuda(lambda a: bp_kernel.bp_sweep(*a, **sweep), lambda: seeds,
+                      warmup=3, runs=21)
+    bp_plain_ms = time_cuda(lambda a: bp_kernel.bp_sweep_reference(*a, **sweep),
+                            lambda: seeds, warmup=1, runs=3)
+    bp_iters = int(chained[2])
+    bp_bound = bp_kernel.bound_bytes(MARKETS, degree, bp_iters, True)
+    bp_entry = {
+        "name": "bp_sweep",
+        "route": "cuda",
+        "source": "bayesian_consensus_engine_tpu_torch/csrc/bp_sweep.cu",
+        "replaces": "bayesian_consensus_engine_tpu/ops/pallas_bp.py:109",
+        "launches": bp_launches,
+        "max_abs_err": bp_err,
+        "ms": bp_ms,
+        "kernel_ms": bp_ms,
+        "plain_ms": bp_plain_ms,
+        "bound_ms": bp_bound / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "bound_bytes": bp_bound,
+        "library_ms": None,
+        "iters_run": bp_iters,
+        "launches_per_call": per_call,
+    }
+    print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

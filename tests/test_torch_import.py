@@ -1,8 +1,8 @@
-"""The port stands alone: importing it (every module of the analytics
-slice included), settling on the CPU and settling through the resident
-session with analytics loads neither JAX nor any module of the JAX
-package, and its device policy is explicit (CUDA unless the CPU is asked
-for; no silent fallback)."""
+"""The port stands alone: importing it (every module of the analytics and
+inference slices included), settling on the CPU and settling through the
+resident session with analytics and graph inference loads neither JAX nor
+any module of the JAX package, and its device policy is explicit (CUDA
+unless the CPU is asked for; no silent fallback)."""
 
 import pathlib
 import subprocess
@@ -22,9 +22,12 @@ sys.path.insert(0, {root!r})
 
 import bayesian_consensus_engine_tpu_torch as port
 from bayesian_consensus_engine_tpu_torch import convert
-from bayesian_consensus_engine_tpu_torch.analytics import bands
+from bayesian_consensus_engine_tpu_torch import infer
+from bayesian_consensus_engine_tpu_torch.analytics import bands, graph
+from bayesian_consensus_engine_tpu_torch.infer import blocks as infer_blocks, bp
 from bayesian_consensus_engine_tpu_torch.ops import (
-    cuda_build, fma, onepass_kernel, tiebreak, uncertainty,
+    bp_kernel, cuda_build, fma, onepass_kernel, propagate, tiebreak,
+    uncertainty,
 )
 from bayesian_consensus_engine_tpu_torch.parallel import sharded
 
@@ -44,6 +47,17 @@ with port.ShardedSettlementSession(store, plan) as session:
         [True, False], steps=2, now=20003.0,
     )
 assert prop is None and len(tb.prediction) == 2 and len(bands_out.lo) == 2
+
+market_graph = graph.MarketGraph.from_edges([("m1", "m2", 1.0), ("m2", "m1", 0.5)])
+options = port.AnalyticsOptions(
+    graph=market_graph, inference=infer.InferenceOptions(tol=1e-6, max_steps=4),
+)
+with port.ShardedSettlementSession(store, plan) as session:
+    prop = session.settle_with_analytics(
+        [True, False], steps=2, now=20006.0, analytics=options,
+    )[3]
+assert isinstance(prop, infer.PropagatedBeliefs) and len(prop.mean) == 2
+assert 1 <= int(prop.iters_run) <= 4
 
 PACKAGE = "bayesian_consensus_engine_tpu"
 loaded = sorted(
