@@ -12,26 +12,33 @@ bottom → top, each module named after its JAX counterpart:
                 hand-written CUDA kernels (``settle_kernel`` +
                 ``csrc/settle_cycles.cu``, ``onepass_kernel`` +
                 ``csrc/onepass_settle.cu``, ``bp_kernel`` +
-                ``csrc/bp_sweep.cu``, all built by ``cuda_build``)
+                ``csrc/bp_sweep.cu``, ``partials_kernel`` +
+                ``csrc/onepass_partials.cu``, all built by ``cuda_build``)
   core/         host packing: payloads → ordered pair arrays (``batch``)
   state/        scalar decay/update math, the SQLite checkpoint backend,
                 and the device-tensor store (``tensor_store``)
-  parallel/     the fused settle + analytics loop over a resident block
-                (``sharded``, one card)
+  parallel/     the (markets, sources) mesh (``mesh``), in-process
+                collectives (``collectives``), this process's band
+                (``distributed``), and the fused settle + analytics loop
+                over a resident block on one card or a mesh (``sharded``)
   analytics/    the options bag of the analytics entry (``bands``) and
                 the market graph (``graph``)
   infer/        graph inference: ``InferenceOptions``,
                 ``propagate_beliefs`` and combinatorial ``MarketBlocks``
   pipeline      plan → settle → deferred absorb → SQLite checkpoint, and
-                the resident one-card session (``ShardedSettlementSession``)
-  convert       build a store from either package's records, and a graph
-                from a JAX ``MarketGraph``'s fields
+                the resident session on one card or a mesh
+                (``ShardedSettlementSession``)
+  convert       build a store from either package's records, a graph
+                from a JAX ``MarketGraph``'s fields, and a mesh session's
+                block state from global numpy arrays and back
 
 The device is explicit: a store is on CUDA unless ``device="cpu"`` is
 passed, and without CUDA it raises. On CUDA every flat settle is one launch
 of the settle kernel, every session settle one launch of the one-pass
-kernel, and every graph sweep ``max_steps + 1`` launches of the belief
-sweep kernel; on the CPU each kernel's plain torch version runs.
+kernel (on a sources-sharded mesh, one launch of the partials kernel a
+shard and the cross-shard merge), and every graph sweep ``max_steps + 1``
+launches of the belief sweep kernel; on the CPU each kernel's plain torch
+version runs.
 """
 
 from bayesian_consensus_engine_tpu_torch.analytics import AnalyticsOptions

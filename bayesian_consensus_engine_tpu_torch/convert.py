@@ -6,7 +6,11 @@ or the same five columns given directly — source ids, market ids,
 reliabilities, confidences and ISO ``updated_at`` strings, as lists or
 numpy arrays. ``TensorReliabilityStore.from_sqlite`` is the file route.
 :func:`block_state_from_numpy` builds a slot-major block state from numpy
-arrays, so that one block can be fed to both packages, and
+arrays, so that one block can be fed to both packages;
+:func:`sharded_block_from_numpy` and :func:`sharded_block_to_numpy` carry
+a mesh session's block state (global numpy arrays, as ``np.asarray`` of the
+JAX session's sharded state gives them) to the port's grid of per-shard
+blocks and back; and
 :func:`market_graph_from_fields` builds the port's ``MarketGraph`` from a
 JAX ``MarketGraph``'s fields, so that one graph can.
 """
@@ -19,6 +23,11 @@ import torch
 
 from bayesian_consensus_engine_tpu_torch.analytics.graph import MarketGraph
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
+from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
+    Mesh,
+    shard_slot_block,
+    unshard_slot_block,
+)
 from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
     TensorReliabilityStore,
 )
@@ -71,14 +80,9 @@ def store_from_records(records, device=None) -> TensorReliabilityStore:
     return store
 
 
-def block_state_from_numpy(
-    reliability, confidence, updated_days, exists, device=None,
-) -> MarketBlockState:
-    """The port's :class:`MarketBlockState` from a block state given as
-    numpy arrays (as ``np.asarray`` of the JAX package's fields gives
-    them): three float arrays of one dtype and a bool ``exists``, all of
-    one shape. The tensors are copies on *device* (``None`` means CUDA)."""
-    device = resolve_device(device)
+def _checked_state_arrays(reliability, confidence, updated_days, exists):
+    """The four fields of a block state as numpy arrays: three float
+    arrays of one dtype and a bool ``exists``, all of one shape."""
     floats = [np.asarray(x) for x in (reliability, confidence, updated_days)]
     exists = np.asarray(exists)
     if len({x.dtype for x in floats}) != 1 or floats[0].dtype.kind != "f":
@@ -88,10 +92,48 @@ def block_state_from_numpy(
         raise ValueError(f"exists must be bool, not {exists.dtype}")
     if len({x.shape for x in floats} | {exists.shape}) != 1:
         raise ValueError("the block state's arrays differ in shape")
-    return MarketBlockState(
-        *(torch.tensor(x, device=device) for x in floats),
-        exists=torch.tensor(exists, device=device),
+    return (*floats, exists)
+
+
+def block_state_from_numpy(
+    reliability, confidence, updated_days, exists, device=None,
+) -> MarketBlockState:
+    """The port's :class:`MarketBlockState` from a block state given as
+    numpy arrays (as ``np.asarray`` of the JAX package's fields gives
+    them): three float arrays of one dtype and a bool ``exists``, all of
+    one shape. The tensors are copies on *device* (``None`` means CUDA)."""
+    device = resolve_device(device)
+    arrays = _checked_state_arrays(reliability, confidence, updated_days, exists)
+    return MarketBlockState(*(torch.tensor(x, device=device) for x in arrays))
+
+
+def sharded_block_from_numpy(state_np, mesh: Mesh) -> tuple:
+    """A mesh session's block state — a grid ``state[i][j]`` of per-shard
+    :class:`MarketBlockState` on the mesh's devices — from the global
+    slot-major state given as numpy arrays (the four fields of a
+    ``MarketBlockState``, padded as the session pads the plan). The
+    arrays are checked as :func:`block_state_from_numpy` checks them and
+    cut as ``parallel.mesh.shard_slot_block`` cuts a block."""
+    grids = [shard_slot_block(x, mesh) for x in _checked_state_arrays(*state_np)]
+    return tuple(
+        tuple(
+            MarketBlockState(*(grid[i][j] for grid in grids))
+            for j in range(len(row))
+        )
+        for i, row in enumerate(mesh.devices)
     )
+
+
+def sharded_block_to_numpy(state) -> MarketBlockState:
+    """The global slot-major block state of a grid of per-shard
+    :class:`MarketBlockState`, as numpy arrays (the reverse of
+    :func:`sharded_block_from_numpy`)."""
+    return MarketBlockState(*(
+        unshard_slot_block(
+            [[getattr(shard, field) for shard in row] for row in state]
+        ).cpu().numpy()
+        for field in MarketBlockState._fields
+    ))
 
 
 def market_graph_from_fields(

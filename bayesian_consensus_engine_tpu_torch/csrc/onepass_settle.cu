@@ -61,17 +61,16 @@
 
 #include <type_traits>
 
+#include "band_tree.cuh"
 #include "settle_math.cuh"
 
 namespace {
 
+using band_tree::BandTree;
 using namespace settle_math;
 
 constexpr int kThreads = 256;
 constexpr int32_t kSentinel = 2147483647;
-// The band tree of 2^31 leaves is 32 levels deep; its stack holds one
-// partial root per level plus the incoming leaf.
-constexpr int kTreeStack = 33;
 
 struct KeyWeight {
   int32_t key;
@@ -83,25 +82,6 @@ __device__ __forceinline__ bool lex_ge(float ad, float ar, int32_t ak,
                                        float bd, float br, int32_t bk) {
   return (ad > bd) || (ad == bd && (ar > br || (ar == br && ak <= bk)));
 }
-
-struct BandTree {
-  float stack[kTreeStack][4];
-  int top = 0;
-  int64_t leaves = 0;
-
-  // Leaf i joins its left neighbours: one add per trailing one bit of i,
-  // left operand first, which is the adjacent-pair tree's association.
-  __device__ __forceinline__ void push(float w, float wp, float wpp, float ww) {
-    float v[4] = {w, wp, wpp, ww};
-    for (int64_t i = leaves; i & 1; i >>= 1) {
-      --top;
-      for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(stack[top][j], v[j]);
-    }
-    for (int j = 0; j < 4; ++j) stack[top][j] = v[j];
-    ++top;
-    ++leaves;
-  }
-};
 
 // The tie-break's group statistics and top-two fold for market m, from the
 // (key, read reliability) pairs its valid slots left in the scratch block.
@@ -244,10 +224,7 @@ __global__ void __launch_bounds__(kThreads) onepass_settle_kernel(
   }
 
   if (with_bands) {
-    int64_t width = 1;
-    while (width < num_slots) width *= 2;
-    while (tree.leaves < width) tree.push(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int j = 0; j < 4; ++j) band_sums[j * num_markets + m] = tree.stack[0][j];
+    tree.finish(num_slots, band_sums + m, num_markets);
     band_count[m] = valid_count;
   }
 

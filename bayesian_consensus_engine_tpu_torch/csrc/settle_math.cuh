@@ -1,5 +1,6 @@
-// settle_math.cuh: the per-slot settle-cycle arithmetic both kernels share
-// (settle_cycles.cu, onepass_settle.cu), as device functions.
+// settle_math.cuh: the per-slot settle-cycle arithmetic the settle kernels
+// share (settle_cycles.cu, onepass_settle.cu, onepass_partials.cu), as
+// device functions.
 //
 // Each function is the CUDA form of one of the plain torch functions in
 // ops/decay.py, ops/update.py and ops/cycle_math.py. The state math uses
@@ -107,11 +108,14 @@ __device__ __forceinline__ StepTimes<T> step_times(T now0, int64_t steps) {
 // prior for a cold slot) and leave settled; `days` is its stamp (0 when
 // cold), read only by step 0's decay when steps == 1. Steps 0 .. steps-2
 // only move the state (their consensus is discarded); the return value is
-// the last step's decayed read weight, which feeds the market's sums.
+// the last step's decayed read weight, which feeds the market's sums, and
+// `last_conf`, when given, receives the confidence that step reads (the
+// one before its update).
 template <typename T>
 __device__ __forceinline__ T settle_slot(T& rel, T& conf, T days, T prob,
                                          bool outcome, int64_t steps,
-                                         const StepTimes<T>& t) {
+                                         const StepTimes<T>& t,
+                                         T* last_conf = nullptr) {
   const bool correct = (prob >= T(0.5)) == outcome;
   const T raw = mul_rn(T(kBaseLearningRate), correct ? T(1) : T(-1));
   const T delta = clip(raw, -T(kMaxUpdateStep), T(kMaxUpdateStep));
@@ -124,6 +128,7 @@ __device__ __forceinline__ T settle_slot(T& rel, T& conf, T days, T prob,
   const T weight = steps == 1
       ? read_reliability(true, rel, days, t.now0)
       : (t.eligible_last ? decayed(rel, t.elapsed_last) : rel);
+  if (last_conf != nullptr) *last_conf = conf;
   rel = update_rel(rel, delta);
   conf = grow_conf(conf);
   return weight;

@@ -12,8 +12,8 @@ package's ``infer/``.
 The sweep itself is ``ops/propagate.py`` (the plain version) and
 ``ops/bp_kernel.py`` (the CUDA kernel). Everything here is additive
 analytics: consensus, store and SQLite bytes are untouched. The banded
-halo sweep (the JAX package's ``infer/partition.py``) waits for the
-multi-GPU slice.
+halo sweep (the JAX package's ``infer/partition.py``), which a graph on
+a mesh with several markets shards needs, is not ported yet.
 """
 
 from bayesian_consensus_engine_tpu_torch.infer.blocks import MarketBlock, MarketBlocks

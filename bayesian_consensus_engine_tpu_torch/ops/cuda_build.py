@@ -27,7 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / ".torch_kernels"
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: Every kernel source of the port, one library each.
 SOURCES = tuple(
-    CSRC / name for name in ("settle_cycles.cu", "onepass_settle.cu", "bp_sweep.cu")
+    CSRC / name for name in (
+        "settle_cycles.cu", "onepass_settle.cu", "bp_sweep.cu",
+        "onepass_partials.cu",
+    )
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

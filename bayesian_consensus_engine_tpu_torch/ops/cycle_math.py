@@ -15,8 +15,10 @@ operation for operation, so the state they produce is bit-equal to the JAX
 package's; only the consensus, whose weights pass through ``exp2`` and a
 K-deep sum, carries a stated tolerance.
 
-The JAX package's ``axis_name`` (a psum over a sharded sources axis) has
-no counterpart yet: the port runs on one device.
+The JAX package's ``axis_name`` (a psum over a sharded sources axis)
+becomes :func:`consensus_merge`: each sources shard's raw local sums
+(:func:`_sums_cycle_math`, computed by the partials kernel) are summed over
+the shards (``parallel/collectives.psum``) and normalised once.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.decay import decayed_reliability_at
 from bayesian_consensus_engine_tpu_torch.ops.update import outcome_update
+from bayesian_consensus_engine_tpu_torch.parallel.collectives import psum
 from bayesian_consensus_engine_tpu_torch.utils.config import (
     BASE_LEARNING_RATE,
     CONFIDENCE_GROWTH_RATE,
@@ -143,6 +146,19 @@ def consensus_epilogue(
     return consensus, confidence_out
 
 
+def consensus_merge(shard_sums, device) -> torch.Tensor:
+    """The consensus over a sources-sharded axis: the shards' raw (3, M)
+    sums (Σw, Σw·p, Σw·conf, one tensor per shard in mesh order) summed
+    across the shards — three psums in that order, as the JAX package's
+    ``consensus_reduce`` runs them — then :func:`consensus_epilogue`, on
+    *device*."""
+    total_weight, weighted_prob, weighted_conf = (
+        psum([sums[row] for sums in shard_sums], device) for row in range(3)
+    )
+    consensus, _ = consensus_epilogue(total_weight, weighted_prob, weighted_conf)
+    return consensus
+
+
 def update_phase(
     probs: torch.Tensor,
     mask: torch.Tensor,
@@ -221,6 +237,50 @@ def _fast_cycle_math(
     reliability = torch.where(mask, new_rel, reliability)
     confidence = torch.where(mask, new_conf, confidence)
     return reliability, confidence, consensus
+
+
+def _sums_cycle_math(
+    probs: torch.Tensor,
+    mask: torch.Tensor,
+    outcome: torch.Tensor,
+    state: MarketBlockState,
+    now_days: torch.Tensor,
+    slots_axis: int = -1,
+) -> CycleResult:
+    """:func:`_cycle_math` with the consensus slot carrying the RAW local
+    sums: the (3, M) stack Σw / Σw·p / Σw·conf of one sources shard, for
+    :func:`consensus_merge` to sum across shards and normalise. Only
+    ``.state`` and ``.consensus`` are meaningful."""
+    read_rel, read_conf = read_phase(state, now_days)
+    tw, wp, wc = consensus_local_sums(probs, mask, read_rel, read_conf, slots_axis)
+    new_state = update_phase(
+        probs, mask, outcome, state, read_conf, now_days, slots_axis
+    )
+    return CycleResult(new_state, torch.stack([tw, wp, wc]), wc, tw)
+
+
+def _sums_fast_cycle_math(
+    probs: torch.Tensor,
+    mask: torch.Tensor,
+    outcome: torch.Tensor,
+    reliability: torch.Tensor,
+    confidence: torch.Tensor,
+    now_days: torch.Tensor,
+    prev_now: torch.Tensor,
+    slots_axis: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_fast_cycle_math` returning the (3, M) raw local sums in
+    place of the consensus: ``(reliability', confidence', sums)``."""
+    stamps = prev_now.expand(reliability.shape)
+    read_rel = decayed_reliability_at(reliability, stamps, now_days, True)
+    sums = torch.stack(consensus_local_sums(
+        probs, mask, read_rel, confidence, slots_axis
+    ))
+    correct = (probs >= 0.5) == outcome.unsqueeze(slots_axis)
+    new_rel, new_conf = outcome_update(reliability, confidence, correct)
+    reliability = torch.where(mask, new_rel, reliability)
+    confidence = torch.where(mask, new_conf, confidence)
+    return reliability, confidence, sums
 
 
 def run_fast_loop(state_carry, consensus0, fast_step, steps: int, now0):

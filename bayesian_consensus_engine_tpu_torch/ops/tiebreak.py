@@ -11,9 +11,10 @@ group's rescaled key, its density and maximum reliability, how the
 decision fell (``resolved_by``), the number of groups, and the population
 variance of the valid agents' confidences.
 
-Only the one-device form of ``ring_tiebreak_math`` is ported
-(``axis_name=None``, ``axis_size=1``): the ring hops, psums and the
-cross-device top-2 fold wait for the multi-GPU slice. ``chunk_agents``
+``ring_tiebreak_math`` runs on one device or over a sources-sharded axis
+(``axis_size > 1``, per-shard blocks): the ring's hops become copies of
+every shard's (key, weight, reliability, valid) blocks, and the psums and
+the cross-shard top-2 fold run in fixed mesh order. ``chunk_agents``
 keeps its meaning — the local agents are processed in fixed-width chunks
 whose top two groups fold into a per-market carry — and, as in the JAX
 package, no result depends on it.
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.fma import fma
+from bayesian_consensus_engine_tpu_torch.parallel.collectives import psum
 
 #: The recorded default chunk width (``ops/tiebreak.py`` of the JAX
 #: package): the memory-diet default of the fused resident program.
@@ -107,40 +109,62 @@ def _agent(x: torch.Tensor, i: int, agents_last: bool) -> torch.Tensor:
 
 
 def ring_tiebreak_math(
-    pred: torch.Tensor,
-    weight: torch.Tensor,
-    conf: torch.Tensor,
-    rel: torch.Tensor,
-    valid: torch.Tensor,
+    pred,
+    weight,
+    conf,
+    rel,
+    valid,
     *,
+    axis_size: int = 1,
+    device=None,
     precision: int = 6,
     chunk_agents: "int | None" = None,
     agents_last: bool = True,
 ) -> RingTieBreakResult:
-    """Chunked group-metric tie-break over one device's agents.
+    """Chunked group-metric tie-break over a market's agents.
 
     Blocks are ``(M, A)`` with ``agents_last=True`` or slot-major
     ``(A, M)`` with ``agents_last=False`` (the fused settle's layout).
     Everything is computed in float32, as the JAX package does.
     ``chunk_agents`` bounds the working set (``None``: one chunk of every
     agent); a ragged tail runs as one more, narrower chunk.
+
+    ``axis_size > 1``: the agents axis is sharded over a sources axis of
+    ``axis_size`` shards. Each of the five block arguments is then a
+    sequence of per-shard blocks in mesh order (the same markets, each
+    shard's own agents). As in the JAX package's ring, every shard's
+    agents count, sum and max their group over the agents of every shard
+    (origin); a group's weight is summed per origin in agent order and the
+    origins' partial sums are added in origin order 0 … S−1, so every
+    member of a group sees the same bits wherever it lies. Each shard
+    folds its agents into a top two; the shards' top twos are merged in
+    mesh order, and ``Σ 1/count``, the valid count and the two confidence
+    sums are summed across shards (``parallel/collectives.psum``). Every
+    shard would compute the same result; it is returned on *device*
+    (default: the first shard's).
     """
+    if axis_size == 1:
+        shards = [(pred, weight, conf, rel, valid)]
+    else:
+        blocks = (pred, weight, conf, rel, valid)
+        if any(len(x) != axis_size for x in blocks):
+            raise ValueError(
+                f"axis_size={axis_size}: each block argument must be a "
+                "sequence of that many per-shard blocks"
+            )
+        shards = list(zip(*blocks))
+    device = shards[0][0].device if device is None else device
     f32 = torch.float32
-    pred, weight = pred.to(f32), weight.to(f32)
-    conf, rel = conf.to(f32), rel.to(f32)
     scale = 10.0**precision
     agents_axis = 1 if agents_last else 0
-    num_agents = pred.shape[agents_axis]
-    markets = pred.shape[0 if agents_last else 1]
-    device = pred.device
-    chunk = (
-        num_agents if chunk_agents is None
-        else max(1, min(int(chunk_agents), num_agents))
-    )
+    markets = shards[0][0].shape[0 if agents_last else 1]
 
-    keys = torch.where(
-        valid, torch.round(pred * scale).to(torch.int32), _INVALID_KEY
-    )
+    def prepare(p, w, c, r, v):
+        p, w, c, r = p.to(f32), w.to(f32), c.to(f32), r.to(f32)
+        keys = torch.where(v, torch.round(p * scale).to(torch.int32), _INVALID_KEY)
+        return keys, w, c, r, v
+
+    shards = [prepare(*shard) for shard in shards]
 
     def expand(per_market):
         return per_market[:, None] if agents_last else per_market[None, :]
@@ -148,24 +172,29 @@ def ring_tiebreak_math(
     def reduce(x, op):
         return op(x, dim=agents_axis)
 
-    def chunk_pass(offset, width, carry):
+    def chunk_pass(lk, lvalid, visiting, carry):
         top2, sum_inv = carry
-        local = slice(offset, offset + width)
-        lk = keys[:, local] if agents_last else keys[local]
-        lvalid = valid[:, local] if agents_last else valid[local]
-        count = torch.zeros(lk.shape, dtype=torch.int32, device=device)
-        tw = torch.zeros(lk.shape, dtype=f32, device=device)
-        mr = torch.full(lk.shape, -torch.inf, dtype=f32, device=device)
-        # Group stats against every agent, visited in agent order.
-        for i in range(num_agents):
-            same = (lk == expand(_agent(keys, i, agents_last))) & expand(
-                _agent(valid, i, agents_last)
-            )
-            count = count + same.to(torch.int32)
-            tw = tw + torch.where(same, expand(_agent(weight, i, agents_last)), 0.0)
-            mr = torch.maximum(
-                mr, torch.where(same, expand(_agent(rel, i, agents_last)), -torch.inf)
-            )
+        shard_device = lk.device
+        count = torch.zeros(lk.shape, dtype=torch.int32, device=shard_device)
+        mr = torch.full(lk.shape, -torch.inf, dtype=f32, device=shard_device)
+        tw = None
+        # Group stats against every origin's agents, visited in agent
+        # order; the group weight per origin, then across origins in
+        # origin order.
+        for keys, weights, rels, valids in visiting:
+            partial = torch.zeros(lk.shape, dtype=f32, device=shard_device)
+            for i in range(keys.shape[agents_axis]):
+                same = (lk == expand(_agent(keys, i, agents_last))) & expand(
+                    _agent(valids, i, agents_last)
+                )
+                count = count + same.to(torch.int32)
+                partial = partial + torch.where(
+                    same, expand(_agent(weights, i, agents_last)), 0.0
+                )
+                mr = torch.maximum(mr, torch.where(
+                    same, expand(_agent(rels, i, agents_last)), -torch.inf
+                ))
+            tw = partial if tw is None else tw + partial
         member = lvalid & (count > 0)
         safe_count = torch.clamp_min(count, 1).to(f32)
         density = torch.where(member, tw / safe_count, -torch.inf)
@@ -183,20 +212,46 @@ def ring_tiebreak_math(
         o2 = o1 & (mrm == expand(orr))
         ok = reduce(torch.where(o2, lk, _SENTINEL), torch.amin)
         top2 = _merge_top2(top2, (bd, br, bk, od, orr, ok))
-        # Σ 1/count over members counts each group once in total.
+        # Σ 1/count over members counts each group once in total (count
+        # is the group's size over every shard).
         inv = torch.where(member, 1.0 / safe_count, 0.0)
         return top2, sum_inv + _ordered_sum(inv, agents_axis)
 
-    neg = torch.full((markets,), -torch.inf, dtype=f32, device=device)
-    sent = torch.full((markets,), _SENTINEL, dtype=torch.int32, device=device)
-    empty = (neg, neg, sent)
-    carry = (empty + empty, torch.zeros(markets, dtype=f32, device=device))
-    n_full, tail = divmod(num_agents, chunk) if chunk else (0, 0)
-    for i in range(n_full):
-        carry = chunk_pass(i * chunk, chunk, carry)
-    if tail:
-        carry = chunk_pass(n_full * chunk, tail, carry)
-    (d1, r1, k1, d2, r2, k2), sum_inv = carry
+    def shard_fold(keys, valid_local):
+        """One shard's top two and local ``Σ 1/count`` over its agents."""
+        shard_device = keys.device
+        visiting = [
+            tuple(x.to(shard_device) for x in (k, w, r, v))
+            for k, w, _c, r, v in shards
+        ]
+        num_agents = keys.shape[agents_axis]
+        chunk = (
+            num_agents if chunk_agents is None
+            else max(1, min(int(chunk_agents), num_agents))
+        )
+        neg = torch.full((markets,), -torch.inf, dtype=f32, device=shard_device)
+        sent = torch.full((markets,), _SENTINEL, dtype=torch.int32,
+                          device=shard_device)
+        empty = (neg, neg, sent)
+        carry = (empty + empty,
+                 torch.zeros(markets, dtype=f32, device=shard_device))
+        n_full, tail = divmod(num_agents, chunk) if chunk else (0, 0)
+        spans = [(i * chunk, chunk) for i in range(n_full)]
+        if tail:
+            spans.append((n_full * chunk, tail))
+        for offset, width in spans:
+            local = slice(offset, offset + width)
+            lk = keys[:, local] if agents_last else keys[local]
+            lvalid = valid_local[:, local] if agents_last else valid_local[local]
+            carry = chunk_pass(lk, lvalid, visiting, carry)
+        return carry
+
+    folds = [shard_fold(k, v) for k, _w, _c, _r, v in shards]
+    top2 = tuple(x.to(device) for x in folds[0][0])
+    for shard_top2, _ in folds[1:]:
+        top2 = _merge_top2(top2, tuple(x.to(device) for x in shard_top2))
+    sum_inv = psum([fold[1] for fold in folds], device)
+    d1, r1, k1, d2, r2, k2 = top2
 
     any_member = k1 != _SENTINEL
     any_other = k2 != _SENTINEL
@@ -211,10 +266,14 @@ def ring_tiebreak_math(
     num_groups = torch.round(sum_inv).to(torch.int32)
 
     # Population confidence variance over valid agents, full width (the
-    # expression must not change with the chunk knob).
-    n = torch.sum(valid, dim=agents_axis)
-    s1 = _ordered_sum(torch.where(valid, conf, 0.0), agents_axis)
-    s2 = _ordered_sum(torch.where(valid, conf * conf, 0.0), agents_axis)
+    # expression must not change with the chunk knob): local sums in agent
+    # order, then across shards.
+    n = psum([torch.sum(v, dim=agents_axis) for _k, _w, _c, _r, v in shards],
+             device)
+    s1 = psum([_ordered_sum(torch.where(v, c, 0.0), agents_axis)
+               for _k, _w, c, _r, v in shards], device)
+    s2 = psum([_ordered_sum(torch.where(v, c * c, 0.0), agents_axis)
+               for _k, _w, c, _r, v in shards], device)
     nf = torch.clamp_min(n, 1).to(f32)
     mean = s1 / nf
     # s2/n − mean², contracted into one fused multiply-add as XLA does.

@@ -18,19 +18,25 @@ levels: every chunk setting gives the same bits. ``torch.sum`` does not
 add in this order, so :func:`_tree_sum` builds the tree by hand; the
 one-pass kernel (``csrc/onepass_settle.cu``) reproduces it per market.
 
-Only the one-device form is ported: :func:`band_merge` is the identity
-(the JAX package's all-gather and psum over a sources axis wait for the
-multi-GPU slice). The sums are always float32, whatever the state's
+On a sources-sharded mesh each shard reduces its local slots with the same
+tree, and :func:`band_merge` folds the shards' roots in fixed mesh order
+with the same tree again (padded with zero roots to a power-of-two shard
+count); when the local width is a power of two the shard boundaries fall
+on subtree boundaries and every mesh gives the one-device bits. The sums are always float32, whatever the state's
 dtype: :func:`band_sums` casts first, as the JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.fma import fma
+from bayesian_consensus_engine_tpu_torch.parallel.collectives import (
+    all_gather,
+    psum,
+)
 
 #: Two-sided 95% normal quantile — the default band width.
 Z_95 = 1.959964
@@ -136,14 +142,23 @@ def band_sums(
     # root is leaf i, and the chunk count is a power of two.
     sums = roots[0] if len(roots) == 1 else _tree_sum(torch.stack(roots), 0)
     count = torch.sum(mask, dim=slots_axis).to(torch.int32)
-    return band_merge(sums, count)
-
-
-def band_merge(sums: torch.Tensor, count: torch.Tensor):
-    """Fold per-device moment roots across devices — the identity on one
-    device (the JAX package's all-gather and psum over a sources axis
-    wait for the multi-GPU slice)."""
     return sums, count
+
+
+def band_merge(
+    shard_sums: Sequence[torch.Tensor],
+    shard_counts: Sequence[torch.Tensor],
+    device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold the sources shards' band-moment roots (one (4, M) tensor and
+    one i32 (M,) count per shard, in mesh order) into the axis's
+    ``(sums, count)`` on *device*: the roots all-gathered, zero-padded to
+    a power-of-two shard count and folded by the same balanced tree, the
+    counts summed. One shard is the identity."""
+    if len(shard_sums) == 1:
+        return shard_sums[0].to(device), shard_counts[0].to(device)
+    gathered = _pad_pow2(all_gather(shard_sums, device), 0, 0.0)
+    return _tree_sum(gathered, 0), psum(shard_counts, device)
 
 
 def band_epilogue(

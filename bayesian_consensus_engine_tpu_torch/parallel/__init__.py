@@ -1,1 +1,1 @@
-"""Device programs over resident slot-major blocks (one card so far)."""
+"""Device programs over resident slot-major blocks, on one card or a mesh."""

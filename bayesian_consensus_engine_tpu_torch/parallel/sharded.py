@@ -1,5 +1,5 @@
-"""The fused settle loop over a resident slot-major block, on one card —
-the one-device part of ``parallel/sharded.py``.
+"""The fused settle loop over a resident slot-major block, on one card or
+on a ``(markets, sources)`` mesh — the torch twin of ``parallel/sharded.py``.
 
 :func:`build_cycle_analytics_loop` returns ``loop(probs, mask, outcome,
 state, now0, steps[, neighbor_idx, neighbor_w]) -> (state', consensus,
@@ -8,14 +8,37 @@ cycles plus, read from the state at ``now0`` before the cycles update it,
 the ring tie-break and the uncertainty bands, and then, with
 ``sweep_steps > 0``, the belief sweep over the market graph seeded with
 the last step's consensus (and the band variance on the moments lane). A
-disabled stage returns ``None``. On CUDA every call is one launch of the
-one-pass kernel (``ops/onepass_kernel.py``) and, with a graph, the
-``bp_sweep`` kernel's launches (``ops/bp_kernel.py``); on the CPU their
-plain versions run.
+disabled stage returns ``None``.
 
-The JAX package's mesh, its ``shard_map`` and the sources-sharded
-partials route wait for the multi-GPU slice: here the device takes the
-mesh's place.
+The loop runs on a :class:`~.parallel.mesh.Mesh`; a device (or ``None``,
+CUDA) names the (1, 1) mesh of that device, the one-card session. It
+takes grids of per-shard blocks (``blocks[i][j]``, as
+``parallel/mesh.shard_slot_block`` cuts them) and a grid of per-shard
+outcome vectors, and returns the state as such a grid and every
+per-market output whole, on the mesh's first device. Per markets shard:
+
+* one sources shard: one launch of the one-pass kernel
+  (``ops/onepass_kernel.py``);
+* more: one launch of the partials kernel (``ops/partials_kernel.py``) per
+  sources shard, then the merge in eager PyTorch on the markets shard's
+  first device, as the JAX package's ``onepass_partials_math`` runs it:
+  the sharded ring tie-break over every shard's read views, ``band_merge``
+  + ``band_epilogue``, and the consensus psums + epilogue
+  (``consensus_merge``). A disabled stage skips its merge. The state needs
+  no merge: the update never reads the consensus.
+
+Zero steps on a sources-sharded mesh: the reference refuses
+``kernel="pallas"`` there (its kernel cannot emit a zero-step consensus as
+raw sums) and serves ``"xla"`` and ``"auto"`` through its XLA program,
+which returns a zero consensus. The port keeps the refusal and serves the
+others with the partials kernel's zero-step mode (views, band roots and
+count written, the state left alone); the loop writes the zero consensus.
+
+With a graph, the sweep runs ``bp_sweep`` (``ops/bp_kernel.py``) once on
+the merged consensus, on a mesh with one markets shard. A mesh with
+several markets shards needs the reference's all-gather of the
+seeds and blocks and its banded sweep, which are not ported yet. On the
+CPU every kernel's plain version runs.
 """
 
 from __future__ import annotations
@@ -23,20 +46,37 @@ from __future__ import annotations
 import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.bp_kernel import bp_sweep
+from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
+    MarketBlockState,
+    consensus_merge,
+)
 from bayesian_consensus_engine_tpu_torch.ops.onepass_kernel import onepass_settle
+from bayesian_consensus_engine_tpu_torch.ops.partials_kernel import onepass_partials
 from bayesian_consensus_engine_tpu_torch.ops.propagate import (
     PropagatedBeliefs,
     propagated_stderr,
 )
+from bayesian_consensus_engine_tpu_torch.ops.tiebreak import ring_tiebreak_math
 from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
     Z_95,
     band_epilogue,
+    band_merge,
+)
+from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
+    MARKETS_AXIS,
+    SOURCES_AXIS,
+    Mesh,
+    make_mesh,
+)
+from bayesian_consensus_engine_tpu_torch.utils.config import (
+    DEFAULT_CONFIDENCE,
+    DEFAULT_RELIABILITY,
 )
 from bayesian_consensus_engine_tpu_torch.utils.device import resolve_device
 
 
 def build_cycle_analytics_loop(
-    device=None,
+    mesh=None,
     chunk_agents: "int | None" = None,
     chunk_slots: "int | None" = None,
     precision: int = 6,
@@ -52,25 +92,33 @@ def build_cycle_analytics_loop(
     sweep_kernel: str = "xla",
 ):
     """The fused loop: N cycles + optional tie-break + optional bands +
-    optional graph sweep.
+    optional graph sweep, over a :class:`~.parallel.mesh.Mesh` (a device,
+    or ``None`` for CUDA, names the (1, 1) mesh of that device).
 
     The arguments are validated as the JAX package validates them.
     ``sweep_steps > 0`` adds the sweep (damping ``damping``, at most
     ``sweep_steps`` sweeps); the loop then takes the two aligned
     neighbour blocks (``MarketGraph.align``: int32 and float32 (M, D) on
-    the block's device). ``sweep_mode="point"`` returns the relaxed mean
-    vector; ``"moments"`` seeds the variance with the band stderr squared
-    (it needs the bands) and returns a :class:`PropagatedBeliefs`;
-    ``sweep_tol`` (moments only) arms the early exit. ``kernel`` and
-    ``sweep_kernel`` take the route names ``"xla"``, ``"pallas"`` and
-    ``"auto"``; ``"pallas"`` with a stage off, and ``sweep_kernel=
-    "pallas"`` with no sweep, are refused, as there. The port has one
-    route per stage: on CUDA every accepted ``kernel`` runs the one-pass
-    kernel and every accepted ``sweep_kernel`` the ``bp_sweep`` kernel.
-    ``tiebreak_kind="sorted"`` (the sort-based grouping kernel) is not
-    ported yet.
+    the mesh's first device).
+    ``sweep_mode="point"`` returns the relaxed mean vector; ``"moments"``
+    seeds the variance with the band stderr squared (it needs the bands)
+    and returns a :class:`PropagatedBeliefs`; ``sweep_tol`` (moments only)
+    arms the early exit. ``kernel`` and ``sweep_kernel`` take the route
+    names ``"xla"``, ``"pallas"`` and ``"auto"``; ``"pallas"`` with a
+    stage off, ``sweep_kernel="pallas"`` with no sweep, and
+    ``kernel="pallas"`` with ``steps=0`` on a sources-sharded mesh are
+    refused, as there. The port has one route per stage: on CUDA every
+    accepted ``kernel`` runs the one-pass kernel (the partials kernel on a
+    sources-sharded mesh) and every accepted ``sweep_kernel`` the
+    ``bp_sweep`` kernel. ``tiebreak_kind="sorted"`` is refused on a
+    sources-sharded mesh, as there, and not ported yet elsewhere; a graph
+    on a mesh with more than one markets shard is not ported yet.
     """
-    device = resolve_device(device)
+    if not isinstance(mesh, Mesh):
+        mesh = make_mesh((1, 1), [mesh])
+    device = mesh.devices[0][0]
+    n_sources = mesh.shape[SOURCES_AXIS]
+    n_market_shards = mesh.shape[MARKETS_AXIS]
     with_graph = sweep_steps > 0
     if sweep_mode not in ("point", "moments"):
         raise ValueError(
@@ -116,6 +164,13 @@ def build_cycle_analytics_loop(
             "sweep_kernel='pallas' with sweep_steps=0: there is no graph "
             "sweep to offload — build with sweep_steps > 0"
         )
+    if tiebreak_kind == "sorted" and with_tiebreak and n_sources > 1:
+        raise ValueError(
+            "tiebreak_kind='sorted' needs the full agent row on one "
+            "device (row-local sort), but this mesh shards the sources "
+            f"axis {n_sources} ways — keep the ring tie-break for "
+            "sources-sharded meshes"
+        )
     if kernel == "pallas" and (
         not (with_tiebreak and with_bands) or tiebreak_kind != "ring"
     ):
@@ -129,6 +184,13 @@ def build_cycle_analytics_loop(
             "tiebreak_kind='sorted' (the sort-based grouping kernel, "
             "ops/tiebreak.py::batched_tiebreak) is not ported yet: "
             "ROADMAP queue 1 item 8"
+        )
+    if with_graph and n_market_shards > 1:
+        raise NotImplementedError(
+            f"a graph sweep on a mesh with {n_market_shards} markets shards "
+            "(the all-gather of the seeds and neighbour blocks, and "
+            "infer/partition.py's banded sweep) is not ported yet: ROADMAP "
+            "queue 1 item 11; use a mesh with one markets shard"
         )
 
     def sweep(consensus, bands, neighbor_idx, neighbor_w):
@@ -144,41 +206,136 @@ def build_cycle_analytics_loop(
             return mean
         return PropagatedBeliefs(mean, propagated_stderr(var), iters, residual)
 
-    def loop(probs, mask, outcome, state, now0: float, steps: int, *graph_args):
-        steps = int(steps)
-        if probs.device.type != device.type:
-            raise ValueError(
-                f"the loop was built for {device}, the block is on {probs.device}"
-            )
+    def check_graph_args(graph_args):
         if len(graph_args) != (2 if with_graph else 0):
             raise ValueError(
                 "the loop takes neighbor_idx and neighbor_w exactly when it "
                 f"was built with sweep_steps > 0 (sweep_steps={sweep_steps})"
             )
+
+    def onepass(probs, mask, outcome, state, now0, steps):
+        """One shard's one-pass launch: ``(state', consensus, tiebreak,
+        band sums, band count)``."""
         out = onepass_settle(
             probs, mask, outcome, state, now0, steps,
             with_tiebreak=with_tiebreak, with_bands=with_bands,
             precision=precision, chunk_agents=chunk_agents,
             chunk_slots=chunk_slots,
         )
-        bands = (
-            band_epilogue(out.band_sums, out.band_count, z)
-            if with_bands else None
-        )
+        return out.state, out.consensus, out.tiebreak, out.band_sums, out.band_count
+
+    def partials_merge(probs, mask, outcome, state, now0, steps, merge_device):
+        """A markets shard's sources shards: one partials launch each, then
+        the merge on *merge_device*. Same tuple as :func:`onepass`, the
+        state a list of per-shard states."""
+        if with_tiebreak and state[0].reliability.dtype != torch.float32:
+            raise ValueError(
+                "the tie-break runs on float32 state only: the JAX reference "
+                "has no float64 tie-break (its program fails to trace under "
+                "x64); settle float64 with the tie-break off"
+            )
+        parts = [
+            onepass_partials(
+                probs[j], mask[j], outcome[j], state[j], now0, steps,
+                with_views=with_tiebreak, with_bands=with_bands,
+                chunk_slots=chunk_slots,
+            )
+            for j in range(n_sources)
+        ]
+        tiebreak = sums = count = None
+        if with_tiebreak:
+            tiebreak = ring_tiebreak_math(
+                probs, [p.read_rel for p in parts], [p.read_conf for p in parts],
+                [p.read_rel for p in parts], mask, axis_size=n_sources,
+                device=merge_device, precision=precision,
+                chunk_agents=chunk_agents, agents_last=False,
+            )
+        if with_bands:
+            sums, count = band_merge(
+                [p.band_sums for p in parts], [p.band_count for p in parts],
+                merge_device,
+            )
+        if steps == 0:
+            consensus = torch.zeros(
+                probs[0].shape[1], dtype=probs[0].dtype, device=merge_device
+            )
+        else:
+            consensus = consensus_merge(
+                [p.consensus_sums for p in parts], merge_device
+            )
+        return [p.state for p in parts], consensus, tiebreak, sums, count
+
+    def finish(consensus, tiebreak, sums, count, graph_args):
+        bands = band_epilogue(sums, count, z) if with_bands else None
         propagated = (
-            sweep(out.consensus, bands, *graph_args) if with_graph else None
+            sweep(consensus, bands, *graph_args) if with_graph else None
         )
-        return out.state, out.consensus, out.tiebreak, bands, propagated
+        return consensus, tiebreak, bands, propagated
+
+    def loop(probs, mask, outcome, state, now0: float, steps: int, *graph_args):
+        steps = int(steps)
+        check_graph_args(graph_args)
+        if n_sources > 1 and steps == 0 and kernel == "pallas":
+            raise ValueError(
+                "kernel='pallas' unavailable: steps=0 on a sources-sharded "
+                f"mesh ({n_sources} source shards) — the partials kernel "
+                "cannot emit a zero-step consensus as raw sums; use "
+                "kernel='xla' for zero-step settles"
+            )
+        for i, row in enumerate(mesh.devices):
+            for j, shard_device in enumerate(row):
+                if probs[i][j].device != shard_device:
+                    raise ValueError(
+                        f"shard ({i}, {j}) is on {probs[i][j].device}, the "
+                        f"mesh places it on {shard_device}"
+                    )
+        new_state, per_market = [], []
+        for i in range(n_market_shards):
+            if n_sources == 1:
+                shard_state, *outputs = onepass(
+                    probs[i][0], mask[i][0], outcome[i][0], state[i][0],
+                    now0, steps,
+                )
+                new_state.append((shard_state,))
+            else:
+                shard_states, *outputs = partials_merge(
+                    probs[i], mask[i], outcome[i], state[i], now0, steps,
+                    mesh.devices[i][0],
+                )
+                new_state.append(tuple(shard_states))
+            per_market.append(outputs)
+        consensus, tiebreak, sums, count = (
+            _concat([shard[k] for shard in per_market], device)
+            for k in range(4)
+        )
+        return (tuple(new_state),
+                *finish(consensus, tiebreak, sums, count, graph_args))
 
     return loop
 
 
-def build_cycle_loop(device=None):
+def _concat(pieces, device):
+    """Per-market outputs of the markets shards joined along the markets
+    axis on *device*: tensors, tuples of them (the tie-break), or None."""
+    if pieces[0] is None:
+        return None
+    if len(pieces) == 1:
+        return pieces[0]
+    if isinstance(pieces[0], tuple):
+        return type(pieces[0])(*(
+            _concat([piece[k] for piece in pieces], device)
+            for k in range(len(pieces[0]))
+        ))
+    return torch.cat([piece.to(device) for piece in pieces], dim=-1)
+
+
+def build_cycle_loop(mesh=None):
     """The N-cycle loop alone: :func:`build_cycle_analytics_loop` with both
-    analytics stages off. ``loop(probs, mask, outcome, state, now0, steps)
-    -> (state', consensus)``."""
+    analytics stages off, on a mesh (or a device's (1, 1) mesh).
+    ``loop(probs, mask, outcome, state, now0, steps) -> (state',
+    consensus)``."""
     inner = build_cycle_analytics_loop(
-        device, with_tiebreak=False, with_bands=False,
+        mesh, with_tiebreak=False, with_bands=False,
     )
 
     def loop(probs, mask, outcome, state, now0: float, steps: int):
@@ -188,3 +345,58 @@ def build_cycle_loop(device=None):
         return new_state, consensus
 
     return loop
+
+
+def pad_markets(probs, mask, outcome, state=None, multiple: int = 128,
+                slot_major: bool = True):
+    """Pad the markets axis up to a multiple of *multiple*.
+
+    Padded markets carry ``mask=False``, so they add no weight, report a
+    NaN consensus and their state stays cold; callers slice outputs back
+    to the first ``num_markets``. Returns ``(probs, mask, outcome, state,
+    padded_total)``; ``state=None`` passes through.
+    """
+    markets_axis = 1 if slot_major else 0
+    num_markets = probs.shape[markets_axis]
+    padded_total = -(-num_markets // multiple) * multiple
+    extra = padded_total - num_markets
+    if extra == 0:
+        return probs, mask, outcome, state, padded_total
+
+    def pad_block(x, fill):
+        shape = list(x.shape)
+        shape[markets_axis] = extra
+        pad = torch.full(shape, fill, dtype=x.dtype, device=x.device)
+        return torch.cat([x, pad], dim=markets_axis)
+
+    padded_state = state
+    if state is not None:
+        padded_state = MarketBlockState(
+            reliability=pad_block(state.reliability, DEFAULT_RELIABILITY),
+            confidence=pad_block(state.confidence, DEFAULT_CONFIDENCE),
+            updated_days=pad_block(state.updated_days, 0.0),
+            exists=None if state.exists is None else pad_block(state.exists, False),
+        )
+    return (
+        pad_block(probs, 0),
+        pad_block(mask, False),
+        torch.cat([outcome, torch.zeros(extra, dtype=outcome.dtype,
+                                        device=outcome.device)]),
+        padded_state,
+        padded_total,
+    )
+
+
+def init_block_state(num_markets: int, num_slots: int, dtype=torch.float32,
+                     device=None) -> MarketBlockState:
+    """A fresh all-cold state block, every slot at the cold-start prior,
+    of shape ``(num_markets, num_slots)`` as in the JAX package (transpose
+    it for the slot-major loop), on *device* (``None``: CUDA)."""
+    device = resolve_device(device)
+    shape = (num_markets, num_slots)
+    return MarketBlockState(
+        reliability=torch.full(shape, DEFAULT_RELIABILITY, dtype=dtype, device=device),
+        confidence=torch.full(shape, DEFAULT_CONFIDENCE, dtype=dtype, device=device),
+        updated_days=torch.zeros(shape, dtype=dtype, device=device),
+        exists=torch.zeros(shape, dtype=torch.bool, device=device),
+    )

@@ -32,9 +32,15 @@ over correlated markets:
             outcomes, steps, now, analytics=AnalyticsOptions(
                 graph=graph, inference=InferenceOptions(tol=1e-5)))
 
-On CUDA every session call is one launch of the one-pass kernel
-(``ops/onepass_kernel.py``) and, with a graph, the belief sweep's launches
-(``ops/bp_kernel.py``); ``settle_sharded`` is the one-shot wrapper.
+The session runs on a ``(markets, sources)`` mesh; with no mesh it takes
+the (1, 1) mesh of the store's device, one card. On CUDA every session
+call is one launch of the one-pass kernel (``ops/onepass_kernel.py``) per
+markets shard or, when the sources axis is sharded
+(``ShardedSettlementSession(store, plan, make_mesh((1, 4), [cuda0] * 4))``),
+one launch of the partials kernel (``ops/partials_kernel.py``) per shard
+followed by the cross-shard merge; with a graph, the belief sweep's
+launches (``ops/bp_kernel.py``) follow. ``settle_sharded`` is the one-shot
+wrapper.
 """
 
 from __future__ import annotations
@@ -55,10 +61,10 @@ from bayesian_consensus_engine_tpu_torch.core.batch import (
     topology_fingerprint,
 )
 from bayesian_consensus_engine_tpu_torch.analytics.bands import AnalyticsOptions
+from bayesian_consensus_engine_tpu_torch.convert import sharded_block_from_numpy
 from bayesian_consensus_engine_tpu_torch.analytics.graph import MarketGraph
 from bayesian_consensus_engine_tpu_torch.infer.blocks import MarketBlocks
 from bayesian_consensus_engine_tpu_torch.infer.bp import InferenceOptions
-from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
 from bayesian_consensus_engine_tpu_torch.ops.propagate import PropagatedBeliefs
 from bayesian_consensus_engine_tpu_torch.ops.settle_kernel import (
     settle_cycles,
@@ -71,6 +77,17 @@ from bayesian_consensus_engine_tpu_torch.ops.tiebreak import (
 from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
     DEFAULT_CHUNK_SLOTS,
     UncertaintyBands,
+)
+from bayesian_consensus_engine_tpu_torch.parallel.distributed import (
+    global_slot_block,
+)
+from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
+    MARKETS_AXIS,
+    SOURCES_AXIS,
+    Mesh,
+    make_mesh,
+    shard_market_vector,
+    unshard_slot_block,
 )
 from bayesian_consensus_engine_tpu_torch.parallel.sharded import (
     build_cycle_analytics_loop,
@@ -684,31 +701,57 @@ def settle_payloads(
     return result
 
 
-# -- the resident one-card session ---------------------------------------------
+# -- the resident session ------------------------------------------------------
 
-_NOT_ON_ONE_CARD = (
-    "the port's session runs on one card, the store's device; meshes and "
-    "process bands wait for the multi-GPU slice (ROADMAP queue 1 item 11)"
+_NO_PROCESS_BANDS = (
+    "process bands (a mesh spread over several processes through "
+    "torch.distributed) are not ported yet: ROADMAP queue 1 item 11"
 )
 
 
-def _sharded_plan_cache(plan: SettlementPlan, device: torch.device, dtype):
-    """The session's device copies of the plan block, cached on the plan
-    per (device, dtype): ``(band_rows, band_mask, probs_g, mask_g)``.
+def _pad_plan(array: np.ndarray, widths, fill) -> np.ndarray:
+    """*array* padded by *widths* with *fill*; the array itself (the plan's
+    read-only copy) when nothing is padded."""
+    if not any(after for _before, after in widths):
+        return array
+    return np.pad(array, widths, constant_values=fill)
 
-    One card holds every market and every slot, so there is no padding
-    and the band is the whole plan: ``band_rows``/``band_mask`` are the
-    plan's own (read-only) host arrays.
+
+def _sharded_plan_cache(plan: SettlementPlan, mesh: Mesh, dtype):
+    """The session's device copies of the plan block, cached on the plan
+    per (mesh, dtype): ``(padded_total, band_rows, band_mask, probs_g,
+    mask_g)``.
+
+    As in the JAX session, the markets axis is padded up to a multiple of
+    the markets extent and the slots axis up to a multiple of the sources
+    extent (pad slots: row -1, mask False, probability 0; the state build
+    gives them the cold prior). ``band_rows``/``band_mask`` are the padded
+    host arrays (in one process the band is every market) and
+    ``probs_g``/``mask_g`` grids of per-shard blocks.
     """
-    key = (device, dtype)
+    key = (mesh, dtype)
     cache = getattr(plan, "_sharded_cache", None)
     if cache is None or cache[0] != key:
+        markets_extent = mesh.shape[MARKETS_AXIS]
+        sources_extent = mesh.shape[SOURCES_AXIS]
+        padded_total = (
+            -(-max(plan.num_markets, 1) // markets_extent) * markets_extent
+        )
+        num_slots = plan.num_slots
+        pad_k = (
+            -(-max(num_slots, 1) // sources_extent) * sources_extent - num_slots
+        )
+        widths = ((0, pad_k), (0, padded_total - plan.num_markets))
+        band_rows = _pad_plan(plan.slot_rows, widths, -1)
+        band_mask = _pad_plan(plan.mask, widths, False)
+        band_probs = _pad_plan(plan.probs, widths, 0.0)
         cache = (
             key,
-            plan.slot_rows,
-            plan.mask,
-            torch.tensor(plan.probs, dtype=dtype, device=device),
-            torch.tensor(plan.mask, device=device),
+            padded_total,
+            band_rows,
+            band_mask,
+            global_slot_block(band_probs, mesh, padded_total, dtype=dtype),
+            global_slot_block(band_mask, mesh, padded_total),
         )
         object.__setattr__(plan, "_sharded_cache", cache)
     return cache[1:]
@@ -719,19 +762,22 @@ class _BandGather:
 
     Resolves to ``block[mask]`` — the session's touched values, in
     ``band_rows[band_mask]`` (slot-major) order — only when the store's
-    sync needs the bytes, so chained settles move nothing to the host.
+    sync needs the bytes, so chained settles move nothing to the host. The
+    block is a grid of per-shard blocks, reassembled in (sources, markets)
+    order first; *mask* is the padded global mask on the first shard's
+    device.
 
-    ``held_nbytes`` is the whole block the deferral pins in device memory,
-    which the store's recipe chain counts against its budget. A gather
-    whose block is the live state of a standing session reports 0: the
-    session pins that block with or without the recipe. The session is
-    held by weak reference and consulted live, so the bytes count again
-    once the session moves on, closes or is dropped.
+    ``held_nbytes`` is every shard's block the deferral pins in device
+    memory, which the store's recipe chain counts against its budget. A
+    gather whose block is the live state of a standing session reports 0:
+    the session pins that block with or without the recipe. The session
+    is held by weak reference and consulted live, so the bytes count
+    again once the session moves on, closes or is dropped.
     """
 
     __slots__ = ("_block", "_mask", "_session")
 
-    def __init__(self, block: torch.Tensor, mask: torch.Tensor, session=None):
+    def __init__(self, block: tuple, mask: torch.Tensor, session=None):
         self._block = block
         self._mask = mask
         self._session = weakref.ref(session) if session is not None else None
@@ -742,10 +788,14 @@ class _BandGather:
             session = self._session()
             if session is not None and session._standing_gather is self:
                 return 0
-        return self._block.numel() * self._block.element_size()
+        return sum(
+            piece.numel() * piece.element_size()
+            for row in self._block for piece in row
+        )
 
     def __array__(self, dtype=None, copy=None):
-        values = self._block[self._mask].cpu().numpy()
+        block = unshard_slot_block(self._block, self._mask.device)
+        values = block[self._mask].cpu().numpy()
         return values.astype(dtype) if dtype is not None else values
 
 
@@ -771,12 +821,14 @@ class _BandView:
 
 
 class ShardedSettlementSession:
-    """Chained, device-resident settlements of one plan on one card.
+    """Chained, device-resident settlements of one plan, on one card or a
+    ``(markets, sources)`` mesh.
 
     The slot-major (K, M) block state is built from the store ONCE; every
     settle runs on the retained block (on CUDA one launch of the one-pass
-    kernel, in place), so the only per-settle host→device traffic is the
-    outcomes vector. The store merge is a registered sync recipe
+    kernel per markets shard, or of the partials kernel per shard of a
+    sources-sharded mesh, in place), so the only per-settle host→device
+    traffic is the outcomes vector. The store merge is a registered sync recipe
     (closed-form stamps and existence, plus a lazy gather of the block's
     reliabilities) that any host read resolves; host confidences stay
     exact through the eager replay. The session's touched rows are
@@ -788,24 +840,38 @@ class ShardedSettlementSession:
     while it is open, is not seen by the retained block. Use as a context
     manager, or call :meth:`close`.
 
-    ``mesh=None`` means one card, the store's device; another mesh, or a
-    process ``band``, raises. ``refresh``, ``adopt``, the stream and the
+    *mesh* is a :class:`~.parallel.mesh.Mesh` (``parallel.mesh.make_mesh``)
+    that the block is spread over, padded as the JAX session pads it
+    (markets up to a multiple of the markets extent, slots up to a
+    multiple of the sources extent); ``None`` means the (1, 1) mesh of
+    the store's device, one card. Results cover the plan's markets. A
+    process ``band`` raises; ``refresh``, ``adopt``, the stream and the
     serving layer are not ported yet.
     """
 
     def __init__(
         self, store, plan: SettlementPlan, mesh=None, dtype=None, band=None
     ):
-        if mesh is not None:
-            raise ValueError(f"mesh={mesh!r}: {_NOT_ON_ONE_CARD}")
+        if mesh is None:
+            mesh = make_mesh((1, 1), [store.device])
+        elif not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh takes a parallel.mesh.Mesh (make_mesh) or None (one "
+                f"card); got {type(mesh).__name__}"
+            )
         if band is not None:
-            raise ValueError(f"band={band!r}: {_NOT_ON_ONE_CARD}")
+            raise ValueError(f"band={band!r}: {_NO_PROCESS_BANDS}")
         self._store = store
         self._plan = plan
-        self._device = store.device
+        self._mesh = mesh
+        # Where per-market outputs and graph blocks live: the mesh's first
+        # device.
+        self._device = mesh.devices[0][0]
         self._cdtype = resolve_dtype(dtype)
-        (self._band_rows, self._band_mask, self._probs_g,
-         self._mask_g) = _sharded_plan_cache(plan, self._device, self._cdtype)
+        (self._padded_total, self._band_rows, self._band_mask, self._probs_g,
+         self._mask_g) = _sharded_plan_cache(plan, mesh, self._cdtype)
+        # The padded global mask _BandGather selects the touched slots with.
+        self._gather_mask = unshard_slot_block(self._mask_g)
         self._touched = self._band_rows[self._band_mask]
         self._state = None  # built lazily: the epoch depends on the first now
         self._epoch0 = None
@@ -821,8 +887,8 @@ class ShardedSettlementSession:
     # -- state lifecycle -----------------------------------------------------
 
     def _build_state(self, epoch0: float) -> None:
-        store, dtype, device = self._store, self._cdtype, self._device
-        np_dtype = _NUMPY_DTYPE[dtype]
+        store = self._store
+        np_dtype = _NUMPY_DTYPE[self._cdtype]
         band_mask = self._band_mask
         safe = np.where(self._band_rows >= 0, self._band_rows, 0)
         # sync=False: the preamble already resolved any deferral touching
@@ -831,20 +897,18 @@ class ShardedSettlementSession:
             safe, sync=False
         )
 
-        def upload(values):
-            return torch.tensor(values.astype(np_dtype), device=device)
-
-        self._state = MarketBlockState(
-            reliability=upload(np.where(band_mask, host_rel, DEFAULT_RELIABILITY)),
-            confidence=upload(np.where(band_mask, host_conf, DEFAULT_CONFIDENCE)),
-            updated_days=upload(np.where(
+        fields = (
+            np.where(band_mask, host_rel, DEFAULT_RELIABILITY).astype(np_dtype),
+            np.where(band_mask, host_conf, DEFAULT_CONFIDENCE).astype(np_dtype),
+            np.where(
                 band_mask & (host_days > NEVER), host_days - epoch0, 0.0
-            )),
-            exists=torch.tensor(band_mask & host_exists, device=device),
+            ).astype(np_dtype),
+            band_mask & host_exists,
         )
+        self._state = sharded_block_from_numpy(fields, self._mesh)
         self._epoch0 = epoch0
         if self._loop is None:
-            self._loop = build_cycle_loop(device)
+            self._loop = build_cycle_loop(self._mesh)
 
     def _settle_preamble(self, outcomes: Sequence[bool], now: Optional[float]):
         """The shared pre-launch path of every settle entry: plan/outcome
@@ -863,9 +927,10 @@ class ShardedSettlementSession:
                 store.sync()
             self._build_state(min(store.epoch_origin(sync=False), now_abs - 1.0))
         conf_exact = store.host_confidences(self._touched)
-        outcome_g = torch.as_tensor(
-            np.asarray(outcomes, dtype=bool), device=self._device
-        )
+        outcome_g = shard_market_vector(np.pad(
+            np.asarray(outcomes, dtype=bool),
+            (0, self._padded_total - len(outcomes)), constant_values=False,
+        ), self._mesh)
         return now_abs, conf_exact, outcome_g
 
     def _now0(self, now_abs: float) -> float:
@@ -882,7 +947,10 @@ class ShardedSettlementSession:
         stamp_rel = np_dtype(
             np_dtype(now_abs - self._epoch0) + np_dtype(steps - 1)
         )
-        gather = _BandGather(new_state.reliability, self._mask_g, session=self)
+        reliability = tuple(
+            tuple(shard.reliability for shard in row) for row in new_state
+        )
+        gather = _BandGather(reliability, self._gather_mask, session=self)
         self._store.defer_settle_recipe(
             self._touched, gather, self._epoch0, stamp_rel,
         )
@@ -890,8 +958,14 @@ class ShardedSettlementSession:
         _replay_confidences(self._store, self._touched, conf_exact, steps)
 
     def _band_live(self) -> tuple:
-        """(live, keys): on one card the band is every market of the plan."""
+        """(live, keys): in one process the band is every market of the
+        plan."""
         return self._plan.num_markets, self._plan.market_keys
+
+    def _per_market(self, vector: torch.Tensor) -> "_BandView":
+        """The lazy host view of a per-market output's live markets (a
+        mesh pads the markets axis)."""
+        return _BandView(vector[: self._plan.num_markets])
 
     def settle(
         self,
@@ -907,7 +981,9 @@ class ShardedSettlementSession:
         )
         self._settle_commit(new_state, steps, now_abs, conf_exact)
         _live, keys = self._band_live()
-        return SettlementResult(market_keys=keys, consensus=_BandView(consensus))
+        return SettlementResult(
+            market_keys=keys, consensus=self._per_market(consensus)
+        )
 
     def settle_with_tiebreak(
         self,
@@ -933,7 +1009,7 @@ class ShardedSettlementSession:
                 "DEFAULT_CHUNK_AGENTS)"
             )
         loop = build_cycle_analytics_loop(
-            self._device, chunk_agents=chunk_agents, precision=precision,
+            self._mesh, chunk_agents=chunk_agents, precision=precision,
             with_bands=False,
         )
         now_abs, conf_exact, outcome_g = self._settle_preamble(outcomes, now)
@@ -944,8 +1020,9 @@ class ShardedSettlementSession:
         self._settle_commit(new_state, steps, now_abs, conf_exact)
         _live, keys = self._band_live()
         return (
-            SettlementResult(market_keys=keys, consensus=_BandView(consensus)),
-            RingTieBreakResult(*(_BandView(x) for x in tiebreak)),
+            SettlementResult(market_keys=keys,
+                             consensus=self._per_market(consensus)),
+            RingTieBreakResult(*(self._per_market(x) for x in tiebreak)),
         )
 
     def _graph_blocks(self, graph) -> tuple:
@@ -955,11 +1032,11 @@ class ShardedSettlementSession:
         Keyed by :meth:`~.analytics.graph.MarketGraph.extended_fingerprint`
         over the plan's topology digest when the plan carries one, else by
         the graph's fingerprint and market-key equality, as in the JAX
-        package. One card holds every market, so the padded total is the
-        plan's market count.
+        package. The blocks cover the padded markets axis and live on the
+        mesh's first device, where the sweep runs.
         """
         plan = self._plan
-        total = plan.num_markets
+        total = self._padded_total
         if plan.fingerprint is not None:
             key = (graph.extended_fingerprint(plan.fingerprint), total)
             keys_sig = None
@@ -1074,7 +1151,7 @@ class ShardedSettlementSession:
             damping, sweep_steps, sweep_tol = inference.resolve(graph)
             sweep_mode = "moments" if inference.moments else "point"
         loop = build_cycle_analytics_loop(
-            self._device,
+            self._mesh,
             chunk_agents=chunk_agents,
             chunk_slots=chunk_slots,
             precision=options.precision,
@@ -1103,18 +1180,19 @@ class ShardedSettlementSession:
             propagated = self._project_blocks(propagated, blocks, keys)
         if isinstance(propagated, PropagatedBeliefs):
             propagated = propagated._replace(
-                mean=_BandView(propagated.mean),
-                stderr=_BandView(propagated.stderr),
+                mean=self._per_market(propagated.mean),
+                stderr=self._per_market(propagated.stderr),
             )
         elif propagated is not None:
-            propagated = _BandView(propagated)
+            propagated = self._per_market(propagated)
         return (
-            SettlementResult(market_keys=keys, consensus=_BandView(consensus)),
+            SettlementResult(market_keys=keys,
+                             consensus=self._per_market(consensus)),
             (
-                RingTieBreakResult(*(_BandView(x) for x in tiebreak))
+                RingTieBreakResult(*(self._per_market(x) for x in tiebreak))
                 if tiebreak is not None else None
             ),
-            UncertaintyBands(*(_BandView(x) for x in bands)),
+            UncertaintyBands(*(self._per_market(x) for x in bands)),
             propagated,
         )
 
@@ -1123,8 +1201,9 @@ class ShardedSettlementSession:
         on the host (``infer/blocks.py``), over the live rows. Only the
         additive propagated vectors change; the audit pair is kept."""
         is_moments = isinstance(propagated, PropagatedBeliefs)
-        mean = propagated.mean if is_moments else propagated
-        stderr = propagated.stderr.cpu().numpy() if is_moments else None
+        live = self._plan.num_markets
+        mean = (propagated.mean if is_moments else propagated)[:live]
+        stderr = propagated.stderr[:live].cpu().numpy() if is_moments else None
         proj_mean, proj_stderr = blocks.project(keys, mean.cpu().numpy(), stderr)
 
         def upload(values):

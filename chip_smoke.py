@@ -5,7 +5,7 @@
 Phases, one JSON line each:
 
 1. ``device``       the card (``nvidia-smi`` name and power limit).
-2. ``build``        compile the three kernels from the package's ``.cu``
+2. ``build``        compile the four kernels from the package's ``.cu``
                     sources, one ``nvcc`` each, started together.
 3. ``kernel_check`` ``settle_cycles`` against its plain torch version on
                     the card, float32 and float64, K in {1, 5, 16, 40}, a
@@ -26,7 +26,15 @@ Phases, one JSON line each:
                     ``max_steps`` in {1, 2, 24}, with edgeless rows, NaN
                     seeds, zero variances and a row whose mix is NaN: mean,
                     variance, ``iters_run`` and ``residual`` bit-equal.
-6. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
+6. ``partials_check`` ``onepass_partials`` against its plain version on
+                    the card: float32 and float64, every combination of the
+                    views and bands stages, K_loc in {1, 3, 4, 16},
+                    M = 1037, steps in {0, 1, 2, 20}, with pad slots (mask
+                    false, the cold prior), cold slots, empty markets and
+                    stamps on and off multiples of the half-life: state,
+                    views, band roots and count bit-equal (a NaN as a NaN),
+                    raw consensus sums within tolerance.
+7. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
                     10,000-source universe (seed 7), through
                     ``build_settlement_plan_columnar`` on a CUDA store, two
                     chained 20-step ``settle`` calls, the consensus fetch,
@@ -36,7 +44,7 @@ Phases, one JSON line each:
                     inputs that settle was given, the first settle's state
                     must be bit-equal to the plain version's, and the flush
                     must write every row.
-7. ``analytics_path`` the main path's plan and store (1M markets) through a
+8. ``analytics_path`` the main path's plan and store (1M markets) through a
                     resident ``ShardedSettlementSession``: two chained
                     20-step ``settle_with_analytics`` calls with the default
                     ``AnalyticsOptions``, then ``close`` (which syncs the
@@ -48,7 +56,7 @@ Phases, one JSON line each:
                     ``settle``, session ``settle`` and session
                     ``settle_with_analytics`` must leave byte-equal SQLite
                     files and bit-equal consensus.
-8. ``inference_path`` the same plan and store through a session with a
+9. ``inference_path`` the same plan and store through a session with a
                     real graph, made from the seed: 250,000 mutually
                     exclusive events of 4 consecutive markets
                     (``MarketBlocks``) and 2 correlation edges per market to
@@ -66,7 +74,25 @@ Phases, one JSON line each:
                     Then, on two fresh stores of 20,000 markets, the session
                     with a graph and without one must leave byte-equal
                     SQLite files.
-9. ``kernels``      each kernel's launches on its path, error, time (CUDA
+10. ``sharded_path`` the main path's plan and store (1M markets) through a
+                    session on a (1, 4) mesh of the one card
+                    (``make_mesh((1, 4), [cuda:0] * 4)``: K padded to a
+                    multiple of 4, K_loc slots a shard): two chained 20-step
+                    ``settle_with_analytics`` calls with the default
+                    ``AnalyticsOptions``, then ``close``. The partials
+                    kernel's launch count must rise by exactly 4 per call
+                    (no other kernel launches); each launch's outputs must
+                    match the plain version on that shard's inputs; each
+                    call's state must be bit-equal to one ``onepass_settle``
+                    launch on the same inputs unsharded, its bands too (the
+                    shard boundaries fall on subtree boundaries when K_loc
+                    is a power of two), its consensus within tolerance. Then,
+                    on fresh stores of 20,000 markets, the one-card session
+                    and sessions on (1, 2), (1, 4) and (2, 2) meshes must
+                    leave byte-equal SQLite files, and one (1, 4) call with
+                    the inference path's graph must run ``bp_sweep`` on the
+                    merged consensus (bit-equal to its plain version).
+11. ``kernels``     each kernel's launches on its path, error, time (CUDA
                     events over 21 back-to-back launches after warm-up, each
                     on fresh input copies), plain-version time and
                     byte bound: ``settle_cycles`` on the chained flat
@@ -77,7 +103,9 @@ Phases, one JSON line each:
                     launch with the tie-break and bands off; ``bp_sweep``
                     on the chained inference call's seeds (its time per
                     call of ``max_steps + 1`` launches, the bound for the
-                    sweeps that ran).
+                    sweeps that ran); ``onepass_partials`` on the sharded
+                    path's chained call (``ms`` one call's 4 launches, also
+                    per launch; ``merge_ms`` the eager cross-shard merge).
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -207,6 +235,46 @@ def compare_onepass(got, want, what):
     return err
 
 
+def partials_case(rng, num_slots, num_markets, np_dtype, now0):
+    """One sources shard's (K_loc, M) block: pad slots (mask false, the
+    cold prior), empty markets, cold slots, and stamps on and off multiples
+    of the 30-day half-life (one after now0)."""
+    shape = (num_slots, num_markets)
+    mask = rng.random(shape) < 0.7
+    mask[:, ::17] = False
+    exists = rng.random(shape) < 0.6
+    rel = rng.uniform(0.0, 1.0, shape)
+    conf = rng.uniform(0.0, 1.0, shape)
+    stamps = [0.0, now0, now0 - 30.0, now0 - 90.0, 3.0, 35.0, now0 + 12.5]
+    days = rng.choice(stamps, shape)
+    if num_slots > 2:
+        pad = slice(num_slots - 2, None)
+        mask[pad], exists[pad], rel[pad], conf[pad], days[pad] = (
+            False, False, 0.5, 0.25, 0.0)
+    return dict(
+        probs=rng.random(shape).astype(np_dtype), mask=mask,
+        outcome=rng.random(num_markets) < 0.5, rel=rel.astype(np_dtype),
+        conf=conf.astype(np_dtype), days=days.astype(np_dtype), exists=exists,
+    )
+
+
+def compare_partials(got, want, what):
+    """Partials kernel outputs against the plain version's: state, views,
+    band roots and count bit-equal (a NaN as a NaN), the raw consensus sums
+    within TOL; returns their largest absolute difference."""
+    for field, a, b in zip(want.state._fields, got.state, want.state):
+        check_bits(a, b, f"{what} {field}")
+    for field in ("band_sums", "band_count", "read_rel", "read_conf"):
+        a, b = getattr(got, field), getattr(want, field)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what} {field}: present in one only")
+        if b is not None:
+            check_bits(a, b, f"{what} {field}")
+    a, b = got.consensus_sums.cpu().numpy(), want.consensus_sums.cpu().numpy()
+    np.testing.assert_allclose(a, b, err_msg=f"{what} raw sums", **TOL[a.dtype])
+    return float(np.max(np.abs(a - b), initial=0.0))
+
+
 def kernel_args(case, dtype, steps, settle_kernel):
     touched_rows, offsets = settle_kernel.touched_layout(case["rows"], case["mask"])
     cuda = torch.device("cuda")
@@ -272,13 +340,18 @@ def bp_case(rng, num_markets, degree):
 
 
 def check_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
-    """Bit-equal float tensors, a NaN comparing as NaN whatever its payload."""
+    """Bit-equal tensors, a NaN comparing as NaN whatever its payload."""
     got, want = got.cpu().numpy(), want.cpu().numpy()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: dtype or shape differs")
+    if want.dtype.kind != "f":
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: not equal")
+        return
     nan = np.isnan(want)
-    if got.dtype != want.dtype or got.shape != want.shape or not (
-        np.array_equal(np.isnan(got), nan)
-        and np.array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
-    ):
+    bits = np.uint32 if want.dtype == np.float32 else np.uint64
+    if not (np.array_equal(np.isnan(got), nan)
+            and np.array_equal(got[~nan].view(bits), want[~nan].view(bits))):
         raise AssertionError(f"{what}: not bit-equal")
 
 
@@ -327,8 +400,16 @@ def main() -> int:
         bp_kernel,
         cuda_build,
         onepass_kernel,
+        partials_kernel,
         settle_kernel,
     )
+    from bayesian_consensus_engine_tpu_torch.ops.cycle_math import consensus_merge
+    from bayesian_consensus_engine_tpu_torch.ops.tiebreak import ring_tiebreak_math
+    from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
+        band_epilogue,
+        band_merge,
+    )
+    from bayesian_consensus_engine_tpu_torch.parallel import mesh as mesh_module
     from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
     from bayesian_consensus_engine_tpu_torch.parallel import sharded
     from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
@@ -436,7 +517,43 @@ def main() -> int:
     emit("bp_check", cases=cases, markets=1037, degrees=[1, 2, 8, 33],
          iters_run_seen=sorted(stops), max_abs_err=0.0)
 
-    # 6. main_path
+    # 6. partials_check
+    rng = np.random.default_rng(3)
+    partials_err = {}
+    cases = 0
+    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        for num_slots in (1, 3, 4, 16):
+            case = partials_case(rng, num_slots, 1037, np_dtype, 600.0)
+
+            def t(x, dt=None):
+                return torch.tensor(x, dtype=dt, device="cuda")
+
+            for steps in (0, 1, 2, 20):
+                for with_views in (True, False):
+                    for with_bands in (True, False):
+                        state = MarketBlockState(
+                            t(case["rel"], dtype), t(case["conf"], dtype),
+                            t(case["days"], dtype), t(case["exists"]),
+                        )
+                        args = (t(case["probs"], dtype), t(case["mask"]),
+                                t(case["outcome"]))
+                        stages = dict(with_views=with_views, with_bands=with_bands)
+                        want = partials_kernel.onepass_partials_reference(
+                            *args, state, 600.0, steps, **stages)
+                        clone = MarketBlockState(*(x.clone() for x in state))
+                        got = partials_kernel.onepass_partials(
+                            *args, clone, 600.0, steps, **stages)
+                        torch.cuda.synchronize()
+                        err = compare_partials(
+                            got, want, f"{dtype} K_loc={num_slots} steps={steps} "
+                            f"stages={with_views, with_bands}")
+                        partials_err[str(dtype)] = max(
+                            partials_err.get(str(dtype), 0.0), err)
+                        cases += 1
+    emit("partials_check", cases=cases, markets=1037,
+         max_abs_sums_err=partials_err)
+
+    # 7. main_path
     seconds = {}
     start = time.perf_counter()
     data_rng = np.random.default_rng(SEED)
@@ -536,7 +653,7 @@ def main() -> int:
          seconds=seconds, cut=None,
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 7. analytics_path: the main path's plan and store through a resident
+    # 8. analytics_path: the main path's plan and store through a resident
     # session. Each one-pass call's inputs are copied as the loop hands
     # them to the kernel (the kernel updates the state in place), so that
     # the plain version can be run on them afterwards; the copies are made
@@ -650,7 +767,7 @@ def main() -> int:
          parity_markets=PARITY_MARKETS, parity_sqlite_bytes=len(parity_dumps[0]),
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 8. inference_path: the same plan and store through a session with a
+    # 9. inference_path: the same plan and store through a session with a
     # real graph. Each sweep's seeds and outputs are copied as the loop
     # hands them to the kernel, so that the plain version can be run on
     # them afterwards; the copies are made inside the timed calls.
@@ -797,7 +914,194 @@ def main() -> int:
          parity_sqlite_bytes=len(graph_dumps[0]),
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 9. kernels: each kernel and its plain version timed on its path's
+    # 10. sharded_path: the main path's plan and store through a session on
+    # a (1, 4) mesh of the one card. Each partials launch's inputs are
+    # copied as the loop hands them to the kernel (it updates the state in
+    # place), and its outputs after it, so that the plain version can be
+    # run on them afterwards; the copies are made inside the timed calls.
+    cuda0 = torch.device("cuda", torch.cuda.current_device())
+    sharded_seconds = {}
+    partials_captured = []
+    real_partials = sharded.onepass_partials
+
+    def capturing_partials(probs, mask, outcome, state, now0, steps, **stages):
+        before = MarketBlockState(*(x.clone() for x in state))
+        out = real_partials(probs, mask, outcome, state, now0, steps, **stages)
+        torch.cuda.synchronize()
+        partials_captured.append((
+            (probs, mask, outcome, before, now0, steps), stages,
+            type(out)(MarketBlockState(*(x.clone() for x in out.state)),
+                      *(None if x is None else x.clone() for x in out[1:])),
+        ))
+        return out
+
+    mesh = mesh_module.make_mesh((1, 4), [cuda0] * 4)
+    partials_counts, sharded_calls = [], []
+    sharded.onepass_partials = capturing_partials
+    try:
+        partials_kernel.LAUNCHES = 0
+        onepass_kernel.LAUNCHES = 0
+        settle_kernel.LAUNCHES = 0
+        bp_kernel.LAUNCHES = 0
+        start = time.perf_counter()
+        session = pipeline.ShardedSettlementSession(store, plan, mesh)
+        sharded_seconds["open"] = time.perf_counter() - start
+        for call, now in enumerate((NOW + 6 * STEPS, NOW + 7 * STEPS), 1):
+            start = time.perf_counter()
+            out = session.settle_with_analytics(
+                outcomes, steps=STEPS, now=now, analytics=AnalyticsOptions(),
+            )
+            out[0].fence()
+            sharded_seconds[f"call_{call}"] = time.perf_counter() - start
+            partials_counts.append(partials_kernel.LAUNCHES)
+            sharded_calls.append((out, [
+                mesh_module.unshard_slot_block(
+                    [[getattr(shard, field) for shard in row]
+                     for row in session._state]).clone()
+                for field in MarketBlockState._fields
+            ]))
+        start = time.perf_counter()
+        session.close()
+        sharded_seconds["close"] = time.perf_counter() - start
+    finally:
+        sharded.onepass_partials = real_partials
+    partials_launches = partials_kernel.LAUNCHES
+    if partials_counts != [4, 8] or onepass_kernel.LAUNCHES != 0 \
+            or settle_kernel.LAUNCHES != 0 or bp_kernel.LAUNCHES != 0:
+        raise AssertionError(
+            f"partials launches after each call {partials_counts} (expected "
+            f"[4, 8]), one-pass {onepass_kernel.LAUNCHES}, settle "
+            f"{settle_kernel.LAUNCHES}, bp_sweep {bp_kernel.LAUNCHES} "
+            "(expected 0)")
+    if store.live_row_count() != len(store):
+        raise AssertionError("a settled row does not exist after close")
+    # Each launch against the plain version on that shard's inputs.
+    sharded_err = 0.0
+    for n, (inputs, stages, got) in enumerate(partials_captured):
+        want = partials_kernel.onepass_partials_reference(*inputs, **stages)
+        sharded_err = max(sharded_err, compare_partials(
+            got, want, f"sharded call {n // 4 + 1} shard {n % 4}"))
+        del want
+    # Each call against one onepass_settle launch on its inputs unsharded:
+    # state and bands bit-equal, consensus within tolerance.
+    num_slots = plan.num_slots
+    k_loc = int(partials_captured[0][0][0].shape[0])
+    if k_loc & (k_loc - 1):
+        raise AssertionError(
+            f"K_loc = {k_loc} is not a power of two: the shards' band trees "
+            "would not be subtrees of the one-card tree")
+    for call, (out, state_after) in enumerate(sharded_calls, 1):
+        shards = partials_captured[4 * (call - 1): 4 * call]
+
+        def whole(pick):
+            return torch.cat([pick(inputs) for inputs, _, _ in shards], dim=0)
+
+        before = [whole(lambda x, i=i: x[3][i]) for i in range(4)]
+        one = onepass_kernel.onepass_settle(
+            whole(lambda x: x[0])[:num_slots].contiguous(),
+            whole(lambda x: x[1])[:num_slots].contiguous(), shards[0][0][2],
+            MarketBlockState(*(x[:num_slots].contiguous() for x in before)),
+            shards[0][0][4], STEPS,
+        )
+        torch.cuda.synchronize()
+        for field, got, want, old in zip(MarketBlockState._fields, state_after,
+                                         one.state, before):
+            check_bits(got[:num_slots], want,
+                       f"sharded call {call} {field} vs one card")
+            check_bits(got[num_slots:], old[num_slots:],
+                       f"sharded call {call} pad slots' {field}")
+        merged_bands = band_epilogue(one.band_sums, one.band_count)
+        for field, values in zip(merged_bands._fields, out[2]):
+            check_bits(torch.from_numpy(np.asarray(values)),
+                       getattr(merged_bands, field).cpu(),
+                       f"sharded call {call} bands.{field} vs one card")
+        sharded_err = max(sharded_err, check_consensus(
+            torch.from_numpy(out[0].consensus), one.consensus.cpu(),
+            f"sharded call {call} consensus vs one card"))
+        for name, values in zip(out[1]._fields, out[1]):
+            if np.asarray(values).shape != (MARKETS,):
+                raise AssertionError(f"sharded {name} is not of shape (M,)")
+        del one, before
+
+    # Mesh byte parity: the same 20,000 markets through the one-card
+    # session and sessions on three meshes of the card.
+    mesh_dumps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for shape in (None, (1, 2), (1, 4), (2, 2)):
+            small = TensorReliabilityStore()
+            small_plan = pipeline.build_settlement_plan_columnar(
+                small, market_keys[:PARITY_MARKETS],
+                SourceCodes(codes[:cut], sources.table),
+                probs[:cut], offsets[: PARITY_MARKETS + 1],
+            )
+            small_mesh = None if shape is None else mesh_module.make_mesh(
+                shape, [cuda0] * (shape[0] * shape[1]))
+            with pipeline.ShardedSettlementSession(small, small_plan, small_mesh) as s:
+                for now in (NOW, NOW + STEPS):
+                    s.settle_with_analytics(
+                        outcomes[:PARITY_MARKETS], steps=STEPS, now=now)
+            path = os.path.join(tmp, f"{shape}.db")
+            small.flush_to_sqlite(path)
+            with open(path, "rb") as handle:
+                mesh_dumps[str(shape)] = handle.read()
+    if len(set(mesh_dumps.values())) != 1:
+        raise AssertionError("SQLite bytes differ between the one-card session "
+                             f"and the meshes: {list(mesh_dumps)}")
+
+    # One (1, 4) call with a graph: bp_sweep runs on the merged consensus.
+    graph_captured = []
+
+    def capturing_graph_bp(means, variances, neighbor_idx, neighbor_w, **sweep):
+        seeds = (means.clone(), None if variances is None else variances.clone(),
+                 neighbor_idx, neighbor_w)
+        out = real_bp(means, variances, neighbor_idx, neighbor_w, **sweep)
+        torch.cuda.synchronize()
+        graph_captured.append((seeds, sweep, tuple(
+            None if x is None else x.clone() for x in out)))
+        return out
+
+    small = TensorReliabilityStore()
+    small_plan = pipeline.build_settlement_plan_columnar(
+        small, small_keys, SourceCodes(codes[:cut], sources.table),
+        probs[:cut], offsets[: PARITY_MARKETS + 1],
+    )
+    sharded.bp_sweep = capturing_graph_bp
+    try:
+        bp_kernel.LAUNCHES = 0
+        partials_kernel.LAUNCHES = 0
+        onepass_kernel.LAUNCHES = 0
+        settle_kernel.LAUNCHES = 0
+        with pipeline.ShardedSettlementSession(small, small_plan, mesh) as s:
+            graph_out = s.settle_with_analytics(
+                outcomes[:PARITY_MARKETS], steps=STEPS, now=NOW,
+                analytics=small_options)
+        graph_launches = bp_kernel.LAUNCHES
+        graph_partials = partials_kernel.LAUNCHES
+        graph_other = onepass_kernel.LAUNCHES + settle_kernel.LAUNCHES
+    finally:
+        sharded.bp_sweep = real_bp
+    if graph_launches != per_call or len(graph_captured) != 1 \
+            or graph_partials != 4 or graph_other != 0:
+        raise AssertionError(
+            f"graph call: {graph_launches} bp_sweep launches (expected "
+            f"{per_call}), {graph_partials} partials (expected 4), "
+            f"{graph_other} one-pass or settle (expected 0)")
+    seeds, sweep, got = graph_captured[0]
+    check_bits(seeds[0].cpu(), torch.from_numpy(
+        np.asarray(graph_out[0].consensus).astype(np.float32)),
+        "graph seeds vs the merged consensus")
+    compare_sweep(got, bp_kernel.bp_sweep_reference(*seeds, **sweep),
+                  "sharded graph sweep")
+    emit("sharded_path", markets=MARKETS, mesh=[1, 4], slots=int(num_slots),
+         padded_slots=int(-(-num_slots // 4) * 4), steps=STEPS,
+         calls=len(sharded_calls), launches=partials_launches,
+         max_abs_err=sharded_err, seconds=sharded_seconds,
+         parity_markets=PARITY_MARKETS, parity_meshes=list(mesh_dumps),
+         parity_sqlite_bytes=len(mesh_dumps["None"]),
+         graph_launches=graph_launches,
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+
+    # 11. kernels: each kernel and its plain version timed on its path's
     # inputs (fresh clones each run, so every run does the same work). The
     # chained (warm) settle, where every row exists and is read, is the
     # steady state and the headline; the first (cold) settle reads no
@@ -918,8 +1222,73 @@ def main() -> int:
         "iters_run": bp_iters,
         "launches_per_call": per_call,
     }
-    print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry]}),
-          flush=True)
+    # onepass_partials on the sharded path's chained call: its 4 launches
+    # (one a shard), each on fresh copies of that shard's state.
+    chained_shards = partials_captured[4:8]
+
+    def prepare_partials():
+        return [(probs_d, mask_d, outcome_d,
+                 MarketBlockState(*(x.clone() for x in state)), now0, steps)
+                for (probs_d, mask_d, outcome_d, state, now0, steps), _, _
+                in chained_shards]
+
+    shard_stages = chained_shards[0][1]
+
+    def run_shards(fn):
+        return lambda shard_args: [fn(*a, **shard_stages) for a in shard_args]
+
+    partials_ms = time_cuda(run_shards(partials_kernel.onepass_partials),
+                            prepare_partials, warmup=3, runs=21)
+    partials_plain_ms = time_cuda(
+        run_shards(partials_kernel.onepass_partials_reference),
+        prepare_partials, warmup=1, runs=5)
+    # The cross-shard merge in eager PyTorch on the chained call's partials,
+    # as the loop runs it: the sharded tie-break, band_merge + band_epilogue
+    # and the consensus psums + epilogue.
+    parts = [got for _, _, got in chained_shards]
+    shard_inputs = [inputs for inputs, _, _ in chained_shards]
+
+    def merge(_unused):
+        ring_tiebreak_math(
+            [x[0] for x in shard_inputs], [p.read_rel for p in parts],
+            [p.read_conf for p in parts], [p.read_rel for p in parts],
+            [x[1] for x in shard_inputs], axis_size=4, device=cuda0,
+            agents_last=False, chunk_agents=1024,
+        )
+        band_epilogue(*band_merge([p.band_sums for p in parts],
+                                  [p.band_count for p in parts], cuda0))
+        consensus_merge([p.consensus_sums for p in parts], cuda0)
+
+    merge_ms = time_cuda(merge, lambda: None, warmup=2, runs=11)
+    partials_bound = sum(
+        partials_kernel.bound_bytes(
+            int(probs_d.shape[0]), MARKETS, int(mask_d.sum()),
+            int((state.exists & mask_d).sum()), int(state.exists.sum()),
+            steps, 4, with_views=shard_stages["with_views"],
+            with_bands=shard_stages["with_bands"])
+        for (probs_d, mask_d, _o, state, _n, steps), _, _ in chained_shards
+    )
+    partials_entry = {
+        "name": "onepass_partials",
+        "route": "cuda",
+        "source": "bayesian_consensus_engine_tpu_torch/csrc/onepass_partials.cu",
+        "replaces": "bayesian_consensus_engine_tpu/ops/pallas_settle.py:349",
+        "launches": partials_launches,
+        "max_abs_err": sharded_err,
+        # One session call's work: its 4 launches, one a sources shard.
+        "ms": partials_ms,
+        "kernel_ms": partials_ms,
+        "kernel_ms_per_launch": partials_ms / 4,
+        "plain_ms": partials_plain_ms,
+        "bound_ms": partials_bound / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "bound_bytes": partials_bound,
+        "library_ms": None,
+        "merge_ms": merge_ms,
+        "launches_per_call": 4,
+    }
+    print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
+                                  partials_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from bayesian_consensus_engine_tpu_torch.ops import bp_kernel, cuda_build
+from bayesian_consensus_engine_tpu_torch.ops import bp_kernel, cuda_build, partials_kernel
 
 # lane → (moments, keep_fma): the point lane as propagate_beliefs runs it,
 # as the session runs it (the reference's damped sweep), and moments.
@@ -84,7 +84,8 @@ def test_launches_per_call():
 
 def test_every_kernel_source_is_registered():
     assert bp_kernel.SOURCE in cuda_build.SOURCES
-    assert len(cuda_build.SOURCES) == 3
+    assert partials_kernel.SOURCE in cuda_build.SOURCES
+    assert len(cuda_build.SOURCES) == 4
     assert all(source.is_file() for source in cuda_build.SOURCES)
 
 

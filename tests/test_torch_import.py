@@ -1,8 +1,9 @@
-"""The port stands alone: importing it (every module of the analytics and
-inference slices included), settling on the CPU and settling through the
-resident session with analytics and graph inference loads neither JAX nor
-any module of the JAX package, and its device policy is explicit (CUDA
-unless the CPU is asked for; no silent fallback)."""
+"""The port stands alone: importing it (every module of the analytics,
+inference and mesh slices included), settling on the CPU, settling through
+the resident session with analytics and graph inference, and settling on a
+sources-sharded CPU mesh loads neither JAX nor any module of the JAX
+package, and its device policy is explicit (CUDA unless the CPU is asked
+for; no silent fallback)."""
 
 import pathlib
 import subprocess
@@ -26,10 +27,12 @@ from bayesian_consensus_engine_tpu_torch import infer
 from bayesian_consensus_engine_tpu_torch.analytics import bands, graph
 from bayesian_consensus_engine_tpu_torch.infer import blocks as infer_blocks, bp
 from bayesian_consensus_engine_tpu_torch.ops import (
-    bp_kernel, cuda_build, fma, onepass_kernel, propagate, tiebreak,
-    uncertainty,
+    bp_kernel, cuda_build, fma, onepass_kernel, partials_kernel, propagate,
+    tiebreak, uncertainty,
 )
-from bayesian_consensus_engine_tpu_torch.parallel import sharded
+from bayesian_consensus_engine_tpu_torch.parallel import (
+    collectives, distributed, mesh, sharded,
+)
 
 store = port.TensorReliabilityStore(device="cpu")
 payloads = [
@@ -58,6 +61,13 @@ with port.ShardedSettlementSession(store, plan) as session:
     )[3]
 assert isinstance(prop, infer.PropagatedBeliefs) and len(prop.mean) == 2
 assert 1 <= int(prop.iters_run) <= 4
+
+cpu_mesh = mesh.make_mesh((1, 2), ["cpu", "cpu"])
+with port.ShardedSettlementSession(store, plan, cpu_mesh) as session:
+    _, tb, bands_out, _ = session.settle_with_analytics(
+        [True, False], steps=2, now=20009.0,
+    )
+assert len(tb.prediction) == 2 and len(bands_out.lo) == 2
 
 PACKAGE = "bayesian_consensus_engine_tpu"
 loaded = sorted(

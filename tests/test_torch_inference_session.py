@@ -204,8 +204,10 @@ def run_scenario(pkg, name, tmp):
         )
         calls.append((np.asarray(result.consensus), np.asarray(bands.stderr),
                       propagated_fields(propagated), propagated))
-    state = tuple(np.asarray(x if pkg == "jax" else x.numpy())
-                  for x in session._state)
+    state = tuple(
+        np.asarray(x) for x in (session._state if pkg == "jax"
+                                else convert.sharded_block_to_numpy(session._state))
+    )
     session.close()
     records = [(r.source_id, r.market_id, r.reliability, r.confidence,
                 r.updated_at) for r in store.list_sources()]
