@@ -36,9 +36,9 @@ The device is explicit: a store is on CUDA unless ``device="cpu"`` is
 passed, and without CUDA it raises. On CUDA every flat settle is one launch
 of the settle kernel, every session settle one launch of the one-pass
 kernel (on a sources-sharded mesh, one launch of the partials kernel a
-shard and the cross-shard merge), and every graph sweep ``max_steps + 1``
-launches of the belief sweep kernel; on the CPU each kernel's plain torch
-version runs.
+shard and the cross-shard merge), and every graph sweep one cooperative
+launch of the belief sweep kernel (none at a depth of 0); on the CPU each
+kernel's plain torch version runs.
 """
 
 from bayesian_consensus_engine_tpu_torch.analytics import AnalyticsOptions

@@ -10,14 +10,18 @@ VMEM across sweeps. The source is ``csrc/bp_sweep.cu`` (CUDA C++ for
 
 What bounds it. Device-memory bytes; :func:`bound_bytes` counts them per
 sweep that runs: the neighbour blocks once and the moment vectors read
-and written once. What the design does: one thread per market row loops
-over its D neighbours, one launch per sweep (the launch boundary is the
-grid-wide barrier that Jacobi semantics need), ping-pong buffers, the
-residual as a block max plus one ``atomicMax`` per block, and the early
-exit read from the residual slots on the card, so the host enqueues every
-launch and reads nothing back. A call makes ``max_steps + 1`` launches
-(the sweeps and a finalize that writes the audit pair); ``max_steps == 0``
-makes none.
+and written once. What the design does: one cooperative launch a call
+runs every sweep, its blocks as many as the SMs hold at once, each
+thread walking market rows grid-stride and looping over a row's D
+neighbours; a grid-wide barrier (``grid.sync()``) between sweeps gives
+Jacobi semantics. Between sweeps the moments sit in two ping-pong
+buffers of the kernel's own layout, (mean, variance) interleaved, so one
+neighbour's gather touches one L2 sector; the neighbour blocks stream
+with an evict-first cache hint. The residual is a block max plus one
+``atomicMax`` per block, and after each barrier every block reads the
+finished residual and stops at the same sweep, so the host enqueues one
+launch and reads nothing back. A call makes one launch
+(:func:`launches_per_call`); ``max_steps == 0`` makes none.
 
 :func:`bp_sweep` launches the kernel for CUDA tensors and raises when it
 cannot; only CPU tensors take the plain version,
@@ -49,7 +53,7 @@ SOURCE = cuda_build.CSRC / "bp_sweep.cu"
 
 def _load():
     signature = (
-        [ctypes.c_void_p] * 11
+        [ctypes.c_void_p] * 10
         + [ctypes.c_double] * 5
         + [ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -58,9 +62,9 @@ def _load():
 
 
 def launches_per_call(max_steps: int) -> int:
-    """Kernel launches one :func:`bp_sweep` call makes on CUDA: one per
-    sweep plus the finalize, none for a zero-step sweep."""
-    return max_steps + 1 if max_steps > 0 else 0
+    """Kernel launches one :func:`bp_sweep` call makes on CUDA: one
+    cooperative launch runs every sweep; a zero-step sweep makes none."""
+    return 1 if max_steps > 0 else 0
 
 
 #: The plain version: ``ops/propagate.py::bp_sweep_math`` in eager torch,
@@ -135,9 +139,13 @@ def bp_sweep(
         return torch.empty(num_markets, dtype=f32, device=device)
 
     out_m = vector()
-    tmp_m = vector() if max_steps > 1 else None
     out_s = vector() if moments else None
-    tmp_s = vector() if moments and max_steps > 1 else None
+    # Two buffers of M cells for the sweeps before the last: (mean,
+    # variance) pairs on the moments lane, means on the point lane.
+    pingpong = None
+    if max_steps > 1:
+        pingpong = torch.empty(
+            2 * num_markets * (2 if moments else 1), dtype=f32, device=device)
     res_bits = torch.zeros(max_steps, dtype=torch.int32, device=device)
     iters_run = torch.empty((), dtype=torch.int32, device=device)
     residual = torch.empty((), dtype=f32, device=device)
@@ -151,7 +159,7 @@ def bp_sweep(
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.bp_sweep_f32(
             means.data_ptr(), ptr(variances), out_m.data_ptr(), ptr(out_s),
-            ptr(tmp_m), ptr(tmp_s), neighbor_idx.data_ptr(),
+            ptr(pingpong), neighbor_idx.data_ptr(),
             neighbor_w.data_ptr(), res_bits.data_ptr(), iters_run.data_ptr(),
             residual.data_ptr(), float(lam), float(keep), float(lam * lam),
             float(keep * keep), 0.0 if tol is None else float(tol),
@@ -172,7 +180,13 @@ def bound_bytes(
     and float32 weights) and the moment vectors read and written once
     (``M·16`` on the moments lane, ``M·8`` on the point lane); then the
     audit pair written (8 bytes). The gathers of neighbour moments are
-    cache hits and are not counted. A zero-step sweep moves nothing."""
+    cache hits and are not counted. Beyond this the kernel moves what its
+    own layout costs: the sweeps before the last write and read the
+    moments interleaved in its ping-pong buffers (the same bytes as the
+    separate vectors), and after an early exit it unpacks the last of
+    those buffers into the separate result vectors (``M·16`` on the
+    moments lane), which the bound does not count. A zero-step sweep
+    moves nothing."""
     if iters_run <= 0:
         return 0
     per_market = max_degree * 8 + (16 if moments else 8)

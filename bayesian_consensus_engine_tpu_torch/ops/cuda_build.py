@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -67,15 +68,16 @@ def build(*sources: Path) -> list[tuple[Path, str]]:
     ``nvcc`` per source, started together); returns ``(library, log)``
     per source, in order.
 
-    The log is nvcc's output (``-Xptxas -v``: registers, spills), empty for
-    a build that was reused. Each library is written under a temporary
+    The log is nvcc's output (``-Xptxas -v``: registers, stack frames,
+    spills), kept beside the library, so a build that was reused returns
+    the log it was made with; a library without its log is built again. Each library is written under a temporary
     name and renamed, so a concurrent build never loads a half-written
     file. Raises with nvcc's output if any build fails.
     """
     targets = [library_path(source) for source in sources]
     running = []
     for source, target in zip(sources, targets):
-        if target.exists():
+        if target.exists() and _log_path(target).exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -85,14 +87,13 @@ def build(*sources: Path) -> list[tuple[Path, str]]:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         running.append((source, target, tmp, proc))
-    logs = {}
     failures = []
     for source, target, tmp, proc in running:
         try:
             output, _ = proc.communicate()
             if proc.returncode == 0:
+                _log_path(target).write_text(output)
                 os.replace(tmp, target)
-                logs[target] = output
             else:
                 failures.append(f"nvcc failed on {source.name}:\n{output}")
         finally:
@@ -100,12 +101,42 @@ def build(*sources: Path) -> list[tuple[Path, str]]:
                 os.unlink(tmp)
     if failures:
         raise RuntimeError("\n".join(failures))
-    return [(target, logs.get(target, "")) for target in targets]
+    return [(target, _log_path(target).read_text()) for target in targets]
+
+
+def _log_path(library: Path) -> Path:
+    return library.with_suffix(".log")
 
 
 def build_all() -> list[tuple[Path, str]]:
     """:func:`build` of every kernel source (:data:`SOURCES`), in parallel."""
     return build(*SOURCES)
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Per entry function of a build's log (``-Xptxas -v``), keyed by its
+    mangled name: ``registers``, ``stack_bytes``, ``spill_stores`` and
+    ``spill_loads`` as ptxas printed them."""
+    report: dict[str, dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line) or re.search(
+            r"Compiling entry function '([^']+)'", line)
+        if found:
+            current = report.setdefault(found.group(1), {})
+            continue
+        if current is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            current.update(stack_bytes=int(frame.group(1)),
+                           spill_stores=int(frame.group(2)),
+                           spill_loads=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            current["registers"] = int(used.group(1))
+    return report
 
 
 def load(source: Path, signatures: dict) -> ctypes.CDLL:

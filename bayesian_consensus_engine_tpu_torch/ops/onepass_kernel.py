@@ -18,9 +18,15 @@ the function must move on the inputs at hand. The tie-break's K² key
 comparisons per market are a few hundred operations at K ≈ 16, far below
 the card's rate. What the design does: one thread per market walks its
 slots once, settles each slot's whole step loop in registers (as
-``settle_cycles`` does) and builds the band tree in a per-thread stack;
-the tie-break's (key, weight) pairs go through an 8-byte-per-slot scratch
-block that the same thread reads back from cache.
+``settle_cycles`` does) and builds the band tree in registers (the kernel
+is instantiated per tree depth up to K = 64; a wider K keeps the tree's
+stack in local memory). Up to K = 64 the tie-break's (key, weight) pairs
+go to the thread's column of the block's shared memory (8 bytes a slot;
+the block shrinks from 256 threads to 128 and 64 as K grows so that they
+fit the default 48 KB) and its valid slots to a register bitmask, so the
+group loop reads no device memory. A wider K recomputes each pair from
+the pre-update state in device memory, before the slots are settled, and
+so takes any K.
 
 :func:`onepass_settle` launches the kernel for CUDA tensors and raises
 when it cannot; only CPU tensors take the plain version,
@@ -71,7 +77,7 @@ class OnepassOutputs(NamedTuple):
 
 def _load():
     signature = (
-        [ctypes.c_void_p] * 17
+        [ctypes.c_void_p] * 16
         + [ctypes.c_double] * 3
         + [ctypes.c_int64] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -181,14 +187,12 @@ def onepass_settle(
     f32, i32 = torch.float32, torch.int32
     consensus = empty(num_markets, dtype)
     tiebreak = sums = count = None
-    scratch = None
     if with_tiebreak:
         tiebreak = RingTieBreakResult(
             empty(num_markets, f32), empty(num_markets, f32),
             empty(num_markets, f32), empty(num_markets, i32),
             empty(num_markets, i32), empty(num_markets, f32),
         )
-        scratch = empty((num_slots, num_markets, 2), i32)  # (key, weight)
     if with_bands:
         sums, count = empty((4, num_markets), f32), empty(num_markets, i32)
     if num_markets == 0:
@@ -208,9 +212,8 @@ def onepass_settle(
             probs.data_ptr(), mask.data_ptr(), outcome.data_ptr(),
             state.reliability.data_ptr(), state.confidence.data_ptr(),
             state.updated_days.data_ptr(), state.exists.data_ptr(),
-            consensus.data_ptr(), *(ptr(x) for x in tb), ptr(scratch),
-            ptr(sums), ptr(count), float(now0), float(scale), float(recip),
-            num_slots,
+            consensus.data_ptr(), *(ptr(x) for x in tb), ptr(sums),
+            ptr(count), float(now0), float(scale), float(recip), num_slots,
             num_markets, int(steps), int(with_tiebreak), int(with_bands),
             stream,
         )

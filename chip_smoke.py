@@ -6,7 +6,11 @@ Phases, one JSON line each:
 
 1. ``device``       the card (``nvidia-smi`` name and power limit).
 2. ``build``        compile the four kernels from the package's ``.cu``
-                    sources, one ``nvcc`` each, started together.
+                    sources, one ``nvcc`` each, started together; fail if
+                    ptxas reports a spill in ``bp_sweep`` or
+                    ``onepass_settle``, or a stack frame in the sweep or
+                    in a register-tree instantiation of the one-pass
+                    kernel.
 3. ``kernel_check`` ``settle_cycles`` against its plain torch version on
                     the card, float32 and float64, K in {1, 5, 16, 40}, a
                     ragged M, steps in {0, 1, 2, 20}, with pads, cold slots,
@@ -15,7 +19,9 @@ Phases, one JSON line each:
 4. ``onepass_check`` ``onepass_settle`` against its plain version on the
                     card: float32 with every combination of the tie-break
                     and bands stages, float64 with the tie-break off; K in
-                    {1, 5, 16, 40}, M = 1037, steps in {0, 1, 2, 20}, with
+                    {1, 5, 16, 17, 33, 40, 64, 65} (band trees of depth 0
+                    to 6 in registers and the wider stack), M = 1037,
+                    steps in {0, 1, 2, 20}, with
                     cold slots, empty markets, all-tied markets and stamps
                     on and off multiples of the half-life: state, tie-break
                     and band moments bit-equal, consensus within tolerance.
@@ -25,7 +31,8 @@ Phases, one JSON line each:
                     depth and early exits after 1, 5 or 6 sweeps or none,
                     ``max_steps`` in {1, 2, 24}, with edgeless rows, NaN
                     seeds, zero variances and a row whose mix is NaN: mean,
-                    variance, ``iters_run`` and ``residual`` bit-equal.
+                    variance, ``iters_run`` and ``residual`` bit-equal, and
+                    one launch a call.
 6. ``partials_check`` ``onepass_partials`` against its plain version on
                     the card: float32 and float64, every combination of the
                     views and bands stages, K_loc in {1, 3, 4, 16},
@@ -66,7 +73,8 @@ Phases, one JSON line each:
                     ``InferenceOptions(tol=1e-5, max_steps=24)``. Two
                     chained 20-step ``settle_with_analytics`` calls: the
                     ``bp_sweep`` launch count must rise by exactly
-                    ``max_steps + 1`` per call, each call's sweep must be
+                    ``launches_per_call(max_steps)`` (one) per call, each
+                    call's sweep must be
                     bit-equal to the plain version on that call's seeds and
                     its projection to ``MarketBlocks.project`` of it, every
                     event's projected means must sum to 1 within 1e-6, and
@@ -99,13 +107,21 @@ Phases, one JSON line each:
                     settle's inputs (every row exists: the steady state)
                     and, under ``cold``, on the first settle's (no row
                     exists yet); ``onepass_settle`` on the chained analytics
-                    call's inputs, and under ``stages_off_ms`` the same
-                    launch with the tie-break and bands off; ``bp_sweep``
+                    call's inputs, and under ``stages_off_ms``,
+                    ``tiebreak_only_ms`` and ``bands_only_ms`` the same
+                    launch with both analytics stages off or one of them
+                    on; ``bp_sweep``
                     on the chained inference call's seeds (its time per
-                    call of ``max_steps + 1`` launches, the bound for the
+                    call of one cooperative launch, the bound for the
                     sweeps that ran); ``onepass_partials`` on the sharded
                     path's chained call (``ms`` one call's 4 launches, also
                     per launch; ``merge_ms`` the eager cross-shard merge).
+                    The ``bp_sweep`` and ``onepass_settle`` entries also
+                    carry ``launches_per_call`` and ptxas' registers, stack
+                    frame and spills from the build log (for the one-pass
+                    kernel, of the instantiation the path's K takes).
+                    ``build`` fails if the log lacks any entry function of
+                    the two kernels.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -428,6 +444,33 @@ def main() -> int:
     # 2. build: one nvcc per source, started together.
     start = time.perf_counter()
     built = cuda_build.build_all()
+    # ptxas' figures per source and entry function. The redesigned kernels
+    # keep no stack frame and spill nothing: both lanes of the sweep and
+    # every register-tree depth of the one-pass kernel (its wider
+    # instantiation, "Lin1E", keeps the run-time stack and spills nothing).
+    ptxas = {source.name: cuda_build.ptxas_report(log)
+             for source, (_library, log) in zip(cuda_build.SOURCES, built)}
+    # Every entry function of the two kernels must be reported: both lanes
+    # of the sweep, and each float32 and float64 depth of the one-pass
+    # kernel (0 to 6, and -1 mangled "n1").
+    expected = {
+        "bp_sweep.cu": [f"bp_sweep_kernelILb{lane}E" for lane in (0, 1)],
+        "onepass_settle.cu": [f"onepass_settle_kernelI{t}Li{d}E"
+                              for t in "fd" for d in [*range(7), "n1"]],
+    }
+    for source, entries in expected.items():
+        for entry in entries:
+            found = [figures for name, figures in ptxas[source].items()
+                     if entry in name and "stack_bytes" in figures]
+            if not found:
+                raise AssertionError(f"ptxas reported no figures for {entry} "
+                                     f"in {source}")
+    for name, figures in {**ptxas["bp_sweep.cu"],
+                          **ptxas["onepass_settle.cu"]}.items():
+        if (figures.get("stack_bytes") and "Lin1E" not in name) \
+                or figures.get("spill_stores") or figures.get("spill_loads"):
+            raise AssertionError(f"ptxas: {name} has a stack frame or spills: "
+                                 f"{figures}")
     emit("build", seconds=time.perf_counter() - start,
          libraries=[os.path.relpath(library) for library, _log in built],
          ptxas=[line for _library, log in built for line in log.splitlines()
@@ -459,7 +502,7 @@ def main() -> int:
         torch.float64: [(False, True), (False, False)],
     }
     for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
-        for num_slots in (1, 5, 16, 40):
+        for num_slots in (1, 5, 16, 17, 33, 40, 64, 65):
             case = block_case(rng, num_slots, 1037, np_dtype, 600.0)
 
             def t(x, dt=None):
@@ -508,10 +551,15 @@ def main() -> int:
                     what = f"bp D={degree} {lane} tol={tol} max_steps={max_steps}"
                     want = bp_kernel.bp_sweep_reference(
                         *args, max_steps=max_steps, tol=tol, **sweep)
+                    bp_kernel.LAUNCHES = 0
                     got = bp_kernel.bp_sweep(
                         *args, max_steps=max_steps, tol=tol, **sweep)
                     torch.cuda.synchronize()
                     compare_sweep(got, want, what)
+                    if bp_kernel.LAUNCHES != bp_kernel.launches_per_call(max_steps):
+                        raise AssertionError(
+                            f"{what}: {bp_kernel.LAUNCHES} launches, expected "
+                            f"{bp_kernel.launches_per_call(max_steps)}")
                     stops.add(int(got[2]))
                     cases += 1
     emit("bp_check", cases=cases, markets=1037, degrees=[1, 2, 8, 33],
@@ -1168,14 +1216,19 @@ def main() -> int:
         lambda a: onepass_kernel.onepass_settle_reference(*a, **stages),
         prepare_onepass, warmup=1, runs=5,
     )
-    # The same launch with both analytics stages off: what the tie-break
-    # and the bands add to the settle.
-    bare = dict(stages, with_tiebreak=False, with_bands=False)
-    onepass_bare_ms = time_cuda(
-        lambda a: onepass_kernel.onepass_settle(*a, **bare), prepare_onepass,
-        warmup=3, runs=21,
-    )
+    # The same launch with both analytics stages off, and with one of them
+    # on: what the tie-break and the bands each add to the settle.
+    stage_ms = {}
+    for label, tiebreak_on, bands_on in (("stages_off_ms", False, False),
+                                         ("tiebreak_only_ms", True, False),
+                                         ("bands_only_ms", False, True)):
+        only = dict(stages, with_tiebreak=tiebreak_on, with_bands=bands_on)
+        stage_ms[label] = time_cuda(
+            lambda a, only=only: onepass_kernel.onepass_settle(*a, **only),
+            prepare_onepass, warmup=3, runs=21,
+        )
     mask_d, state = inputs[1], inputs[3]
+    depth = max(int(mask_d.shape[0]) - 1, 0).bit_length()
     onepass_bound = onepass_kernel.bound_bytes(
         plan.num_slots, MARKETS, int(mask_d.sum()),
         int((state.exists & mask_d).sum()), STEPS, 4,
@@ -1194,7 +1247,14 @@ def main() -> int:
         "bound_by": "bytes",
         "bound_bytes": onepass_bound,
         "library_ms": None,
-        "stages_off_ms": onepass_bare_ms,
+        **stage_ms,
+        "launches_per_call": 1,
+        # ptxas' figures of the float32 instantiation the path's K takes:
+        # band-tree depth log2(pow2_at_least(K)).
+        "band_tree_depth": depth,
+        "ptxas": next((figures for name, figures
+                       in ptxas["onepass_settle.cu"].items()
+                       if f"onepass_settle_kernelIfLi{depth}E" in name), None),
     }
     # bp_sweep on the chained inference call's seeds; the kernel leaves its
     # inputs untouched, so every run takes the same ones.
@@ -1221,6 +1281,8 @@ def main() -> int:
         "library_ms": None,
         "iters_run": bp_iters,
         "launches_per_call": per_call,
+        "ptxas": {("moments" if "ILb1E" in name else "point"): figures
+                  for name, figures in ptxas["bp_sweep.cu"].items()} or None,
     }
     # onepass_partials on the sharded path's chained call: its 4 launches
     # (one a shard), each on fresh copies of that shard's state.

@@ -15,9 +15,11 @@ the kernel against the plain version on the card, over the cases
 point lane with either blend contraction and the moments lane; fixed and
 adaptive depth, the tolerance reached after 1, 5 or all of the sweeps;
 ``max_steps`` in {1, 2, 24}; edgeless rows, NaN seeds,
-zero variances and a row whose mix is NaN): mean, variance, ``iters_run``
-and ``residual`` bit-equal (a NaN compares as NaN). They skip where there
-is no card.
+zero variances and a row whose mix is NaN), and at 300,000 rows (more
+than one wave of the persistent grid) on every lane, with early exits
+after 1 and 6 sweeps and at fixed depth 24: mean, variance, ``iters_run``
+and ``residual`` bit-equal (a NaN compares as NaN), one launch a call.
+They skip where there is no card.
 """
 
 import numpy as np
@@ -79,7 +81,8 @@ def test_bound_bytes_counts_each_byte_once():
 
 
 def test_launches_per_call():
-    assert [bp_kernel.launches_per_call(n) for n in (0, 1, 2, 24)] == [0, 2, 3, 25]
+    # One cooperative launch runs every sweep of a call; none at depth 0.
+    assert [bp_kernel.launches_per_call(n) for n in (0, 1, 2, 24)] == [0, 1, 1, 1]
 
 
 def test_every_kernel_source_is_registered():
@@ -87,6 +90,58 @@ def test_every_kernel_source_is_registered():
     assert partials_kernel.SOURCE in cuda_build.SOURCES
     assert len(cuda_build.SOURCES) == 4
     assert all(source.is_file() for source in cuda_build.SOURCES)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelILi4EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi4EEvPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 0 barriers, 360 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z6kernelILin1EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILin1EEvPf
+    544 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 47 registers, used 0 barriers, 544 bytes cumulative stack size
+"""
+
+
+def test_ptxas_report_reads_each_entry_function():
+    assert cuda_build.ptxas_report(PTXAS_LOG) == {
+        "_Z6kernelILi4EEvPf": dict(
+            stack_bytes=0, spill_stores=0, spill_loads=0, registers=62),
+        "_Z6kernelILin1EEvPf": dict(
+            stack_bytes=544, spill_stores=4, spill_loads=8, registers=47),
+    }
+    assert cuda_build.ptxas_report("") == {}
+
+
+def test_a_reused_build_returns_its_log(tmp_path, monkeypatch):
+    """The build log is kept beside the library: a second build of the
+    same source compiles nothing and returns the first build's log; a
+    library found without its log is built again."""
+    nvcc = tmp_path / "nvcc"
+    calls = tmp_path / "calls"
+    # A stand-in compiler: writes the -o file, prints a log, counts calls.
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo x >> {calls}\n"
+        'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n'
+        f"cat <<'EOF'\n{PTXAS_LOG}EOF\n"
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    source = tmp_path / "kernel.cu"
+    source.write_text("// a kernel\n")
+    (library, first), = cuda_build.build(source)
+    (again, second), = cuda_build.build(source)
+    assert library == again and library.read_text() == "lib\n"
+    assert first == second == PTXAS_LOG
+    assert calls.read_text() == "x\n"
+    library.with_suffix(".log").unlink()
+    (_library, third), = cuda_build.build(source)
+    assert third == PTXAS_LOG
+    assert calls.read_text() == "x\nx\n"
 
 
 def test_plain_version_only_for_cpu_tensors(monkeypatch):
@@ -208,7 +263,7 @@ def test_cuda_kernel_matches_plain_version(cuda_device, degree, lane):
             launches = bp_kernel.LAUNCHES
             got = bp_kernel.bp_sweep(*args, **sweep)
             torch.cuda.synchronize()
-            assert bp_kernel.LAUNCHES == launches + max_steps + 1, what
+            assert bp_kernel.LAUNCHES == launches + 1, what
             for field, a, b in zip(("mean", "var", "iters", "residual"), got, want):
                 if b is None:
                     assert a is None, what
@@ -218,6 +273,36 @@ def test_cuda_kernel_matches_plain_version(cuda_device, degree, lane):
                     assert_bits(a, b, f"{what} {field}")
             for before, after in zip(seeds, (x for x in args if x is not None)):
                 assert_bits(after, before, f"{what}: an input changed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+@pytest.mark.parametrize("stop", ["after_1", "after_6", "fixed_24"])
+def test_cuda_kernel_beyond_one_wave(cuda_device, lane, stop):
+    """300,000 rows: each thread of the persistent grid walks several rows
+    a sweep, and the early exit must stop every block at the same sweep."""
+    moments, keep_fma = LANES[lane]
+    case = bp_case(21, 300_000, 5)
+    args = case_tensors(case, moments, cuda_device)
+    sweep = dict(damping=0.3, keep_fma=keep_fma)
+    tol, expected = {
+        "after_1": (10.0, 1),
+        "after_6": (mid_tol(args, keep_fma, depth=6), 6),
+        "fixed_24": (None, 24),
+    }[stop]
+    want = bp_kernel.bp_sweep_reference(*args, max_steps=24, tol=tol, **sweep)
+    assert int(want[2]) == expected
+    launches = bp_kernel.LAUNCHES
+    got = bp_kernel.bp_sweep(*args, max_steps=24, tol=tol, **sweep)
+    torch.cuda.synchronize()
+    assert bp_kernel.LAUNCHES == launches + 1
+    assert got[2].dtype == torch.int32 and int(got[2]) == expected
+    for field, a, b in zip(("mean", "var", "residual"),
+                           (got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        if b is None:
+            assert a is None
+        else:
+            assert_bits(a, b, f"{lane} {stop} {field}")
 
 
 @pytest.mark.cuda

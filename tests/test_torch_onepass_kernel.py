@@ -9,7 +9,10 @@ The plain version (``onepass_settle_reference``) is held here against its
 own parts and its chunk knobs; ``tests/test_torch_analytics_math.py`` and
 ``tests/test_torch_session.py`` hold those parts against the JAX package.
 The ``cuda`` cases hold the kernel against the plain version on the card,
-on the cases ``chip_smoke.py``'s ``onepass_check`` uses: state, tie-break
+on the cases ``chip_smoke.py``'s ``onepass_check`` uses and on K = 2, 15,
+32, 100, 200 and 1000 (every band-tree depth, every block size of the
+tie-break's shared memory, and the pairs from device memory beyond
+K = 64): state, tie-break
 and band moments bit-equal, consensus within rtol=1e-5, atol=1e-6
 (float32) or rtol=1e-12 (float64), NaNs in the same places. They skip
 where there is no card.
@@ -178,7 +181,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_slots", [1, 5, 16, 40])
+# Every band-tree depth (K = 1, 2, 5, 15 and 16, 17, 32, 33 and 64 in
+# registers; 65 and up the run-time stack) and every block size of the
+# tie-break's shared memory, 8 bytes a slot a thread: 256 threads up to
+# K = 24, 128 up to 48, 64 up to 64; beyond, the pairs come from device
+# memory (K = 65, 100, 200).
+@pytest.mark.parametrize(
+    "num_slots", [1, 2, 5, 15, 16, 17, 32, 33, 40, 64, 65, 100, 200])
 @pytest.mark.parametrize("name", ["f32", "f64"])
 def test_cuda_kernel_matches_plain_version(cuda_device, name, num_slots):
     np_dtype, torch_dtype = DTYPES[name]
@@ -212,6 +221,42 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, num_slots):
             np.testing.assert_array_equal(np.isnan(got_c), np.isnan(want_c))
             np.testing.assert_allclose(got_c, want_c, equal_nan=True,
                                        err_msg=what, **TOL[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 2, 20])
+def test_cuda_kernel_matches_plain_version_at_a_thousand_slots(cuda_device, steps):
+    """K = 1,000 in float32, every stage combination: the wide
+    instantiation takes the tie-break's pairs from device memory, so no K
+    is refused. State, tie-break and band moments bit-equal; the
+    consensus, a slot-order float32 sum of ~700 terms a market that the
+    plain version adds in another order, within rtol=1e-4."""
+    case = block_case(10, 1000, 300, np.float32)
+    for with_tiebreak, with_bands in STAGES["f32"]:
+        what = f"K=1000 steps={steps} stages={with_tiebreak, with_bands}"
+        probs, mask, outcome, state = case_args(case, torch.float32, cuda_device)
+        stages = dict(with_tiebreak=with_tiebreak, with_bands=with_bands)
+        want = onepass_kernel.onepass_settle_reference(
+            probs, mask, outcome, state, NOW0, steps, **stages)
+        launches = onepass_kernel.LAUNCHES
+        got = onepass_kernel.onepass_settle(
+            probs, mask, outcome, MarketBlockState(*(x.clone() for x in state)),
+            NOW0, steps, **stages)
+        torch.cuda.synchronize()
+        assert onepass_kernel.LAUNCHES == launches + 1
+        for field, a, b in zip(state._fields, got.state, want.state):
+            _equal(a, b, f"{what} {field}")
+        if with_tiebreak:
+            for field, a, b in zip(want.tiebreak._fields, got.tiebreak,
+                                   want.tiebreak):
+                _equal(a, b, f"{what} {field}")
+        if with_bands:
+            _equal(got.band_sums, want.band_sums, f"{what} band sums")
+            _equal(got.band_count, want.band_count, f"{what} band count")
+        got_c, want_c = got.consensus.cpu().numpy(), want.consensus.cpu().numpy()
+        np.testing.assert_array_equal(np.isnan(got_c), np.isnan(want_c))
+        np.testing.assert_allclose(got_c, want_c, rtol=1e-4, atol=1e-6,
+                                   equal_nan=True, err_msg=what)
 
 
 @pytest.mark.cuda
