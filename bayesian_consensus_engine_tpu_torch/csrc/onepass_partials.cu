@@ -12,7 +12,9 @@
 // Layout. Slot k of market m sits at k * M + m. One thread owns one market
 // and walks its K_loc slots in order, so adjacent threads touch adjacent
 // addresses (coalesced); each slot is read and written by that thread only,
-// so the state is updated in place.
+// so the state is updated in place. Up to K_loc = 64 the thread first loads
+// its K_loc mask and exists bytes together into two 64-bit register masks,
+// so those loads are all in flight at once.
 //
 // Per market, in one pass over its slots:
 //   1. (views) the decayed read of the PRE-update state at now0
@@ -22,10 +24,16 @@
 //      exact. Each view is computed from the slot's state before the step
 //      loop below overwrites it;
 //   2. (bands) the four f32 moments of each masked slot's read weight enter
-//      the per-thread binary-counter stack of band_tree.cuh: the
+//      the per-thread binary-counter tree of band_tree.cuh: the
 //      adjacent-pair tree over pow2_at_least(K_loc) LOCAL leaves, so every
 //      chunk_slots gives the same bits and the merge's tree over the shards'
-//      roots rebuilds the global tree when K_loc is a power of two;
+//      roots rebuilds the global tree when K_loc is a power of two. The
+//      kernel is instantiated per depth log2(pow2_at_least(K_loc)) up to 6
+//      (K_loc <= 64) with the tree's levels in registers
+//      (RegisterBandTree); a wider K_loc takes the run-time stack
+//      (BandTree, local memory). Both push the same leaves in the same
+//      order, padding leaves included, so the association and the bits are
+//      the same;
 //   3. the slot's whole `steps`-step loop in registers (settle_math.cuh),
 //      the state written in place, and the LAST step's weight w, w*p and
 //      w*conf (conf as that step reads it) added in slot order.
@@ -52,8 +60,13 @@
 // the settled reliability, confidence and stamp of every masked slot
 // written (exists only where it turns true) and the outcome read; per
 // market the three raw sums and the five band values written.
-// ops/partials_kernel.py::bound_bytes counts exactly that. Nothing else
-// crosses device memory: no scratch block, no tie-break inside.
+// ops/partials_kernel.py::bound_bytes counts exactly that. Beyond it, up
+// to K_loc = 64, the kernel reads the exists byte of every slot (with the
+// views off the bound counts only the masked slots'). Nothing else crosses
+// device memory up to K_loc = 64: no scratch block, no tie-break inside,
+// the band tree in registers.
+
+#include <type_traits>
 
 #include "band_tree.cuh"
 #include "settle_math.cuh"
@@ -61,11 +74,17 @@
 namespace {
 
 using band_tree::BandTree;
+using band_tree::RegisterBandTree;
 using namespace settle_math;
 
 constexpr int kThreads = 256;
+constexpr int kMaxRegisterDepth = 6;  // K_loc <= 64: one 64-bit mask
 
-template <typename T>
+// kDepth: log2 of pow2_at_least(K_loc) when it is at most
+// kMaxRegisterDepth (the band tree in registers, the mask and exists bytes
+// in register masks), or -1 for a wider K_loc (the run-time stack, the
+// bytes read slot by slot).
+template <typename T, int kDepth>
 __global__ void __launch_bounds__(kThreads) onepass_partials_kernel(
     const T* __restrict__ probs,          // (K, M)
     const uint8_t* __restrict__ mask,     // (K, M) bool
@@ -79,10 +98,16 @@ __global__ void __launch_bounds__(kThreads) onepass_partials_kernel(
     int32_t* __restrict__ band_count,     // (M,), bands on
     T* __restrict__ read_rel,             // (K, M), views on
     T* __restrict__ read_conf,            // (K, M), views on
+    int32_t* __restrict__ depth_out,      // (1,) or null: receives kDepth
     T now0, int64_t num_slots, int64_t num_markets, int64_t steps,
     bool with_views, bool with_bands) {
+  constexpr bool kRegisters = kDepth >= 0;
+  using Tree = typename std::conditional<
+      kRegisters, RegisterBandTree<kRegisters ? kDepth : 0>, BandTree>::type;
   const int64_t m = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (m >= num_markets) return;
+  // The instantiation this launch runs, for a caller that asks.
+  if (depth_out != nullptr && m == 0) *depth_out = kDepth;
   const bool outcome_m = steps > 0 && outcome[m] != 0;
   const StepTimes<T> times = step_times(now0, steps > 0 ? steps : 1);
 
@@ -90,16 +115,31 @@ __global__ void __launch_bounds__(kThreads) onepass_partials_kernel(
   T weighted_prob = T(0);
   T weighted_conf = T(0);
   int32_t valid_count = 0;
-  BandTree tree;
+  Tree tree;
+
+  uint64_t valid_bits = 0;
+  uint64_t exists_bits = 0;
+  if constexpr (kRegisters) {
+    // The market's mask and exists bytes, all loads in flight at once.
+#pragma unroll
+    for (int k = 0; k < (1 << kDepth); ++k) {
+      if (k < num_slots) {
+        const int64_t idx = k * num_markets + m;
+        if (mask[idx]) valid_bits |= uint64_t{1} << k;
+        if (exists[idx]) exists_bits |= uint64_t{1} << k;
+      }
+    }
+  }
 
   for (int64_t k = 0; k < num_slots; ++k) {
     const int64_t idx = k * num_markets + m;
-    const bool valid = mask[idx] != 0;
+    const bool valid = kRegisters ? ((valid_bits >> k) & 1) != 0 : mask[idx] != 0;
     if (!valid && !with_views) {
       if (with_bands) tree.push(0.0f, 0.0f, 0.0f, 0.0f);
       continue;
     }
-    const bool existed = exists[idx] != 0;
+    const bool existed =
+        kRegisters ? ((exists_bits >> k) & 1) != 0 : exists[idx] != 0;
     // make_loop_math's sanitise: a cold slot starts from the prior.
     T r = T(kDefaultReliability);
     T c = T(kDefaultConfidence);
@@ -150,24 +190,45 @@ __global__ void __launch_bounds__(kThreads) onepass_partials_kernel(
   }
 }
 
+// The kernel of K_loc's band-tree depth. A launch given `depth_out`
+// writes there the depth it ran (-1: the stack tree), so a caller can
+// see which instantiation settled its shard.
+template <typename T>
+auto kernel_for(int64_t num_slots) -> decltype(&onepass_partials_kernel<T, -1>) {
+  int depth = 0;
+  while ((int64_t{1} << depth) < num_slots) ++depth;
+  static_assert(kMaxRegisterDepth == 6, "one case per register depth");
+  switch (depth) {
+    case 0: return onepass_partials_kernel<T, 0>;
+    case 1: return onepass_partials_kernel<T, 1>;
+    case 2: return onepass_partials_kernel<T, 2>;
+    case 3: return onepass_partials_kernel<T, 3>;
+    case 4: return onepass_partials_kernel<T, 4>;
+    case 5: return onepass_partials_kernel<T, 5>;
+    case 6: return onepass_partials_kernel<T, 6>;
+    default: return onepass_partials_kernel<T, -1>;
+  }
+}
+
 template <typename T>
 int launch(const void* probs, const void* mask, const void* outcome,
            void* rel, void* conf, void* days, void* exists, void* csums,
            void* band_sums, void* band_count, void* read_rel, void* read_conf,
-           double now0, int64_t num_slots, int64_t num_markets, int64_t steps,
-           int with_views, int with_bands, void* stream) {
+           void* depth_out, double now0, int64_t num_slots,
+           int64_t num_markets, int64_t steps, int with_views, int with_bands,
+           void* stream) {
   if (num_markets > 0) {
     const int64_t blocks = (num_markets + kThreads - 1) / kThreads;
-    onepass_partials_kernel<T><<<static_cast<unsigned int>(blocks), kThreads,
-                                 0, static_cast<cudaStream_t>(stream)>>>(
+    kernel_for<T>(num_slots)<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(probs), static_cast<const uint8_t*>(mask),
         static_cast<const uint8_t*>(outcome), static_cast<T*>(rel),
         static_cast<T*>(conf), static_cast<T*>(days),
         static_cast<uint8_t*>(exists), static_cast<T*>(csums),
         static_cast<float*>(band_sums), static_cast<int32_t*>(band_count),
         static_cast<T*>(read_rel), static_cast<T*>(read_conf),
-        static_cast<T>(now0), num_slots, num_markets, steps, with_views != 0,
-        with_bands != 0);
+        static_cast<int32_t*>(depth_out), static_cast<T>(now0), num_slots,
+        num_markets, steps, with_views != 0, with_bands != 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -177,13 +238,13 @@ int launch(const void* probs, const void* mask, const void* outcome,
 extern "C" int onepass_partials_f32(
     const void* probs, const void* mask, const void* outcome, void* rel,
     void* conf, void* days, void* exists, void* csums, void* band_sums,
-    void* band_count, void* read_rel, void* read_conf, double now0,
-    int64_t num_slots, int64_t num_markets, int64_t steps, int with_views,
-    int with_bands, void* stream) {
+    void* band_count, void* read_rel, void* read_conf, void* depth_out,
+    double now0, int64_t num_slots, int64_t num_markets, int64_t steps,
+    int with_views, int with_bands, void* stream) {
   return launch<float>(probs, mask, outcome, rel, conf, days, exists, csums,
-                       band_sums, band_count, read_rel, read_conf, now0,
-                       num_slots, num_markets, steps, with_views, with_bands,
-                       stream);
+                       band_sums, band_count, read_rel, read_conf, depth_out,
+                       now0, num_slots, num_markets, steps, with_views,
+                       with_bands, stream);
 }
 
 // float64 state: the views and raw sums are float64, the band moments
@@ -191,11 +252,11 @@ extern "C" int onepass_partials_f32(
 extern "C" int onepass_partials_f64(
     const void* probs, const void* mask, const void* outcome, void* rel,
     void* conf, void* days, void* exists, void* csums, void* band_sums,
-    void* band_count, void* read_rel, void* read_conf, double now0,
-    int64_t num_slots, int64_t num_markets, int64_t steps, int with_views,
-    int with_bands, void* stream) {
+    void* band_count, void* read_rel, void* read_conf, void* depth_out,
+    double now0, int64_t num_slots, int64_t num_markets, int64_t steps,
+    int with_views, int with_bands, void* stream) {
   return launch<double>(probs, mask, outcome, rel, conf, days, exists, csums,
-                        band_sums, band_count, read_rel, read_conf, now0,
-                        num_slots, num_markets, steps, with_views, with_bands,
-                        stream);
+                        band_sums, band_count, read_rel, read_conf, depth_out,
+                        now0, num_slots, num_markets, steps, with_views,
+                        with_bands, stream);
 }

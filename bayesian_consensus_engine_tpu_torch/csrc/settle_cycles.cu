@@ -6,19 +6,55 @@
 // wraps around the cycle. Its plain version, which it is held against, is
 // ops/settle_kernel.py::settle_cycles_reference.
 //
-// Layout. The plan block is slot-major (K, M): slot k of market m sits at
-// k * M + m. One thread owns one market and walks its K slots in order
-// 0 .. K-1, so adjacent threads read adjacent plan columns (coalesced),
-// while the flat state is gathered and scattered through slot_rows.
-//
 // Why the whole step loop runs inside each slot. Slots of one market meet
 // only in the consensus sums, and only the LAST step's consensus is kept
 // (make_loop_math discards the middle ones). The state update reads the
 // undecayed value and never the consensus. So each slot can run its own
-// steps - 1 updates in registers, add its last-step weight to the market's
-// sums, run the last update and scatter: the result is the same as
-// stepping the whole block, device-memory traffic does not grow with
-// steps, and no K is too large (no per-market array, no scratch).
+// steps - 1 updates in registers, give its last-step weight to the
+// market's sums, run the last update and scatter: the result is the same
+// as stepping the whole block, and device-memory traffic does not grow
+// with steps.
+//
+// Layout: one lane per masked slot. The plan block is slot-major (K, M):
+// slot k of market m sits at k * M + m. A block takes a tile of 256
+// consecutive markets, one a thread, in three passes:
+//   (a) one thread per market reads its K mask bytes (adjacent threads,
+//       adjacent bytes: coalesced) and copies each masked slot's row index,
+//       probability and the market's outcome into the block's shared stage,
+//       in market-major, slot-ascending order: slot j of market m at
+//       touched_offsets[m] - touched_offsets[m0] + j, the order rel_touched
+//       is written in;
+//   (b) one thread per staged slot gathers its row's state, runs its whole
+//       step loop (settle_slot, settle_math.cuh), scatters the state and
+//       writes rel_touched[t] at consecutive t. A plan interns a market's
+//       rows next to each other, so the gather and scatter through the rows
+//       are nearly contiguous too. Its last-step weight w and w*p go back
+//       to the stage;
+//   (c) one thread per market adds its slots' w and w*p from the stage in
+//       slot order from 0 with add_rn, as the per-market walk does, so the
+//       consensus has the walk's bits.
+// What this buys is coalescing. With one thread per market walking its K
+// slots (the layout before), a warp's stores at one slot (the state rows,
+// rel_touched) fell about four elements apart. The idle lanes of that
+// layout's step loop cost nothing measurable: on an H100 a 1-step settle
+// took what a 20-step one did (PERF.md, section 6).
+//
+// No ceiling on K. The stage holds `stage_slots` slots of 2 * sizeof(T) + 5
+// bytes (w and the probability, then w*p; the row index; the outcome), at
+// most 48 KB, the default a block may use without an opt-in. launch() sizes
+// it for a typical tile from the launch's own counts (stage_slots_for):
+// 1.25 times the plan's mean masked slots a market over the tile's 256
+// markets, plus 32, so that a tile of a Poisson plan rarely overflows it
+// (f32 at 4 slots a market: 1,312 slots, 17 KB, so the stage does not cut
+// the SM's blocks below what its threads allow). A tile with more masked
+// slots than the stage holds takes the wide route: the per-market walk, one
+// thread per market over its K slots, which needs no shared memory. Both
+// routes run in the same launch; the route is a tile's, the same for every
+// thread of the block. A plan of many slots a market (more than ~11 in f32)
+// sends most tiles down the wide route, which is the one-thread-a-market
+// kernel this design replaced. A launch given `routes` counts its tiles
+// there by route and writes the stage's size, so a caller sees which route
+// ran.
 //
 // In place. Every real (mask=true) slot of a plan owns a distinct flat row
 // (the builders intern one row per (source, market) pair and markets are
@@ -27,17 +63,20 @@
 // them bit-identical, which leaves their rows as they were.
 //
 // Numerics. The per-slot math lives in settle_math.cuh (shared with
-// onepass_settle.cu): stored reliability, confidence, stamp and existence
-// are bit-equal to the plain version's. Only the consensus differs: exp2
-// comes from CUDA's math library and the K-sum runs in slot order.
+// onepass_settle.cu and onepass_partials.cu): stored reliability,
+// confidence, stamp and existence are bit-equal to the plain version's.
+// Only the consensus differs: exp2 comes from CUDA's math library and the
+// K-sum runs in slot order. The step loop's counter is 32-bit (a 64-bit
+// instantiation takes steps beyond 2^31 - 1).
 //
 // Bound. Device-memory bytes: per plan slot the mask is read; per real
 // slot its row index, probability and its row's exists are read, the row's
 // rel and conf only if it exists (and its stamp when steps == 1), and rel,
 // conf, stamp and rel_touched are written (exists only where it turns
 // true); per market the outcome and its rel_touched offset are read and
-// the consensus written. The random row gather is what will
-// hold the kernel back: each 4- or 8-byte access pulls a 32-byte sector.
+// the consensus written.
+
+#include <cmath>
 
 #include "settle_math.cuh"
 
@@ -46,74 +85,238 @@ namespace {
 using namespace settle_math;
 
 constexpr int kThreads = 256;
+constexpr size_t kSharedBytes = 48 * 1024;  // without an opt-in
+
+// The stage's bytes a slot: w and (probability, then w*p) in T, the row
+// index, the outcome.
+template <typename T>
+constexpr size_t stage_bytes_per_slot() {
+  return 2 * sizeof(T) + sizeof(int32_t) + 1;
+}
+
+// The stage's slots: 1.25 times a tile's mean masked slots, plus 32,
+// rounded up to 32, and no more than kSharedBytes holds.
+template <typename T>
+int stage_slots_for(int64_t num_markets, int64_t num_touched) {
+  const double mean =
+      static_cast<double>(num_touched) / static_cast<double>(num_markets);
+  const int64_t need =
+      static_cast<int64_t>(std::ceil(kThreads * mean * 1.25)) + 32;
+  const int64_t rounded = (need + 31) / 32 * 32;
+  const int64_t capacity = kSharedBytes / stage_bytes_per_slot<T>();
+  return static_cast<int>(rounded < capacity ? rounded : capacity);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) settle_cycles_kernel(
-    const int32_t* __restrict__ slot_rows,      // (K, M), -1 = pad
-    const T* __restrict__ probs,                // (K, M)
-    const uint8_t* __restrict__ mask,           // (K, M) bool
-    const uint8_t* __restrict__ outcome,        // (M,) bool
-    const int64_t* __restrict__ touched_offsets,  // (M + 1,)
-    T* __restrict__ rel,                        // (capacity,) in place
-    T* __restrict__ conf,
-    T* __restrict__ days,
-    uint8_t* __restrict__ exists,
-    T* __restrict__ consensus,                  // (M,)
-    T* __restrict__ rel_touched,                // (num_touched,)
-    T now0, int64_t num_slots, int64_t num_markets, int64_t steps) {
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (m >= num_markets) return;
-  int64_t t = touched_offsets[m];
+struct Stage {
+  T* w;
+  T* wp;
+  int32_t* row;
+  uint8_t* outcome;
 
+  __device__ __forceinline__ Stage(unsigned char* base, int slots)
+      : w(reinterpret_cast<T*>(base)),
+        wp(reinterpret_cast<T*>(base) + slots),
+        row(reinterpret_cast<int32_t*>(base + 2 * sizeof(T) * slots)),
+        outcome(base + (2 * sizeof(T) + sizeof(int32_t)) * slots) {}
+};
+
+template <typename T>
+struct Plan {
+  const int32_t* __restrict__ slot_rows;      // (K, M), -1 = pad
+  const T* __restrict__ probs;                // (K, M)
+  const uint8_t* __restrict__ mask;           // (K, M) bool
+  const uint8_t* __restrict__ outcome;        // (M,) bool
+  const int64_t* __restrict__ touched_offsets;  // (M + 1,)
+  int64_t num_slots, num_markets;
+};
+
+template <typename T>
+struct FlatState {
+  T* __restrict__ rel;                        // (capacity,) in place
+  T* __restrict__ conf;
+  T* __restrict__ days;
+  uint8_t* __restrict__ exists;
+};
+
+// One masked slot: gather its row (a pad row -1 reads the cold-start
+// defaults), settle `steps` cycles, scatter, and return the last step's
+// read weight; `rel_out` receives the settled reliability. With steps == 0
+// the state stays and the stored reliability is returned through rel_out.
+template <typename T, typename Steps>
+__device__ __forceinline__ T settle_one(const FlatState<T>& s, int32_t row,
+                                        T p, bool outcome, Steps steps,
+                                        const StepTimes<T>& times, T& rel_out) {
   if (steps == 0) {
-    // Nothing settles: the state stays, the consensus is zero, and the
-    // touched reliabilities are the stored ones.
-    for (int64_t k = 0; k < num_slots; ++k) {
-      const int64_t idx = k * num_markets + m;
-      if (!mask[idx]) continue;
-      const int32_t row = slot_rows[idx];
-      rel_touched[t++] = row >= 0 ? rel[row] : T(kDefaultReliability);
-    }
-    consensus[m] = T(0);
-    return;
+    rel_out = row >= 0 ? s.rel[row] : T(kDefaultReliability);
+    return T(0);
   }
+  // Gather, then make_loop_math's one-time sanitise of cold slots.
+  bool existed = false;
+  T r = T(kDefaultReliability);
+  T c = T(kDefaultConfidence);
+  T d = T(0);
+  if (row >= 0 && s.exists[row]) {
+    existed = true;
+    r = s.rel[row];
+    c = s.conf[row];
+    if (steps == 1) d = s.days[row];  // only step 0's read needs the stamp
+  }
+  const T weight = settle_slot(r, c, d, p, outcome, steps, times);
+  if (row >= 0) {
+    s.rel[row] = r;
+    s.conf[row] = c;
+    s.days[row] = times.now_last;
+    if (!existed) s.exists[row] = 1;
+  }
+  rel_out = r;
+  return weight;
+}
 
-  const bool outcome_m = outcome[m] != 0;
-  const StepTimes<T> times = step_times(now0, steps);
+// The market's consensus from its last-step sums (0 when nothing settles).
+template <typename T, typename Steps>
+__device__ __forceinline__ T consensus_of(T total_weight, T weighted_prob,
+                                          Steps steps) {
+  if (steps == 0) return T(0);
+  return total_weight != T(0) ? weighted_prob / total_weight : T(NAN);
+}
 
-  T total_weight = T(0);
-  T weighted_prob = T(0);
-  for (int64_t k = 0; k < num_slots; ++k) {
-    const int64_t idx = k * num_markets + m;
-    if (!mask[idx]) continue;  // zero weight, state untouched
-    const int32_t row = slot_rows[idx];
-
-    // Gather, then make_loop_math's one-time sanitise of cold slots.
-    bool existed = false;
-    T r = T(kDefaultReliability);
-    T c = T(kDefaultConfidence);
-    T d = T(0);
-    if (row >= 0 && exists[row]) {
-      existed = true;
-      r = rel[row];
-      c = conf[row];
-      if (steps == 1) d = days[row];  // only step 0's read needs the stamp
-    }
-
-    const T p = probs[idx];
-    const T weight = settle_slot(r, c, d, p, outcome_m, steps, times);
+// The wide route: market m's K slots walked in order by one thread, its
+// last-step sums added into total_weight and weighted_prob.
+template <typename T, typename Steps>
+__device__ __forceinline__ void walk_market(const Plan<T>& plan,
+                                            const FlatState<T>& s, int64_t m,
+                                            Steps steps,
+                                            const StepTimes<T>& times,
+                                            T* __restrict__ rel_touched,
+                                            T& total_weight, T& weighted_prob) {
+  int64_t t = plan.touched_offsets[m];
+  const bool outcome_m = plan.outcome[m] != 0;
+  for (int64_t k = 0; k < plan.num_slots; ++k) {
+    const int64_t idx = k * plan.num_markets + m;
+    if (!plan.mask[idx]) continue;  // zero weight, state untouched
+    const T p = plan.probs[idx];
+    T r;
+    const T weight = settle_one(s, plan.slot_rows[idx], p, outcome_m, steps,
+                                times, r);
     total_weight = add_rn(total_weight, weight);
     weighted_prob = add_rn(weighted_prob, mul_rn(p, weight));
-
-    if (row >= 0) {
-      rel[row] = r;
-      conf[row] = c;
-      days[row] = times.now_last;
-      if (!existed) exists[row] = 1;
-    }
     rel_touched[t++] = r;
   }
-  consensus[m] = total_weight != T(0) ? weighted_prob / total_weight : T(NAN);
+}
+
+// The staged route of a tile whose tile_slots masked slots start at
+// rel_touched position t0, in three passes; the sums of market m (this
+// thread's) come back in total_weight and weighted_prob.
+template <typename T, typename Steps>
+__device__ __forceinline__ void settle_staged(
+    const Plan<T>& plan, const FlatState<T>& s, const Stage<T>& stage,
+    int64_t t0, int64_t tile_slots, int64_t m, bool owns_market,
+    Steps steps, const StepTimes<T>& times, T* __restrict__ rel_touched,
+    T& total_weight, T& weighted_prob) {
+  const int64_t num_markets = plan.num_markets;
+  // (a) stage the market's masked slots, market-major, slot-ascending.
+  int first = 0;
+  int count = 0;
+  if (owns_market) {
+    first = static_cast<int>(plan.touched_offsets[m] - t0);
+    const uint8_t outcome_m = plan.outcome[m];
+    for (int64_t k = 0; k < plan.num_slots; ++k) {
+      const int64_t idx = k * num_markets + m;
+      if (!plan.mask[idx]) continue;
+      const int pos = first + count++;
+      if (pos < tile_slots) {  // offsets that disagree with the mask
+        stage.row[pos] = plan.slot_rows[idx];
+        stage.wp[pos] = plan.probs[idx];
+        stage.outcome[pos] = outcome_m;
+      }
+    }
+  }
+  __syncthreads();
+
+  // (b) one thread a staged slot.
+  for (int j = threadIdx.x; j < tile_slots; j += kThreads) {
+    const T p = stage.wp[j];
+    T r;
+    const T weight = settle_one(s, stage.row[j], p, stage.outcome[j] != 0,
+                                steps, times, r);
+    rel_touched[t0 + j] = r;
+    stage.w[j] = weight;
+    stage.wp[j] = mul_rn(p, weight);
+  }
+  __syncthreads();
+
+  // (c) one thread a market: its sums in slot order.
+  if (owns_market) {
+    for (int j = first; j < first + count && j < tile_slots; ++j) {
+      total_weight = add_rn(total_weight, stage.w[j]);
+      weighted_prob = add_rn(weighted_prob, stage.wp[j]);
+    }
+  }
+}
+
+// Blocks an SM must be able to hold, which caps ptxas' registers a thread
+// at 65536 / (kThreads * blocks). float64 asks for 4 (64 registers): left
+// to itself ptxas gives it 48 and keeps a register on the stack around the
+// float64 division's slow-path call. float32 asks for 8 (32 registers,
+// every thread of an SM resident) with the 32-bit step counter, the main
+// path's instantiation, and 6 (42 registers) with the 64-bit one: asked
+// for only 1, ptxas gives the main path's instantiation 40 registers.
+template <typename T, typename Steps>
+constexpr int kMinBlocks = sizeof(T) == 8 ? 4 : (sizeof(Steps) == 4 ? 8 : 6);
+
+// One block a tile of kThreads consecutive markets.
+template <typename T, typename Steps>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, Steps>)
+settle_cycles_kernel(
+    Plan<T> plan, FlatState<T> s,
+    T* __restrict__ consensus,                  // (M,)
+    T* __restrict__ rel_touched,                // (num_touched,)
+    int32_t* __restrict__ routes,               // (3,) or null
+    T now0, Steps steps, int stage_slots) {
+  extern __shared__ __align__(16) unsigned char stage_bytes[];
+  const Stage<T> stage(stage_bytes, stage_slots);
+  const StepTimes<T> times = step_times(now0, steps > 0 ? steps : Steps(1));
+  const int64_t num_markets = plan.num_markets;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int64_t m_end = m0 + kThreads < num_markets ? m0 + kThreads : num_markets;
+  const int64_t t0 = plan.touched_offsets[m0];
+  const int64_t tile_slots = plan.touched_offsets[m_end] - t0;
+  const int64_t m = m0 + threadIdx.x;
+  const bool owns_market = m < m_end;
+  const bool wide = tile_slots > stage_slots;
+  if (routes != nullptr && threadIdx.x == 0) {
+    atomicAdd(&routes[wide ? 1 : 0], 1);  // tiles: staged, wide
+    if (blockIdx.x == 0) routes[2] = stage_slots;
+  }
+
+  // The market's last-step sums, from either route; one division below.
+  T total_weight = T(0);
+  T weighted_prob = T(0);
+  if (wide) {
+    // The wide route, the same for the whole block: a tile the stage
+    // cannot hold.
+    if (owns_market) {
+      walk_market(plan, s, m, steps, times, rel_touched, total_weight,
+                  weighted_prob);
+    }
+  } else {
+    settle_staged(plan, s, stage, t0, tile_slots, m, owns_market, steps,
+                  times, rel_touched, total_weight, weighted_prob);
+  }
+  if (owns_market) consensus[m] = consensus_of(total_weight, weighted_prob, steps);
+}
+
+template <typename T, typename Steps>
+int launch_steps(const Plan<T>& plan, const FlatState<T>& s, T* consensus,
+                 T* rel_touched, int32_t* routes, T now0, Steps steps,
+                 int stage_slots, cudaStream_t stream) {
+  const size_t shared = static_cast<size_t>(stage_slots) * stage_bytes_per_slot<T>();
+  const int64_t tiles = (plan.num_markets + kThreads - 1) / kThreads;
+  settle_cycles_kernel<T, Steps><<<static_cast<unsigned int>(tiles), kThreads,
+                                   shared, stream>>>(
+      plan, s, consensus, rel_touched, routes, now0, steps, stage_slots);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -121,20 +324,27 @@ int launch(const void* slot_rows, const void* probs, const void* mask,
            const void* outcome, const void* touched_offsets, void* rel,
            void* conf, void* days, void* exists, void* consensus,
            void* rel_touched, double now0, int64_t num_slots,
-           int64_t num_markets, int64_t steps, void* stream) {
-  if (num_markets > 0) {
-    const int64_t blocks = (num_markets + kThreads - 1) / kThreads;
-    settle_cycles_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(slot_rows), static_cast<const T*>(probs),
-        static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(outcome),
-        static_cast<const int64_t*>(touched_offsets), static_cast<T*>(rel),
-        static_cast<T*>(conf), static_cast<T*>(days),
-        static_cast<uint8_t*>(exists), static_cast<T*>(consensus),
-        static_cast<T*>(rel_touched), static_cast<T>(now0), num_slots,
-        num_markets, steps);
+           int64_t num_markets, int64_t num_touched, int64_t steps,
+           void* routes, void* stream) {
+  if (num_markets == 0) return static_cast<int>(cudaGetLastError());
+  const int stage_slots = stage_slots_for<T>(num_markets, num_touched);
+  const Plan<T> plan{
+      static_cast<const int32_t*>(slot_rows), static_cast<const T*>(probs),
+      static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(outcome),
+      static_cast<const int64_t*>(touched_offsets), num_slots, num_markets};
+  const FlatState<T> s{static_cast<T*>(rel), static_cast<T*>(conf),
+                       static_cast<T*>(days), static_cast<uint8_t*>(exists)};
+  const auto cuda_stream = static_cast<cudaStream_t>(stream);
+  const auto route_counts = static_cast<int32_t*>(routes);
+  if (steps <= INT32_MAX) {
+    return launch_steps<T, int32_t>(
+        plan, s, static_cast<T*>(consensus), static_cast<T*>(rel_touched),
+        route_counts, static_cast<T>(now0), static_cast<int32_t>(steps),
+        stage_slots, cuda_stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_steps<T, int64_t>(
+      plan, s, static_cast<T*>(consensus), static_cast<T*>(rel_touched),
+      route_counts, static_cast<T>(now0), steps, stage_slots, cuda_stream);
 }
 
 }  // namespace
@@ -143,18 +353,22 @@ extern "C" int settle_cycles_f32(
     const void* slot_rows, const void* probs, const void* mask,
     const void* outcome, const void* touched_offsets, void* rel, void* conf,
     void* days, void* exists, void* consensus, void* rel_touched, double now0,
-    int64_t num_slots, int64_t num_markets, int64_t steps, void* stream) {
+    int64_t num_slots, int64_t num_markets, int64_t num_touched,
+    int64_t steps, void* routes, void* stream) {
   return launch<float>(slot_rows, probs, mask, outcome, touched_offsets, rel,
                        conf, days, exists, consensus, rel_touched, now0,
-                       num_slots, num_markets, steps, stream);
+                       num_slots, num_markets, num_touched, steps, routes,
+                       stream);
 }
 
 extern "C" int settle_cycles_f64(
     const void* slot_rows, const void* probs, const void* mask,
     const void* outcome, const void* touched_offsets, void* rel, void* conf,
     void* days, void* exists, void* consensus, void* rel_touched, double now0,
-    int64_t num_slots, int64_t num_markets, int64_t steps, void* stream) {
+    int64_t num_slots, int64_t num_markets, int64_t num_touched,
+    int64_t steps, void* routes, void* stream) {
   return launch<double>(slot_rows, probs, mask, outcome, touched_offsets, rel,
                         conf, days, exists, consensus, rel_touched, now0,
-                        num_slots, num_markets, steps, stream);
+                        num_slots, num_markets, num_touched, steps, routes,
+                        stream);
 }

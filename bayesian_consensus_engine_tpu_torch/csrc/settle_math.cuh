@@ -110,16 +110,17 @@ __device__ __forceinline__ StepTimes<T> step_times(T now0, int64_t steps) {
 // only move the state (their consensus is discarded); the return value is
 // the last step's decayed read weight, which feeds the market's sums, and
 // `last_conf`, when given, receives the confidence that step reads (the
-// one before its update).
-template <typename T>
+// one before its update). `Steps` is the loop counter's type: int32_t
+// where the caller knows steps fits it, int64_t otherwise.
+template <typename T, typename Steps>
 __device__ __forceinline__ T settle_slot(T& rel, T& conf, T days, T prob,
-                                         bool outcome, int64_t steps,
+                                         bool outcome, Steps steps,
                                          const StepTimes<T>& t,
                                          T* last_conf = nullptr) {
   const bool correct = (prob >= T(0.5)) == outcome;
   const T raw = mul_rn(T(kBaseLearningRate), correct ? T(1) : T(-1));
   const T delta = clip(raw, -T(kMaxUpdateStep), T(kMaxUpdateStep));
-  for (int64_t s = 0; s + 1 < steps; ++s) {
+  for (Steps s = 0; s + 1 < steps; ++s) {
     rel = update_rel(rel, delta);
     conf = grow_conf(conf);
   }

@@ -19,9 +19,14 @@ What bounds it. Device-memory bytes (a few dozen operations a slot a
 step); :func:`bound_bytes` counts the bytes the function must move on the
 inputs at hand. What the design does: one thread per market walks its
 K_loc slots once, reads each slot's state once, writes its views, pushes
-its band moments into a per-thread binary-counter stack (the adjacent-pair
+its band moments into a per-thread binary-counter tree (the adjacent-pair
 tree), settles its whole step loop in registers and writes it back in
-place. There is no scratch block and no tie-break inside.
+place. The kernel is instantiated per band-tree depth,
+log2(pow2_at_least(K_loc)): up to K_loc = 64 the tree's levels and the
+slots' mask and exists bits live in registers; a wider K_loc takes the
+run-time stack in local memory. A caller that passes ``depth_out`` learns
+which instantiation ran. There is no scratch block and no
+tie-break inside.
 
 Beyond the reference. The kernel takes float64 state too (the reference's
 kernel is float32 only, but its XLA route settles float64 on a
@@ -76,7 +81,7 @@ class PartialsOutputs(NamedTuple):
 
 def _load():
     signature = (
-        [ctypes.c_void_p] * 12
+        [ctypes.c_void_p] * 13
         + [ctypes.c_double]
         + [ctypes.c_int64] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -131,6 +136,7 @@ def onepass_partials(
     probs, mask, outcome, state: MarketBlockState, now0: float, steps: int,
     *, with_views: bool = True, with_bands: bool = True,
     chunk_slots: "int | None" = None,
+    depth_out: Optional[torch.Tensor] = None,
 ) -> PartialsOutputs:
     """Settle one sources shard's resident slot-major block ``steps``
     cycles and, from its state at ``now0``, emit the read views and band
@@ -147,6 +153,11 @@ def onepass_partials(
     PLACE: the returned state tensors are the ones passed in. On CPU
     tensors it runs :func:`onepass_partials_reference` and returns new
     ones. Either way the caller must use the returned state.
+
+    ``depth_out``, an int32 (1,) tensor on the block's CUDA device, asks
+    the launch which kernel instantiation it ran: the depth of its register
+    band tree, or -1 for the stack tree beyond K_loc = 64. The CPU path
+    leaves it as it is.
     """
     global LAUNCHES
     device = probs.device
@@ -170,6 +181,8 @@ def onepass_partials(
     check_tensor("confidence", state.confidence, dtype, block, device)
     check_tensor("updated_days", state.updated_days, dtype, block, device)
     check_tensor("exists", state.exists, torch.bool, block, device)
+    if depth_out is not None:
+        check_tensor("depth_out", depth_out, torch.int32, (1,), device)
 
     def empty(shape, out_dtype):
         return torch.empty(shape, dtype=out_dtype, device=device)
@@ -198,7 +211,7 @@ def onepass_partials(
             state.reliability.data_ptr(), state.confidence.data_ptr(),
             state.updated_days.data_ptr(), state.exists.data_ptr(),
             csums.data_ptr(), ptr(sums), ptr(count), ptr(read_rel),
-            ptr(read_conf), float(now0), num_slots, num_markets, int(steps),
+            ptr(read_conf), ptr(depth_out), float(now0), num_slots, num_markets, int(steps),
             int(with_views), int(with_bands), stream,
         )
     if status != 0:

@@ -16,13 +16,19 @@ when ``steps == 1``), and reliability, confidence, stamp and
 ``rel_touched`` written (existence only where it turns true); per market,
 the outcome and a ``touched_offsets`` entry are read and the consensus
 written. :func:`bound_bytes` counts exactly that for the inputs at hand,
-and its quotient by the card's memory rate is the kernel's bound. The random row gather is what will hold
-it back: each element pulls a whole 32-byte sector.
+and its quotient by the card's memory rate is the kernel's bound.
 
-What the design does about it. One thread per market walks its K slots;
-each slot runs all ``steps`` updates in registers (only the last step's
-consensus is observable), so traffic does not grow with ``steps`` and the
-state crosses device memory once each way. The update is in place.
+What the design does about it. Each slot runs all ``steps`` updates in
+registers (only the last step's consensus is observable), so traffic does
+not grow with ``steps`` and the state crosses device memory once each way,
+in place. A block takes a tile of consecutive markets: it stages the
+tile's masked slots in shared memory in ``rel_touched`` order, settles
+them one thread a slot (every lane busy, the row gather and the
+``rel_touched`` writes nearly contiguous), then sums each market's
+last-step weights in slot order. The launch sizes the stage from the
+plan's mean masked slots a market; a tile whose slots overflow it takes
+the wide route, one thread per market over its K slots. A caller that
+passes ``routes`` learns how many tiles took each route.
 
 ``touched_offsets`` and the order of ``rel_touched``. The JAX package
 gathers ``new_rel[touched_rows]`` after the scatter. Here the thread that
@@ -41,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -78,8 +84,7 @@ def _load():
     return cuda_build.load(SOURCE, {
         name: (
             [ctypes.c_void_p] * 11
-            + [ctypes.c_double, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-               ctypes.c_void_p]
+            + [ctypes.c_double] + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
         )
         for name in ("settle_cycles_f32", "settle_cycles_f64")
     })
@@ -167,6 +172,7 @@ def settle_cycles_reference(
 def settle_cycles(
     rel, conf, days, exists, slot_rows, probs, mask, outcome,
     touched_offsets, num_touched: int, now0: float, steps: int,
+    *, routes: Optional[torch.Tensor] = None,
 ) -> SettleOutputs:
     """Settle a plan block against the flat store state, ``steps`` cycles.
 
@@ -182,6 +188,12 @@ def settle_cycles(
     PLACE: the returned state tensors are the ones passed in. On CPU
     tensors it runs :func:`settle_cycles_reference` and returns new ones.
     Either way the caller must use the returned state.
+
+    ``routes``, an int32 (3,) tensor on the state's CUDA device, asks the
+    launch for its route report: it adds its tiles of 256 markets that were
+    staged to ``routes[0]`` and those that took the wide route to
+    ``routes[1]``, and writes the stage's size in slots to ``routes[2]``.
+    The CPU path has no tiles and leaves it as it is.
     """
     global LAUNCHES
     if rel.device.type == "cpu":
@@ -213,6 +225,8 @@ def settle_cycles(
         "touched_offsets", touched_offsets, torch.int64, (num_markets + 1,),
         device,
     )
+    if routes is not None:
+        check_tensor("routes", routes, torch.int32, (3,), device)
 
     consensus = torch.empty(num_markets, dtype=dtype, device=device)
     rel_touched = torch.empty(num_touched, dtype=dtype, device=device)
@@ -228,7 +242,8 @@ def settle_cycles(
             outcome.data_ptr(), touched_offsets.data_ptr(), rel.data_ptr(),
             conf.data_ptr(), days.data_ptr(), exists.data_ptr(),
             consensus.data_ptr(), rel_touched.data_ptr(), float(now0),
-            num_slots, num_markets, int(steps), stream,
+            num_slots, num_markets, int(num_touched), int(steps),
+            None if routes is None else routes.data_ptr(), stream,
         )
     if status != 0:
         raise RuntimeError(f"settle_cycles launch failed: CUDA error {status}")

@@ -7,15 +7,22 @@ Phases, one JSON line each:
 1. ``device``       the card (``nvidia-smi`` name and power limit).
 2. ``build``        compile the four kernels from the package's ``.cu``
                     sources, one ``nvcc`` each, started together; fail if
-                    ptxas reports a spill in ``bp_sweep`` or
-                    ``onepass_settle``, or a stack frame in the sweep or
-                    in a register-tree instantiation of the one-pass
-                    kernel.
+                    ptxas reports a spill in any of the four kernels, or a
+                    stack frame in any instantiation but the two wide
+                    stack-tree ones (``onepass_settle`` and
+                    ``onepass_partials`` beyond 64 slots), or if the log
+                    lacks an entry function of any of them.
 3. ``kernel_check`` ``settle_cycles`` against its plain torch version on
-                    the card, float32 and float64, K in {1, 5, 16, 40}, a
-                    ragged M, steps in {0, 1, 2, 20}, with pads, cold slots,
-                    empty markets and stamps later than ``now``: state and
+                    the card, float32 and float64, K in {1, 5, 15, 16, 40,
+                    65, 200}, a ragged M, steps in {0, 1, 2, 20}, with pads,
+                    cold slots, empty markets and stamps later than
+                    ``now``, and a ragged tile (K = 200: one market with
+                    every slot among markets with one) that overflows the
+                    shared stage and takes the wide route: state and
                     ``rel_touched`` bit-equal, consensus within tolerance.
+                    Each launch reports its tiles by route: they must
+                    cover the markets, the ragged tile must take the wide
+                    route, and both routes must have run.
 4. ``onepass_check`` ``onepass_settle`` against its plain version on the
                     card: float32 with every combination of the tie-break
                     and bands stages, float64 with the tie-break off; K in
@@ -35,12 +42,15 @@ Phases, one JSON line each:
                     one launch a call.
 6. ``partials_check`` ``onepass_partials`` against its plain version on
                     the card: float32 and float64, every combination of the
-                    views and bands stages, K_loc in {1, 3, 4, 16},
+                    views and bands stages, K_loc in {1, 2, 3, 4, 5, 8, 16,
+                    17, 33, 64, 65} (band trees of depth 0 to 6 in
+                    registers and the wider stack),
                     M = 1037, steps in {0, 1, 2, 20}, with pad slots (mask
                     false, the cold prior), cold slots, empty markets and
                     stamps on and off multiples of the half-life: state,
                     views, band roots and count bit-equal (a NaN as a NaN),
-                    raw consensus sums within tolerance.
+                    raw consensus sums within tolerance; each launch must
+                    report the band-tree depth its K_loc calls for.
 7. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
                     10,000-source universe (seed 7), through
                     ``build_settlement_plan_columnar`` on a CUDA store, two
@@ -102,10 +112,16 @@ Phases, one JSON line each:
                     merged consensus (bit-equal to its plain version).
 11. ``kernels``     each kernel's launches on its path, error, time (CUDA
                     events over 21 back-to-back launches after warm-up, each
-                    on fresh input copies), plain-version time and
+                    on fresh input copies, issued while the stream waits on
+                    the card so that host time between launches is not
+                    counted; a kernel window the host still paced fails),
+                    plain-version time (``plain_paced_by`` says whether the
+                    device or the host set its pace) and
                     byte bound: ``settle_cycles`` on the chained flat
-                    settle's inputs (every row exists: the steady state)
-                    and, under ``cold``, on the first settle's (no row
+                    settle's inputs (every row exists: the steady state),
+                    under ``one_step_ms`` the same launch at ``steps=1``,
+                    under ``stage_slots``, ``tiles`` and ``wide_tiles`` the
+                    kernel's own route report of that launch, and, under ``cold``, on the first settle's (no row
                     exists yet); ``onepass_settle`` on the chained analytics
                     call's inputs, and under ``stages_off_ms``,
                     ``tiebreak_only_ms`` and ``bands_only_ms`` the same
@@ -115,13 +131,16 @@ Phases, one JSON line each:
                     call of one cooperative launch, the bound for the
                     sweeps that ran); ``onepass_partials`` on the sharded
                     path's chained call (``ms`` one call's 4 launches, also
-                    per launch; ``merge_ms`` the eager cross-shard merge).
-                    The ``bp_sweep`` and ``onepass_settle`` entries also
-                    carry ``launches_per_call`` and ptxas' registers, stack
-                    frame and spills from the build log (for the one-pass
-                    kernel, of the instantiation the path's K takes).
-                    ``build`` fails if the log lacks any entry function of
-                    the two kernels.
+                    per launch; ``stages_off_ms`` the same launches with the
+                    views and bands off; ``merge_ms`` the eager cross-shard
+                    merge, with ``merge_paced_by``). Every entry also carries ptxas' registers, stack
+                    frame and spills from the build log (for
+                    ``settle_cycles`` both dtypes, for the one-pass and
+                    partials kernels the instantiation the path's K or
+                    K_loc takes, with its ``band_tree_depth``, which the
+                    partials kernel reports itself);
+                    ``bp_sweep`` and the two one-pass kernels also
+                    ``launches_per_call``.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -147,6 +166,11 @@ MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000, 4, 10_000, 7, 20
 PARITY_MARKETS = 20_000
 # The inference path's graph and sweep.
 EVENT_SIZE, CORRELATIONS, BP_TOL, BP_MAX_STEPS = 4, 2, 1e-5, 24
+# partials_check's K_loc, each with the band-tree depth of the kernel
+# instantiation that must settle it: log2(pow2_at_least(K_loc)) up to 64,
+# the stack tree (-1) beyond.
+PARTIALS_DEPTHS = {1: 0, 2: 1, 3: 2, 4: 2, 5: 3, 8: 3, 16: 4, 17: 5, 33: 6,
+                   64: 6, 65: -1}
 # Consensus tolerance (exp2 and the K-sum order differ); state is bit-equal.
 TOL = {np.dtype(np.float32): dict(rtol=1e-5, atol=1e-6),
        np.dtype(np.float64): dict(rtol=1e-12, atol=0.0)}
@@ -174,11 +198,18 @@ def check_consensus(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return float(np.max(np.abs(got[finite] - want[finite]), initial=0.0))
 
 
-def random_case(rng, num_slots, num_markets, np_dtype):
+def random_case(rng, num_slots, num_markets, np_dtype, ragged=False):
     """A plan block over a flat state: distinct shuffled rows per masked
-    slot, pads (row -1), empty markets, cold rows, stale and future stamps."""
+    slot, pads (row -1), empty markets, cold rows, stale and future stamps.
+    ``ragged``: market 7 has every slot and every other market slot 0 only,
+    so the first tile overflows the stage sized for the mean."""
     shape = (num_slots, num_markets)
-    mask = rng.random(shape) < 0.7
+    if ragged:
+        mask = np.zeros(shape, dtype=bool)
+        mask[0] = True
+        mask[:, 7] = True
+    else:
+        mask = rng.random(shape) < 0.7
     mask[:, :: 17] = False  # empty markets
     num_touched = int(mask.sum())
     capacity = num_touched + 101
@@ -306,11 +337,12 @@ def kernel_args(case, dtype, steps, settle_kernel):
     )
 
 
-def compare_kernel(args, settle_kernel, what):
-    """Run the plain version and the kernel (on clones) on the same inputs."""
+def compare_kernel(args, settle_kernel, what, routes=None):
+    """Run the plain version and the kernel (on clones) on the same inputs;
+    ``routes`` receives the kernel's route report."""
     want = settle_kernel.settle_cycles_reference(*args)
     clones = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-    got = settle_kernel.settle_cycles(*clones)
+    got = settle_kernel.settle_cycles(*clones, routes=routes)
     torch.cuda.synchronize()
     for field in ("reliability", "confidence", "updated_days", "exists",
                   "rel_touched"):
@@ -318,24 +350,59 @@ def compare_kernel(args, settle_kernel, what):
     return check_consensus(got.consensus, want.consensus, f"{what} consensus")
 
 
-def time_cuda(fn, prepare, warmup: int, runs: int) -> float:
-    """Milliseconds per call of ``fn`` by CUDA events over ``runs`` calls
-    launched back to back, each on its own fresh inputs from ``prepare``
-    (made beforehand, outside the timed window), after ``warmup`` calls.
-    Back to back, the host's per-call work overlaps the device's, so the
-    figure is the device's time per call, not the launch latency."""
+# Device clock cycles the stream first waits before a timed window: ~25 ms
+# on an H100, longer than the host takes to issue a kernel's window.
+QUEUE_CYCLES = 50_000_000
+
+
+def time_window(fn, prepare, warmup: int, runs: int):
+    """``(ms, paced_by)``: milliseconds per call of ``fn`` by CUDA events
+    over ``runs`` calls launched back to back, each on its own fresh inputs
+    from ``prepare`` (made beforehand, outside the timed window), after
+    ``warmup`` calls. The stream first waits on the card while the host
+    issues the whole window, so the calls run back to back on the device
+    even where the host's per-call work takes longer than a kernel.
+    ``paced_by`` is "device" when the host had issued the window before
+    the wait ran out (the figure is the device's time per call). If it had
+    not, the window is timed once more behind a wait sized from the host's
+    issue time; if the host still comes last (a function that synchronises
+    inside, or eager work slower than its kernels), ``paced_by`` is "host"
+    and the figure is the host's pace."""
     for _ in range(warmup):
         fn(prepare())
-    inputs = [prepare() for _ in range(runs)]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for args in inputs:
-        fn(args)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / runs
+    cycles = QUEUE_CYCLES
+    for _attempt in range(2):
+        inputs = [prepare() for _ in range(runs)]
+        waited = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        waited.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        issue = time.perf_counter()
+        for args in inputs:
+            fn(args)
+        issue_ms = (time.perf_counter() - issue) * 1e3
+        end.record()
+        in_time = not start.query()  # the wait still held the stream
+        end.synchronize()
+        ms = start.elapsed_time(end) / runs
+        if in_time:
+            return ms, "device"
+        wait_ms = waited.elapsed_time(start)
+        cycles = int(cycles * max(2.0, 2.0 * issue_ms / max(wait_ms, 1e-3)))
+    return ms, "host"
+
+
+def time_cuda(fn, prepare, warmup: int, runs: int) -> float:
+    """A kernel's device time per call (:func:`time_window`); raises if
+    the host, not the device, set the pace of the window."""
+    ms, paced_by = time_window(fn, prepare, warmup, runs)
+    if paced_by != "device":
+        raise AssertionError(
+            "a kernel's timed window was paced by the host, not the device")
+    return ms
 
 
 def bp_case(rng, num_markets, degree):
@@ -444,19 +511,26 @@ def main() -> int:
     # 2. build: one nvcc per source, started together.
     start = time.perf_counter()
     built = cuda_build.build_all()
-    # ptxas' figures per source and entry function. The redesigned kernels
-    # keep no stack frame and spill nothing: both lanes of the sweep and
-    # every register-tree depth of the one-pass kernel (its wider
-    # instantiation, "Lin1E", keeps the run-time stack and spills nothing).
+    # ptxas' figures per source and entry function. No kernel keeps a
+    # stack frame or spills: both lanes of the sweep, both dtypes and step
+    # counters of the settle kernel, every register-tree depth of the two
+    # one-pass kernels (their wider instantiations, "Lin1E", keep the
+    # run-time stack tree in local memory and spill nothing).
     ptxas = {source.name: cuda_build.ptxas_report(log)
              for source, (_library, log) in zip(cuda_build.SOURCES, built)}
-    # Every entry function of the two kernels must be reported: both lanes
-    # of the sweep, and each float32 and float64 depth of the one-pass
-    # kernel (0 to 6, and -1 mangled "n1").
+    # Every entry function must be reported: both lanes of the sweep; each
+    # dtype with a 32-bit ("i") and 64-bit ("l") step counter of the settle
+    # kernel; each float32 and float64 depth of the one-pass kernels (0 to
+    # 6, and -1 mangled "n1").
+    depths = [*range(7), "n1"]
     expected = {
         "bp_sweep.cu": [f"bp_sweep_kernelILb{lane}E" for lane in (0, 1)],
         "onepass_settle.cu": [f"onepass_settle_kernelI{t}Li{d}E"
-                              for t in "fd" for d in [*range(7), "n1"]],
+                              for t in "fd" for d in depths],
+        "settle_cycles.cu": [f"settle_cycles_kernelI{t}{n}E"
+                             for t in "fd" for n in "il"],
+        "onepass_partials.cu": [f"onepass_partials_kernelI{t}Li{d}E"
+                                for t in "fd" for d in depths],
     }
     for source, entries in expected.items():
         for entry in entries:
@@ -465,8 +539,8 @@ def main() -> int:
             if not found:
                 raise AssertionError(f"ptxas reported no figures for {entry} "
                                      f"in {source}")
-    for name, figures in {**ptxas["bp_sweep.cu"],
-                          **ptxas["onepass_settle.cu"]}.items():
+    for name, figures in {name: figures for report in ptxas.values()
+                          for name, figures in report.items()}.items():
         if (figures.get("stack_bytes") and "Lin1E" not in name) \
                 or figures.get("spill_stores") or figures.get("spill_loads"):
             raise AssertionError(f"ptxas: {name} has a stack frame or spills: "
@@ -480,18 +554,31 @@ def main() -> int:
     rng = np.random.default_rng(0)
     worst = {}
     cases = 0
+    routes = {"staged": 0, "wide": 0}  # tiles, as the kernel reports them
     for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
-        for num_slots in (1, 5, 16, 40):
-            case = random_case(rng, num_slots, 1037, np_dtype)
+        for num_slots, ragged in ((1, False), (5, False), (15, False),
+                                  (16, False), (40, False), (65, False),
+                                  (200, False), (200, True)):
+            case = random_case(rng, num_slots, 1037, np_dtype, ragged=ragged)
             for steps in (0, 1, 2, 20):
-                err = compare_kernel(
-                    kernel_args(case, dtype, steps, settle_kernel),
-                    settle_kernel, f"{dtype} K={num_slots} steps={steps}",
-                )
+                args = kernel_args(case, dtype, steps, settle_kernel)
+                what = f"{dtype} K={num_slots} ragged={ragged} steps={steps}"
+                counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+                err = compare_kernel(args, settle_kernel, what, routes=counts)
                 worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
                 cases += 1
+                staged, wide, _stage = counts.tolist()
+                if staged + wide != -(-1037 // 256):
+                    raise AssertionError(f"{what}: {staged} + {wide} tiles")
+                if ragged and wide != 1:
+                    raise AssertionError(
+                        f"{what}: the ragged tile did not take the wide route")
+                routes["staged"] += staged
+                routes["wide"] += wide
+    if not (routes["staged"] and routes["wide"]):
+        raise AssertionError(f"both routes must run: {routes}")
     emit("kernel_check", cases=cases, markets=1037,
-         max_abs_consensus_err=worst)
+         max_abs_consensus_err=worst, tiles=routes)
 
     # 4. onepass_check
     rng = np.random.default_rng(1)
@@ -570,7 +657,7 @@ def main() -> int:
     partials_err = {}
     cases = 0
     for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
-        for num_slots in (1, 3, 4, 16):
+        for num_slots in PARTIALS_DEPTHS:
             case = partials_case(rng, num_slots, 1037, np_dtype, 600.0)
 
             def t(x, dt=None):
@@ -589,12 +676,18 @@ def main() -> int:
                         want = partials_kernel.onepass_partials_reference(
                             *args, state, 600.0, steps, **stages)
                         clone = MarketBlockState(*(x.clone() for x in state))
+                        depth = torch.full((1,), -2, dtype=torch.int32,
+                                           device="cuda")
                         got = partials_kernel.onepass_partials(
-                            *args, clone, 600.0, steps, **stages)
+                            *args, clone, 600.0, steps, depth_out=depth,
+                            **stages)
                         torch.cuda.synchronize()
-                        err = compare_partials(
-                            got, want, f"{dtype} K_loc={num_slots} steps={steps} "
-                            f"stages={with_views, with_bands}")
+                        what = (f"{dtype} K_loc={num_slots} steps={steps} "
+                                f"stages={with_views, with_bands}")
+                        err = compare_partials(got, want, what)
+                        if int(depth) != PARTIALS_DEPTHS[num_slots]:
+                            raise AssertionError(
+                                f"{what}: ran the depth-{int(depth)} kernel")
                         partials_err[str(dtype)] = max(
                             partials_err.get(str(dtype), 0.0), err)
                         cases += 1
@@ -1167,7 +1260,7 @@ def main() -> int:
         kernel_ms = time_cuda(
             lambda a: settle_kernel.settle_cycles(*a), prepare, warmup=3, runs=21
         )
-        plain_ms = time_cuda(
+        plain_ms, plain_paced_by = time_window(
             lambda a: settle_kernel.settle_cycles_reference(*a), prepare,
             warmup=1, runs=5,
         )
@@ -1176,10 +1269,25 @@ def main() -> int:
             plan.num_slots, MARKETS, num_touched, num_existing, STEPS, 4
         )
         timings[name] = dict(
-            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_bytes=bound,
+            kernel_ms=kernel_ms, plain_ms=plain_ms,
+            plain_paced_by=plain_paced_by, bound_bytes=bound,
             bound_ms=bound / HBM_BYTES_PER_S * 1e3, existing_rows=num_existing,
         )
     warm_t, cold_t = timings["warm"], timings["cold"]
+    # The chained launch at steps=1: what the step loop adds to the memory
+    # traffic, without a profiler.
+    one_step_ms = time_cuda(
+        lambda a: settle_kernel.settle_cycles(*a),
+        lambda: [a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in warm_args[:-1]] + [1],
+        warmup=3, runs=21,
+    )
+    # The chained launch once more, asking the kernel for its route report.
+    routes = torch.zeros(3, dtype=torch.int32, device="cuda")
+    settle_kernel.settle_cycles(
+        *[a.clone() if isinstance(a, torch.Tensor) else a for a in warm_args],
+        routes=routes)
+    staged_tiles, wide_tiles, stage_slots = routes.tolist()
     settle_entry = {
         "name": "settle_cycles",
         "route": "cuda",
@@ -1192,12 +1300,26 @@ def main() -> int:
         "ms": warm_t["kernel_ms"],
         "kernel_ms": warm_t["kernel_ms"],
         "plain_ms": warm_t["plain_ms"],
+        "plain_paced_by": warm_t["plain_paced_by"],
         "bound_ms": warm_t["bound_ms"],
         "bound_by": "bytes",
         "bound_bytes": warm_t["bound_bytes"],
         "library_ms": None,
         "cold": {key: cold_t[key] for key in (
-            "kernel_ms", "plain_ms", "bound_ms", "bound_bytes")},
+            "kernel_ms", "plain_ms", "plain_paced_by", "bound_ms",
+            "bound_bytes")},
+        "one_step_ms": one_step_ms,
+        # The kernel's own report of that launch: the stage's slots and its
+        # tiles of 256 markets by route.
+        "stage_slots": stage_slots,
+        "tiles": staged_tiles + wide_tiles,
+        "wide_tiles": wide_tiles,
+        # ptxas' figures of the instantiations a settle of fewer than 2^31
+        # steps takes (32-bit step counter), float32 and float64.
+        "ptxas": {dt: next((figures for name, figures
+                            in ptxas["settle_cycles.cu"].items()
+                            if f"settle_cycles_kernelI{code}iE" in name), None)
+                  for dt, code in (("float32", "f"), ("float64", "d"))},
     }
     # onepass_settle on the chained analytics call's inputs: every row
     # exists, and the state is read, settled 20 steps and written in place.
@@ -1212,7 +1334,7 @@ def main() -> int:
         lambda a: onepass_kernel.onepass_settle(*a, **stages), prepare_onepass,
         warmup=3, runs=21,
     )
-    onepass_plain_ms = time_cuda(
+    onepass_plain_ms, onepass_plain_paced_by = time_window(
         lambda a: onepass_kernel.onepass_settle_reference(*a, **stages),
         prepare_onepass, warmup=1, runs=5,
     )
@@ -1243,6 +1365,7 @@ def main() -> int:
         "ms": onepass_ms,
         "kernel_ms": onepass_ms,
         "plain_ms": onepass_plain_ms,
+        "plain_paced_by": onepass_plain_paced_by,
         "bound_ms": onepass_bound / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "bound_bytes": onepass_bound,
@@ -1261,8 +1384,9 @@ def main() -> int:
     seeds, sweep, chained = bp_captured[1]
     bp_ms = time_cuda(lambda a: bp_kernel.bp_sweep(*a, **sweep), lambda: seeds,
                       warmup=3, runs=21)
-    bp_plain_ms = time_cuda(lambda a: bp_kernel.bp_sweep_reference(*a, **sweep),
-                            lambda: seeds, warmup=1, runs=3)
+    bp_plain_ms, bp_plain_paced_by = time_window(
+        lambda a: bp_kernel.bp_sweep_reference(*a, **sweep), lambda: seeds,
+        warmup=1, runs=3)
     bp_iters = int(chained[2])
     bp_bound = bp_kernel.bound_bytes(MARKETS, degree, bp_iters, True)
     bp_entry = {
@@ -1275,6 +1399,7 @@ def main() -> int:
         "ms": bp_ms,
         "kernel_ms": bp_ms,
         "plain_ms": bp_plain_ms,
+        "plain_paced_by": bp_plain_paced_by,
         "bound_ms": bp_bound / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "bound_bytes": bp_bound,
@@ -1301,7 +1426,7 @@ def main() -> int:
 
     partials_ms = time_cuda(run_shards(partials_kernel.onepass_partials),
                             prepare_partials, warmup=3, runs=21)
-    partials_plain_ms = time_cuda(
+    partials_plain_ms, partials_plain_paced_by = time_window(
         run_shards(partials_kernel.onepass_partials_reference),
         prepare_partials, warmup=1, runs=5)
     # The cross-shard merge in eager PyTorch on the chained call's partials,
@@ -1321,7 +1446,21 @@ def main() -> int:
                                   [p.band_count for p in parts], cuda0))
         consensus_merge([p.consensus_sums for p in parts], cuda0)
 
-    merge_ms = time_cuda(merge, lambda: None, warmup=2, runs=11)
+    merge_ms, merge_paced_by = time_window(merge, lambda: None, warmup=2,
+                                           runs=11)
+    # The same launches with the views and bands off: the settle alone.
+    partials_off_ms = time_cuda(
+        lambda shard_args: [partials_kernel.onepass_partials(
+            *a, with_views=False, with_bands=False) for a in shard_args],
+        prepare_partials, warmup=3, runs=21)
+    # Shard 0's launch once more, asking the kernel which instantiation
+    # (band-tree depth) it runs.
+    depth_d = torch.full((1,), -2, dtype=torch.int32, device="cuda")
+    first_shard = prepare_partials()[0]
+    partials_kernel.onepass_partials(*first_shard, **shard_stages,
+                                     depth_out=depth_d)
+    partials_depth = int(depth_d)
+    partials_code = f"Li{partials_depth}E" if partials_depth >= 0 else "Lin1E"
     partials_bound = sum(
         partials_kernel.bound_bytes(
             int(probs_d.shape[0]), MARKETS, int(mask_d.sum()),
@@ -1342,12 +1481,23 @@ def main() -> int:
         "kernel_ms": partials_ms,
         "kernel_ms_per_launch": partials_ms / 4,
         "plain_ms": partials_plain_ms,
+        "plain_paced_by": partials_plain_paced_by,
         "bound_ms": partials_bound / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "bound_bytes": partials_bound,
         "library_ms": None,
+        "stages_off_ms": partials_off_ms,
         "merge_ms": merge_ms,
+        "merge_paced_by": merge_paced_by,
         "launches_per_call": 4,
+        # The depth the kernel reported for the path's K_loc, and ptxas'
+        # figures of that instantiation, float32 and float64.
+        "band_tree_depth": partials_depth,
+        "ptxas": {dt: next((figures for name, figures
+                            in ptxas["onepass_partials.cu"].items()
+                            if f"onepass_partials_kernelI{code}{partials_code}"
+                            in name), None)
+                  for dt, code in (("float32", "f"), ("float64", "d"))},
     }
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
                                   partials_entry]}), flush=True)

@@ -9,8 +9,10 @@ The plain version (``onepass_partials_reference``) is held here against
 its chunk knob and its own parts; ``tests/test_torch_partials.py`` holds it
 against the JAX package's partials kernel. The ``cuda`` cases hold the
 kernel against the plain version on the card, on the cases
-``chip_smoke.py``'s ``partials_check`` uses (K_loc in {1, 3, 4, 16},
-M = 1037, steps in {0, 1, 2, 20}, float32 and float64, cold slots, pad
+``chip_smoke.py``'s ``partials_check`` uses (K_loc in {1, 2, 3, 4, 5, 8,
+16, 17, 33, 64, 65}: every register band-tree depth 0-6 and the wider
+stack tree; M = 1037, steps in {0, 1, 2, 20}, float32 and float64, every
+combination of the views and bands stages, cold slots, pad
 slots, empty markets, stamps on and off multiples of the half-life):
 state, views, band roots and count bit-equal (a NaN as a NaN), the raw
 consensus sums within rtol=1e-5, atol=1e-6 (float32) or rtol=1e-12
@@ -97,8 +99,11 @@ def _bits(got, want, what):
 
 
 @pytest.mark.parametrize("chunk_slots", [None, 1, 2, 4])
-def test_plain_version_ignores_chunk_slots(chunk_slots):
-    args = case_args(shard_case(3, 7, 120, np.float32), torch.float32)
+@pytest.mark.parametrize("num_slots", [7, 1, 3, 5, 17, 33, 65])
+def test_plain_version_ignores_chunk_slots(num_slots, chunk_slots):
+    """The band roots do not depend on the chunking, at K_loc within each
+    band-tree depth the kernel is instantiated for and beyond."""
+    args = case_args(shard_case(3, num_slots, 120, np.float32), torch.float32)
     want = partials_kernel.onepass_partials_reference(*args, NOW0, 2)
     got = partials_kernel.onepass_partials_reference(
         *args, NOW0, 2, chunk_slots=chunk_slots)
@@ -141,8 +146,14 @@ def cuda_device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# The kernel instantiation for K_loc: its register band tree's depth,
+# log2(pow2_at_least(K_loc)), up to K_loc = 64; the stack tree (-1) beyond.
+DEPTHS = {1: 0, 2: 1, 3: 2, 4: 2, 5: 3, 8: 3, 16: 4, 17: 5, 33: 6, 64: 6,
+          65: -1}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_slots", [1, 3, 4, 16])
+@pytest.mark.parametrize("num_slots", sorted(DEPTHS))
 @pytest.mark.parametrize("name", ["f32", "f64"])
 def test_cuda_kernel_matches_plain_version(cuda_device, name, num_slots):
     np_dtype, torch_dtype = DTYPES[name]
@@ -156,10 +167,13 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, num_slots):
                 probs, mask, outcome, state, NOW0, steps, **stages)
             clone = MarketBlockState(*(x.clone() for x in state))
             launches = partials_kernel.LAUNCHES
+            depth = torch.full((1,), -2, dtype=torch.int32, device=cuda_device)
             got = partials_kernel.onepass_partials(
-                probs, mask, outcome, clone, NOW0, steps, **stages)
+                probs, mask, outcome, clone, NOW0, steps, depth_out=depth,
+                **stages)
             torch.cuda.synchronize()
             assert partials_kernel.LAUNCHES == launches + 1
+            assert int(depth) == DEPTHS[num_slots], what
             assert got.state.reliability.data_ptr() == clone.reliability.data_ptr()
             for field, a, b in zip(state._fields, got.state, want.state):
                 _bits(a, b, f"{what} {field}")

@@ -11,7 +11,10 @@ block; ``tests/test_torch_cycle_math.py`` holds that loop math against the
 JAX package. The ``cuda`` cases hold the CUDA kernel against the plain
 version on the card — state and ``rel_touched`` bit-equal, consensus
 within rtol=1e-5, atol=1e-6 (float32) or rtol=1e-12 (float64), NaNs in the
-same places — and skip where there is no card.
+same places — and skip where there is no card. Their cases take both of
+the kernel's routes: tiles staged in shared memory (one thread a slot)
+and, for a ragged tile whose slots overflow the stage or a K whose tiles
+do, the per-market walk.
 """
 
 from functools import partial
@@ -33,13 +36,26 @@ def _assert_equal(ours, theirs):
     np.testing.assert_array_equal(ours, theirs)
 
 
-def _flat_case(seed, num_slots, num_markets, np_dtype, extra_rows=7):
+def _flat_case(seed, num_slots, num_markets, np_dtype, extra_rows=7,
+               kind="random"):
     """A slot-major block laid over a flat state: each masked slot owns a
     distinct shuffled row, pads are row -1, empty markets, cold rows,
-    stale, fresh and future stamps, and rows no slot touches."""
+    stale, fresh and future stamps, and rows no slot touches.
+
+    ``kind`` shapes the mask: "random" (3 in 4 slots), "ragged" (market 7
+    has every slot, every other market slot 0 only: a tile the stage
+    cannot hold) or "sparse" (9 in 10 markets empty, whole tiles among
+    them)."""
     rng = np.random.default_rng(seed)
     shape = (num_slots, num_markets)
-    mask = rng.random(shape) < 0.75
+    if kind == "ragged":
+        mask = np.zeros(shape, dtype=bool)
+        mask[0] = True
+        mask[:, 7] = True
+    elif kind == "sparse":
+        mask = (rng.random(shape) < 0.75) & (rng.random(num_markets) < 0.1)
+    else:
+        mask = rng.random(shape) < 0.75
     mask[:, 0] = False  # an empty market: NaN consensus
     num_touched = int(mask.sum())
     capacity = num_touched + extra_rows
@@ -76,11 +92,17 @@ def _args(block, rows, flat, torch_dtype, steps, device="cpu"):
 
 
 @pytest.mark.parametrize("steps", [0, 1, 5])
-def test_plain_version_equals_loop_on_gathered_block(steps):
+@pytest.mark.parametrize("num_slots, num_markets, kind", [
+    (6, 40, "random"), (65, 300, "ragged"), (15, 600, "sparse"),
+])
+def test_plain_version_equals_loop_on_gathered_block(num_slots, num_markets,
+                                                     kind, steps):
     """Gather → loop → scatter equals the loop on the gathered block;
     untouched rows keep their bits; ``rel_touched`` lists the settled rows
-    market by market."""
-    block, rows, flat = _flat_case(5, 6, 40, np.float64)
+    market by market. Also on the plans whose tiles take the kernel's wide
+    route on the card (a ragged market) or hold whole empty tiles."""
+    block, rows, flat = _flat_case(5, num_slots, num_markets, np.float64,
+                                   kind=kind)
     touched_rows, args = _args(block, rows, flat, torch.float64, steps)
     out = settle_kernel.settle_cycles(*args)
 
@@ -167,18 +189,34 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("steps", [0, 1, 2, 20])
-@pytest.mark.parametrize("num_slots", [1, 5, 40])
+@pytest.mark.parametrize("num_slots, num_markets, kind", [
+    (1, 251, "random"), (5, 251, "random"), (15, 251, "random"),
+    (40, 251, "random"), (64, 251, "random"), (65, 251, "random"),
+    (200, 251, "random"), (200, 1037, "ragged"), (15, 1037, "sparse"),
+    (15, 300_000, "random"),
+])
 @pytest.mark.parametrize("name", ["f32", "f64"])
-def test_cuda_kernel_matches_plain_version(cuda_device, name, num_slots, steps):
+def test_cuda_kernel_matches_plain_version(cuda_device, name, num_slots,
+                                           num_markets, kind, steps):
     np_dtype, torch_dtype = DTYPES[name]
-    block, rows, flat = _flat_case(8, num_slots, 251, np_dtype)
+    block, rows, flat = _flat_case(8, num_slots, num_markets, np_dtype, kind=kind)
     _touched, args = _args(block, rows, flat, torch_dtype, steps, cuda_device)
     want = settle_kernel.settle_cycles_reference(*args)
     clones = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
     launches = settle_kernel.LAUNCHES
-    got = settle_kernel.settle_cycles(*clones)
+    routes = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    got = settle_kernel.settle_cycles(*clones, routes=routes)
     torch.cuda.synchronize()
     assert settle_kernel.LAUNCHES == launches + 1
+    # The kernel's own route report: every tile of 256 markets takes one
+    # route; the ragged market's tile overflows the stage, the others fit.
+    staged, wide, stage = routes.tolist()
+    assert staged + wide == -(-num_markets // 256)
+    assert 32 <= stage and stage * (2 * np_dtype().itemsize + 5) <= 48 * 1024
+    if kind == "ragged":
+        assert (staged, wide) == (-(-num_markets // 256) - 1, 1)
+    elif num_slots <= 5:
+        assert wide == 0
     assert got.reliability.data_ptr() == clones[0].data_ptr()  # in place
     for field in ("reliability", "confidence", "updated_days", "exists",
                   "rel_touched"):
