@@ -6,9 +6,11 @@ within each market** so the device sums floats in the same order the
 scalar engine does, and duplicate signals from one source average in
 original signal order.
 
-The JAX package runs these passes in its C extension when it is built and
-pins the numpy/Python twins bit-identical to it; the port keeps the twins
-only, so every output here equals the JAX package's for the same input.
+Each pass runs in the port's C extension (``native/fastpack.c``, built at
+first use by ``native/build.py``) when it is available, else in its
+numpy/Python twin; the two are bit-identical, and both equal the JAX
+package's for the same input. ``native=None`` auto-detects, ``True``
+forces the C pass (raising when it is unavailable), ``False`` the twin.
 The device half (batched consensus documents) is not ported yet.
 """
 
@@ -24,7 +26,11 @@ from bayesian_consensus_engine_tpu_torch.utils.config import (
     DEFAULT_CONFIDENCE,
     DEFAULT_RELIABILITY,
 )
-from bayesian_consensus_engine_tpu_torch.utils.interning import IdInterner
+from bayesian_consensus_engine_tpu_torch.native import build as _native_build
+from bayesian_consensus_engine_tpu_torch.utils.interning import (
+    IdInterner,
+    _load_internmap,
+)
 
 #: host lookup: (source_id, market_id) → (reliability, confidence, known)
 ReliabilityLookup = Callable[[str, str], tuple[float, float, bool]]
@@ -105,7 +111,15 @@ def encode_source_ids(source_ids: Sequence[str]) -> SourceCodes:
 
 
 def _intern_source_codes(source_ids):
-    """Strings → first-seen int32 codes + unique table."""
+    """Strings → first-seen int32 codes + unique table, C pass when
+    available."""
+    module = _load_internmap()
+    if module is not None:
+        table = module.InternMap()
+        if not isinstance(source_ids, (list, tuple)):
+            source_ids = list(source_ids)
+        codes = np.frombuffer(table.intern_batch(source_ids), dtype=np.int32)
+        return codes, table.ids()
     interner = IdInterner()
     codes = np.asarray(interner.intern_all(source_ids), dtype=np.int32)
     return codes, interner.ids()
@@ -142,10 +156,15 @@ def topology_fingerprint(
         )
         if len(source_ids):
             digest.update(table_lens[source_ids.codes].tobytes())
-        table = source_ids.table
-        digest.update(
-            "".join([table[c] for c in source_ids.codes.tolist()]).encode("utf-8")
-        )
+        fastpack = _load_fastpack()
+        if fastpack is not None:
+            digest.update(fastpack.join_codes(source_ids.codes, source_ids.table))
+        else:
+            table = source_ids.table
+            digest.update(
+                "".join([table[c] for c in source_ids.codes.tolist()])
+                .encode("utf-8")
+            )
     else:
         digest.update(
             np.fromiter(map(len, source_ids), np.int64, len(source_ids))
@@ -191,10 +210,49 @@ def pair_fingerprint(
     return digest.digest()
 
 
-def columns_from_payloads(payloads):
+def _load_fastpack(force: bool = False):
+    """The C ``fastpack`` module, or ``None`` when the Python twins must
+    run (``force``: an explicit ``native=True``, which raises instead)."""
+    return _native_build.load("fastpack", force=force)
+
+
+def _object_native_available() -> bool:
+    """Auto-detection for the object packer: the extension is available
+    and ``BCE_NO_NATIVE`` is unset (an explicit ``native=True`` bypasses
+    this)."""
+    return _load_fastpack() is not None
+
+
+#: Auto-detection for the columnar passes: the port builds one extension
+#: from its own source, so the object and columnar passes come together.
+_columnar_native_available = _object_native_available
+
+
+def _fastpack_for(native: "bool | None"):
+    """The module a pass called with *native* runs on, or ``None`` for
+    its twin."""
+    return None if native is False else _load_fastpack(force=bool(native))
+
+
+def columns_from_payloads(payloads, native: "bool | None" = None):
     """Flatten dict payloads to ``(market_keys, source_ids, probs, offsets)``:
     the raw columns in original signal order, the form
-    :func:`~.pipeline.build_settlement_plan_columnar` consumes."""
+    :func:`~.pipeline.build_settlement_plan_columnar` consumes. One C pass
+    when the extension is available; the Python twin gives the same
+    values."""
+    fastpack = _fastpack_for(native)
+    if fastpack is not None:
+        if not isinstance(payloads, (list, tuple)):
+            payloads = list(payloads)
+        keys, source_ids, probs_buf, offs_buf = (
+            fastpack.columns_from_payloads(payloads)
+        )
+        return (
+            keys,
+            source_ids,
+            np.frombuffer(probs_buf, dtype=np.float64),
+            np.frombuffer(offs_buf, dtype=np.int64),
+        )
     market_keys: list[str] = []
     source_ids: list[str] = []
     probs: list[float] = []
@@ -218,6 +276,7 @@ def group_columns(
     rank_of_code: np.ndarray,
     offsets: np.ndarray,
     probabilities: np.ndarray,
+    native: "bool | None" = None,
 ):
     """The columnar grouping pass: coded signals → ordered pair arrays.
 
@@ -230,11 +289,39 @@ def group_columns(
     with pairs ordered market-major, rank ascending within each market
     (the scalar engine's float-summation order) and per-pair sums
     accumulated in original signal order (the duplicate-averaging
-    contract).
+    contract). The C pass (``fastpack.group_columns``, emitting into
+    preallocated buffers) and the numpy twin give identical arrays.
     """
     num_markets = len(offsets) - 1
+    fastpack = _fastpack_for(native)
+    if fastpack is not None:
+        n = len(codes)
+        signal_pairs = np.empty(n, dtype=np.int64)
+        pair_market = np.empty(n, dtype=np.int32)
+        pair_rank = np.empty(n, dtype=np.int32)
+        pair_offsets = np.empty(num_markets + 1, dtype=np.int64)
+        sums = np.empty(n, dtype=np.float64)
+        counts = np.empty(n, dtype=np.int64)
+        num_pairs = fastpack.group_columns(
+            np.ascontiguousarray(codes, dtype=np.int32),
+            np.ascontiguousarray(rank_of_code, dtype=np.int32),
+            np.ascontiguousarray(offsets, dtype=np.int64),
+            np.ascontiguousarray(probabilities, dtype=np.float64),
+            signal_pairs, pair_market, pair_rank, pair_offsets, sums, counts,
+        )
+        return (
+            signal_pairs,
+            pair_market[:num_pairs],
+            pair_rank[:num_pairs],
+            pair_offsets,
+            sums[:num_pairs],
+            counts[:num_pairs],
+        )
+
     codes = np.asarray(codes)
     if len(codes) and int(codes.min()) < 0:
+        # Negative-index wrapping would return a plausible but wrong
+        # grouping where the C pass raises; the twins must error alike.
         raise IndexError("source codes must be non-negative")
     num_uniq = len(rank_of_code)
     market_of_signal = np.repeat(
@@ -267,20 +354,32 @@ def pair_accumulate(
     pair_idx: np.ndarray,
     probabilities: np.ndarray,
     num_pairs: int,
+    native: "bool | None" = None,
 ) -> np.ndarray:
     """Ordered per-pair probability sums: ``sums[pair_idx[i]] +=
     probabilities[i]`` in signal order (the scalar engine's left-to-right
-    duplicate sum)."""
+    duplicate sum). The C pass and the ``np.add.at`` twin are
+    bit-identical."""
     sums = np.zeros(num_pairs, dtype=np.float64)
+    fastpack = _fastpack_for(native)
+    if fastpack is not None:
+        fastpack.pair_accumulate(
+            np.ascontiguousarray(pair_idx),
+            np.ascontiguousarray(probabilities, dtype=np.float64),
+            sums,
+        )
+        return sums
     pair_idx = np.asarray(pair_idx)
     if len(pair_idx) and int(pair_idx.min()) < 0:
+        # np.add.at wraps negative indices; the C pass raises.
         raise IndexError("pair indices must be non-negative")
     np.add.at(sums, pair_idx, probabilities)
     return sums
 
 
 def _pack_grouping_python(markets):
-    """The grouping pass over dict payloads."""
+    """Python twin of ``fastpack.pack``: the grouping pass over dict
+    payloads."""
     pair_market: list[int] = []
     pair_source_ids: list[str] = []
     flat_probs: list[float] = []
@@ -317,16 +416,21 @@ def _pack_grouping_python(markets):
 def pack_markets(
     markets: Sequence[tuple[str, Sequence[Mapping[str, Any]]]],
     lookup: ReliabilityLookup = cold_start_lookup,
+    native: "bool | None" = None,
 ) -> PackedBatch:
     """Sort and flatten raw (market_id, signals) payloads.
 
-    The reliability ``lookup`` is a user callable, run once per unique
-    pair; the settlement planner leaves it at the cold-start default and
-    reads state from the store's rows instead.
+    The grouping pass runs in C (``fastpack.pack``) when the extension is
+    available; its Python twin gives identical outputs. The reliability
+    ``lookup`` is a user callable, run in Python once per unique pair; the
+    settlement planner leaves it at the cold-start default and reads state
+    from the store's rows instead.
     """
     markets = list(markets)  # consumed twice (grouping pass + key/lookup pass)
+    fastpack = _fastpack_for(native)
+    grouping = fastpack.pack if fastpack is not None else _pack_grouping_python
     (pair_market, pair_source_ids, flat_probs, flat_pair,
-     signals_per_market, pair_offsets) = _pack_grouping_python(markets)
+     signals_per_market, pair_offsets) = grouping(markets)
 
     market_keys = [market_id for market_id, _signals in markets]
     num_pairs = len(pair_source_ids)

@@ -45,6 +45,7 @@ wrapper.
 
 from __future__ import annotations
 
+import time
 import weakref
 from dataclasses import dataclass
 from typing import Any, Mapping, Optional, Sequence
@@ -54,10 +55,12 @@ import torch
 
 from bayesian_consensus_engine_tpu_torch.core.batch import (
     SourceCodes,
+    _columnar_native_available,
     _intern_source_codes,
     group_columns,
     pack_markets,
     pair_accumulate,
+    pair_fingerprint,
     topology_fingerprint,
 )
 from bayesian_consensus_engine_tpu_torch.analytics.bands import AnalyticsOptions
@@ -190,28 +193,32 @@ class SettlementPlan:
 def build_settlement_plan(
     store,
     payloads: Payload,
+    native: Optional[bool] = None,
     num_slots: "int | str | None" = None,
     fingerprint: "bool | bytes" = False,
 ) -> SettlementPlan:
     """Pack, intern, and lay out payloads as a dense settlement block.
 
-    Duplicate signals from one source collapse to their mean (in scalar
-    accumulation order), one interning pass maps every (source, market)
-    pair to its flat store row, and the ragged per-market pair lists
-    become a dense slot-major block. Market ids must be unique within one
-    plan.
+    One packing pass (the C ``fastpack.pack`` when available) groups,
+    sorts and flattens the raw signals — duplicate signals from one source
+    collapse to their mean, in scalar accumulation order — one interning
+    pass maps every (source, market) pair to its flat store row, and the
+    ragged per-market pair lists become a dense slot-major block. Market
+    ids must be unique within one plan.
 
-    ``num_slots`` pins the block's slot height K (error if the data needs
-    more); ``"bucket"`` pads the natural K to the next multiple of 8.
-    ``fingerprint=True`` stamps the plan with its topology digest; a
-    ``bytes`` value attaches a digest the caller already computed.
+    ``native`` forces the C packer (True), its Python twin (False), or
+    auto-detects (None); the plans are bit-identical. ``num_slots`` pins
+    the block's slot height K (error if the data needs more); ``"bucket"``
+    pads the natural K to the next multiple of 8. ``fingerprint=True``
+    stamps the plan with its topology digest; a ``bytes`` value attaches a
+    digest the caller already computed.
     """
     payloads = list(payloads)
     keys = [market_id for market_id, _ in payloads]
     if len(set(keys)) != len(keys):
         raise ValueError("duplicate market ids in one settlement plan")
 
-    packed = pack_markets(payloads)
+    packed = pack_markets(payloads, native=native)
     market_of_pair = packed.pair_market
     pair_markets = [keys[row] for row in market_of_pair.tolist()]
     rows = store.rows_for_arrays(
@@ -246,10 +253,10 @@ class StagedColumnarPlan:
 
     Everything :func:`build_settlement_plan_columnar` computes WITHOUT
     touching the store: validation, source-code resolution, the grouping
-    pass, duplicate averaging and the topology fingerprint. :meth:`bind`
-    completes it — one pair-interning pass plus the dense block fill — and
-    is the only part that mutates shared state. ``stage(...).bind(store)``
-    ≡ the one-shot builder, bit-for-bit.
+    pass (C when available), duplicate averaging and the fingerprints.
+    :meth:`bind` completes it — one pair-interning pass plus the dense
+    block fill — and is the only part that mutates shared state.
+    ``stage(...).bind(store)`` ≡ the one-shot builder, bit-for-bit.
     """
 
     market_keys: list
@@ -262,18 +269,56 @@ class StagedColumnarPlan:
     signal_pairs: np.ndarray
     num_slots: "int | str | None"
     fingerprint: "bytes | None"
+    #: whether the grouping pass ran in C.
+    used_native: bool
+    #: ``"full" | "delta" | "auto"`` — how :meth:`bind` interns. ``full``
+    #: walks every pair; ``delta`` and ``auto`` (the same today; ``auto``
+    #: is the spelling callers should use) consult the store's epoch pair
+    #: table so only the batch's pair delta walks the interner. Every mode
+    #: gives the same plans, row assignment and SQLite bytes.
+    intern_mode: str = "auto"
+    #: pair-set digest (:func:`~.core.batch.pair_fingerprint`), the epoch
+    #: table's O(1) reuse key; ``None`` skips that tier only.
+    pair_fingerprint: "bytes | None" = None
 
     def bind(self, store) -> SettlementPlan:
-        """Intern this stage's pairs into *store* (every pair, in batch
-        order — the port has no delta pair table yet) and assemble the
-        plan."""
-        rows = store.rows_for_indexed(
-            self.sid_of_rank, self.pair_rank,
-            self.market_keys, self.pair_market,
+        """Intern this stage's pairs into *store* and assemble the plan.
+
+        The delta route asks the store to resolve against its epoch pair
+        table (:meth:`~.TensorReliabilityStore.rows_for_pairs_delta`), the
+        full route interns every pair in batch order. The plan carries
+        ``plan.intern_stats``: ``{"intern_s", "mode", "pairs",
+        "matched_pairs", "interned_pairs", "fingerprint_hit"}``.
+        """
+        intern_start = time.perf_counter()
+        use_delta = self.intern_mode != "full" and hasattr(
+            store, "rows_for_pairs_delta"
         )
+        if use_delta:
+            rows, resolve_stats = store.rows_for_pairs_delta(
+                self.sid_of_rank, self.pair_rank,
+                self.market_keys, self.pair_market,
+                self.pair_offsets, self.pair_fingerprint,
+            )
+        else:
+            rows = store.rows_for_indexed(
+                self.sid_of_rank, self.pair_rank,
+                self.market_keys, self.pair_market,
+            )
+            resolve_stats = {
+                "pairs": len(self.pair_market),
+                "matched_pairs": 0,
+                "interned_pairs": len(self.pair_market),
+                "fingerprint_hit": False,
+            }
+        intern_stats = {
+            "intern_s": time.perf_counter() - intern_start,
+            "mode": "delta" if use_delta else "full",
+            **resolve_stats,
+        }
         sid_of_rank, pair_rank = self.sid_of_rank, self.pair_rank
         market_keys, pair_market = self.market_keys, self.pair_market
-        return _assemble_plan(
+        plan = _assemble_plan(
             market_keys,
             rows,
             pair_market,
@@ -286,6 +331,8 @@ class StagedColumnarPlan:
             signal_pairs=self.signal_pairs,
             fingerprint=self.fingerprint,
         )
+        object.__setattr__(plan, "intern_stats", intern_stats)
+        return plan
 
 
 def stage_settlement_plan_columnar(
@@ -295,12 +342,24 @@ def stage_settlement_plan_columnar(
     offsets,
     num_slots: "int | str | None" = None,
     fingerprint: "bool | bytes" = False,
+    native: Optional[bool] = None,
+    intern_mode: str = "auto",
 ) -> StagedColumnarPlan:
     """Validate + group one columnar batch without touching any store.
 
     *source_ids* is either one string per signal (markets back to back)
-    or a :class:`~.core.batch.SourceCodes` column.
+    or a :class:`~.core.batch.SourceCodes` column. ``native`` forces the C
+    grouping pass (True), the numpy twin (False), or auto-detects (None);
+    the outputs are bit-identical. ``intern_mode`` routes
+    :meth:`StagedColumnarPlan.bind`'s interning: ``"auto"``/``"delta"``
+    consult the store's epoch pair table (the pair-set digest is computed
+    here, so the bind pays only the resolve), ``"full"`` walks every pair.
     """
+    if intern_mode not in ("full", "delta", "auto"):
+        raise ValueError(
+            f'intern_mode={intern_mode!r}: expected "full", "delta" or '
+            '"auto"'
+        )
     market_keys = list(market_keys)
     if len(set(market_keys)) != len(market_keys):
         raise ValueError("duplicate market ids in one settlement plan")
@@ -333,12 +392,24 @@ def stage_settlement_plan_columnar(
     rank_of_code[np.asarray(order, dtype=np.int64)] = np.arange(len(order))
     sid_of_rank = [uniq[code] for code in order]
 
+    used_native = (
+        _columnar_native_available() if native is None else bool(native)
+    )
     (signal_pairs, pair_market, pair_rank, pair_offsets,
-     sums, counts) = group_columns(codes, rank_of_code, offsets, probabilities)
+     sums, counts) = group_columns(
+        codes, rank_of_code, offsets, probabilities, native=native
+    )
     pair_mean = sums / np.maximum(counts, 1)
 
     if fingerprint is True:
         fingerprint = topology_fingerprint(market_keys, source_ids, offsets)
+    pair_fp = (
+        pair_fingerprint(
+            market_keys, sid_of_rank, pair_market, pair_rank, pair_offsets
+        )
+        if intern_mode != "full"
+        else None
+    )
     return StagedColumnarPlan(
         market_keys=market_keys,
         sid_of_rank=sid_of_rank,
@@ -350,6 +421,9 @@ def stage_settlement_plan_columnar(
         signal_pairs=signal_pairs,
         num_slots=num_slots,
         fingerprint=fingerprint or None,
+        used_native=used_native,
+        intern_mode=intern_mode,
+        pair_fingerprint=pair_fp,
     )
 
 
@@ -361,6 +435,8 @@ def build_settlement_plan_columnar(
     offsets,
     num_slots: "int | str | None" = None,
     fingerprint: "bool | bytes" = False,
+    native: Optional[bool] = None,
+    intern_mode: str = "auto",
 ) -> SettlementPlan:
     """Vectorised twin of :func:`build_settlement_plan` for columnar input.
 
@@ -372,10 +448,16 @@ def build_settlement_plan_columnar(
     dict-payload path on equivalent input: pairs within a market are
     ordered by source id, and duplicate signals from one (source, market)
     average in original signal order.
+
+    ``native`` forces or forbids the C grouping pass and ``intern_mode``
+    routes the pair interning (see :func:`stage_settlement_plan_columnar`);
+    the plans are bit-identical either way. The build is
+    ``stage_settlement_plan_columnar(...).bind(store)``.
     """
     return stage_settlement_plan_columnar(
         market_keys, source_ids, probabilities, offsets,
-        num_slots=num_slots, fingerprint=fingerprint,
+        num_slots=num_slots, fingerprint=fingerprint, native=native,
+        intern_mode=intern_mode,
     ).bind(store)
 
 

@@ -12,7 +12,9 @@ store's device. Three access tiers:
   1. **Record API** — get/update/list/put with the reference's cold-start
      semantics, scalar host math.
   2. **Row API** — ``rows_for_pairs`` / ``rows_for_arrays`` /
-     ``rows_for_indexed``: one interning pass per batch.
+     ``rows_for_indexed``: one interning pass per batch;
+     ``rows_for_pairs_delta`` interns only a batch's delta against the
+     last bound batch (the epoch pair table).
   3. **Device tier** — ``take_device_state`` hands the flat state to the
      settle kernel, ``defer_absorb`` adopts the settled state as pending,
      and the host merges it lazily (``sync``), fetching only the rows a
@@ -21,12 +23,14 @@ store's device. Three access tiers:
      (no flat state; ``pending_overlaps`` says when it must sync first).
 
 Durability: ``from_sqlite`` / ``flush_to_sqlite`` keep on-disk checkpoints
-byte-compatible with the JAX package's and the reference's DB files.
+byte-compatible with the JAX package's and the reference's DB files. With
+the port's C interner (``native/internmap.c``) a flush to a file sorts and
+writes in C against a dlopen()ed ``libsqlite3``; otherwise it goes through
+the ``sqlite3`` module, with the same records.
 
 The device is explicit (``device=None`` means CUDA, and a machine without
-CUDA raises unless ``device="cpu"`` was asked for). Not ported yet: the
-delta pair table (``rows_for_pairs_delta``), asynchronous flushes, the
-journal, the orbax checkpoint and the native C writer.
+CUDA raises unless ``device="cpu"`` was asked for). Not ported yet:
+asynchronous flushes, the journal and the orbax checkpoint.
 """
 
 from __future__ import annotations
@@ -48,7 +52,10 @@ from bayesian_consensus_engine_tpu_torch.state.sqlite_store import (
     SQLiteReliabilityStore,
     interchange_fingerprint,
 )
-from bayesian_consensus_engine_tpu_torch.state.update_math import apply_outcome
+from bayesian_consensus_engine_tpu_torch.state.update_math import (
+    apply_outcome,
+    apply_outcome_batch,
+)
 from bayesian_consensus_engine_tpu_torch.utils.config import (
     DECAY_HALF_LIFE_DAYS,
     DECAY_MINIMUM,
@@ -59,11 +66,13 @@ from bayesian_consensus_engine_tpu_torch.utils.device import (
     resolve_device,
     resolve_dtype,
 )
+from bayesian_consensus_engine_tpu_torch.utils import interning as _interning
 from bayesian_consensus_engine_tpu_torch.utils.interning import make_pair_interner
 from bayesian_consensus_engine_tpu_torch.utils.timeconv import (
     NEVER,
     days_to_iso,
     iso_to_days,
+    now_days,
     utc_now_iso,
 )
 
@@ -107,6 +116,54 @@ def _locked(method):
             return method(self, *args, **kwargs)
 
     return wrapper
+
+
+class _PairEpochTable:
+    """One epoch of resolved pair interning — the delta-interning cache.
+
+    Holds the LAST bound batch's pair columns (market table in payload
+    order, code-point-sorted source table, grouped (rank, market) pair
+    arrays with CSR offsets), the store rows that batch resolved to, and
+    the batch's pair-set fingerprint (:func:`~.core.batch.pair_fingerprint`).
+    A later batch interns only its delta against this table: an equal
+    fingerprint reuses ``rows`` outright; otherwise unchanged markets match
+    per market (:func:`~.utils.interning.delta_match_rows`) and only the
+    mismatched markets' pairs walk the interner. Every mapping in here was
+    witnessed by a real intern pass against this store, and the interner
+    is append-only, so a cached (pair → row) can never go stale within one
+    store.
+    """
+
+    __slots__ = (
+        "fingerprint", "market_keys", "src_table", "pair_rank",
+        "pair_market", "pair_offsets", "rows", "_src_index", "_mkt_index",
+    )
+
+    def __init__(self, fingerprint, market_keys, src_table, pair_rank,
+                 pair_market, pair_offsets, rows) -> None:
+        self.fingerprint = fingerprint
+        self.market_keys = market_keys
+        self.src_table = src_table
+        self.pair_rank = pair_rank
+        self.pair_market = pair_market
+        self.pair_offsets = pair_offsets
+        self.rows = rows
+        self._src_index = None
+        self._mkt_index = None
+
+    def src_index(self) -> dict:
+        """source id → rank in this epoch's table (built lazily: the
+        same-table fast path never needs it)."""
+        if self._src_index is None:
+            self._src_index = {s: i for i, s in enumerate(self.src_table)}
+        return self._src_index
+
+    def market_index(self) -> dict:
+        """market id → position in this epoch's market table (lazy: a
+        stream with a stable market list never builds it)."""
+        if self._mkt_index is None:
+            self._mkt_index = {k: i for i, k in enumerate(self.market_keys)}
+        return self._mkt_index
 
 
 class DeviceReliabilityState(NamedTuple):
@@ -156,6 +213,8 @@ class TensorReliabilityStore:
         self._dirty = np.zeros(capacity, dtype=bool)
         self._last_flush_path: Optional[str] = None
         self._last_flush_fp = None
+        # The last bound batch's resolved pairs (rows_for_pairs_delta).
+        self._pair_epoch: Optional[_PairEpochTable] = None
         self._host_lock = threading.RLock()
 
     # -- row management ------------------------------------------------------
@@ -503,14 +562,206 @@ class TensorReliabilityStore:
     ) -> np.ndarray:
         """Interning twin of :meth:`rows_for_arrays` for tabled ids: pairs
         arrive as (unique string table, int32 codes) per half, in batch
-        order. Always allocates."""
+        order. The C interner resolves each table entry once; without it
+        the columns are materialised. Always allocates."""
+        return self._intern_indexed(
+            source_table, source_codes, market_table, market_codes,
+            sharded=False,
+        )
+
+    def _intern_indexed(
+        self, source_table, source_codes, market_table, market_codes,
+        sharded: bool = True,
+    ) -> np.ndarray:
+        """One interning pass over (table, code) pair columns, in batch
+        order (caller holds the lock). ``sharded=True`` lets the pass split
+        its probes across worker threads when the miss set is large AND
+        the table already holds a comparable key count (probing an almost
+        empty table re-walks what the serial insert would). The commit
+        stays serial and ordered either way, so the rows are the same.
+        """
+        interner = self._pairs
+        count = len(source_codes)
         try:
-            return self._pairs.intern_arrays(
-                [source_table[c] for c in np.asarray(source_codes).tolist()],
-                [market_table[c] for c in np.asarray(market_codes).tolist()],
+            if not _interning.probe_supported(interner):
+                return interner.intern_arrays(
+                    [source_table[c] for c in np.asarray(source_codes).tolist()],
+                    [market_table[c] for c in np.asarray(market_codes).tolist()],
+                )
+            if (
+                sharded
+                and count >= _interning.SHARD_MIN_PAIRS
+                and len(interner) * 2 >= count
+                and _interning.intern_workers() > 1
+            ):
+                return interner.intern_indexed_sharded(
+                    source_table, source_codes, market_table, market_codes
+                )
+            return interner.intern_arrays_indexed(
+                source_table, source_codes, market_table, market_codes
             )
         finally:
             self._resync_sidecars()
+
+    @_locked
+    def rows_for_pairs_delta(
+        self,
+        source_table: Sequence[str],
+        source_codes: np.ndarray,
+        market_table: Sequence[str],
+        market_codes: np.ndarray,
+        pair_offsets: np.ndarray,
+        fingerprint: "bytes | None" = None,
+    ) -> "tuple[np.ndarray, dict]":
+        """Delta-interning twin of :meth:`rows_for_indexed`: consult the
+        epoch pair table so only the batch's pair delta walks the
+        interner. Returns ``(rows, stats)``.
+
+        Three tiers, cheapest first:
+
+        1. *fingerprint hit* — the batch's pair-set fingerprint equals the
+           table's: the previous epoch's rows apply verbatim.
+        2. *per-market match* — unchanged markets (same id, same ordered
+           source set) copy their rows from the table
+           (:func:`~.utils.interning.delta_match_rows`).
+        3. *miss intern* — the remaining pairs walk the interner in batch
+           order (sharded probe + serial ordered commit when the miss set
+           is large and mostly re-probes known keys).
+
+        Every matched row was witnessed by a real intern against this
+        store's append-only interner, and misses intern in ascending batch
+        position, so the rows (and the row assignment and SQLite bytes
+        downstream) equal one full :meth:`rows_for_indexed` pass over the
+        same columns. The resolve then becomes the new epoch table.
+
+        ``stats``: ``pairs`` (batch total), ``matched_pairs`` (served from
+        the table), ``interned_pairs`` (walked the interner),
+        ``fingerprint_hit``.
+        """
+        source_codes = np.ascontiguousarray(source_codes, dtype=np.int32)
+        market_codes = np.ascontiguousarray(market_codes, dtype=np.int32)
+        pair_offsets = np.ascontiguousarray(pair_offsets, dtype=np.int64)
+        total = len(source_codes)
+        cache = self._pair_epoch
+        if (
+            cache is not None
+            and fingerprint is not None
+            and cache.fingerprint == fingerprint
+        ):
+            return cache.rows, {
+                "pairs": total,
+                "matched_pairs": total,
+                "interned_pairs": 0,
+                "fingerprint_hit": True,
+            }
+        if cache is None:
+            rows = np.asarray(self._intern_indexed(
+                source_table, source_codes, market_table, market_codes
+            ))
+            interned = total
+        else:
+            if market_table == cache.market_keys:
+                prev_of = None
+            else:
+                index = cache.market_index()
+                prev_of = np.fromiter(
+                    (index.get(k, -1) for k in market_table),
+                    np.int64, len(market_table),
+                )
+            if source_table == cache.src_table:
+                rank_map = None
+            else:
+                index = cache.src_index()
+                rank_map = np.fromiter(
+                    (index.get(s, -1) for s in source_table),
+                    np.int32, len(source_table),
+                )
+            rows = _interning.delta_match_rows(
+                rank_map, source_codes, pair_offsets,
+                cache.pair_rank, cache.pair_offsets, prev_of, cache.rows,
+            )
+            miss = np.flatnonzero(rows < 0)
+            if miss.size:
+                rows[miss] = self._intern_indexed(
+                    source_table, source_codes[miss],
+                    market_table, market_codes[miss],
+                )
+            interned = int(miss.size)
+        rows = np.ascontiguousarray(rows, dtype=np.int32)
+        rows.setflags(write=False)
+        self._pair_epoch = _PairEpochTable(
+            fingerprint, market_table, source_table,
+            source_codes, market_codes, pair_offsets, rows,
+        )
+        return rows, {
+            "pairs": total,
+            "matched_pairs": total - interned,
+            "interned_pairs": interned,
+            "fingerprint_hit": False,
+        }
+
+    @_locked
+    def batch_get_reliability(
+        self,
+        pairs: Sequence[tuple[str, str]],
+        apply_decay: bool = False,
+        now: Optional[float] = None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Vectorised read → (reliability, confidence, exists) arrays.
+
+        Decay (when requested) is evaluated at the single instant ``now``
+        (epoch-days; defaults to the current time) for every pair, so a
+        batch is self-consistent.
+        """
+        self._sync_pending()
+        rows = self.rows_for_pairs(pairs, allocate=False)
+        valid = rows >= 0
+        safe = np.where(valid, rows, 0)
+        exists = self._exists[safe] & valid
+        rel = np.where(exists, self._rel[safe], DEFAULT_RELIABILITY)
+        conf = np.where(exists, self._conf[safe], DEFAULT_CONFIDENCE)
+        if apply_decay:
+            stamp = np.where(exists, self._days[safe], NEVER)
+            current = now_days() if now is None else now
+            elapsed = np.maximum(current - stamp, 0.0)
+            eligible = exists & (stamp > NEVER) & (elapsed > 0)
+            factor = np.exp2(-elapsed / DECAY_HALF_LIFE_DAYS)
+            decayed = np.clip(
+                DECAY_MINIMUM + (rel - DECAY_MINIMUM) * factor, DECAY_MINIMUM, 1.0
+            )
+            rel = np.where(eligible, decayed, rel)
+        return rel, conf, exists
+
+    @_locked
+    def batch_update_reliability(
+        self,
+        pairs: Sequence[tuple[str, str]],
+        correct: Sequence[bool],
+    ) -> None:
+        """Vectorised post-outcome update for any number of pairs.
+
+        Same per-element math as the scalar path (undecayed read, capped
+        delta, clamped, confidence growth); every touched row is stamped
+        with one shared timestamp. Duplicate pairs in one call apply once
+        (last direction wins), unlike sequential scalar calls.
+        """
+        self._sync_pending()
+        rows = self.rows_for_pairs(pairs, allocate=True)
+        correct_arr = np.asarray(correct, dtype=bool)
+        stamp_iso = utc_now_iso()
+        stamp_days = iso_to_days(stamp_iso)
+
+        new_rel, new_conf = apply_outcome_batch(
+            self._rel[rows], self._conf[rows], correct_arr
+        )
+        self._rel[rows] = new_rel
+        self._conf[rows] = new_conf
+        self._days[rows] = stamp_days
+        self._exists[rows] = True
+        self._dirty[rows] = True
+        for row in rows:
+            self._iso[row] = stamp_iso
+        self._invalidate()
 
     @_locked
     def host_confidences(self, rows: np.ndarray) -> np.ndarray:
@@ -562,14 +813,16 @@ class TensorReliabilityStore:
     # -- device tier ---------------------------------------------------------
 
     @_locked
-    def device_state(self, dtype=None):
+    def device_state(self, dtype=None, donate: bool = False):
         """The flat device state, exactly ``len(store)`` rows, cached until
         the next host write. Returns ``(DeviceReliabilityState, epoch0)``
         with ``updated_days`` relative to ``epoch0``. Pending settlement
         state is synced first, so the values are host-exact.
 
         The tensors are the store's cache; the next settle may take them
-        over and update them in place.
+        over and update them in place. ``donate=True`` hands them to the
+        caller instead: the store forgets its cache at once and never
+        touches those tensors again (they stay on the store's device).
         """
         self._sync_pending()
         wanted = resolve_dtype(dtype)
@@ -593,11 +846,16 @@ class TensorReliabilityStore:
                     )
                     self._device_cache = (state, cached_epoch0)
                     self._cache_conf_drifted = False
-                return self._device_cache
+                cached = self._device_cache
+                if donate:
+                    self._device_cache = None
+                return cached
 
-        self._device_cache = self._build_device_export(len(self._pairs), wanted)
-        self._cache_conf_drifted = False
-        return self._device_cache
+        exported = self._build_device_export(len(self._pairs), wanted)
+        if not donate:
+            self._device_cache = exported
+            self._cache_conf_drifted = False
+        return exported
 
     def _build_device_export(self, length: int, dtype: torch.dtype):
         """Host→device build of the first *length* rows (relative stamps).
@@ -784,6 +1042,32 @@ class TensorReliabilityStore:
             epoch0,
         )
 
+    @_locked
+    def absorb_rows(
+        self,
+        rows: np.ndarray,
+        reliability: np.ndarray,
+        confidence: np.ndarray,
+        updated_days: np.ndarray,
+        exists: np.ndarray,
+        epoch0: float,
+    ) -> None:
+        """Absorb device results for a subset of flat rows.
+
+        Same merge semantics as :meth:`absorb`, touching only *rows* (host
+        arrays or tensors; *rows* must be unique, as a settlement plan's
+        rows are).
+        """
+        self._sync_pending()
+        self._merge_device_rows(
+            _to_numpy(rows),
+            _to_numpy(reliability),
+            _to_numpy(confidence),
+            _to_numpy(updated_days),
+            _to_numpy(exists).astype(bool),
+            epoch0,
+        )
+
     def _merge_device_rows(
         self, idx, new_rel, new_conf, new_days_rel, new_exists, epoch0
     ) -> None:
@@ -942,8 +1226,27 @@ class TensorReliabilityStore:
     def _write_sqlite_rows(
         self, db_path, selected: np.ndarray, incremental: bool, used: int
     ) -> int:
-        """Write *selected* rows in (source_id, market_id) order through the
-        sqlite3 module; returns the row count."""
+        """Write *selected* rows in (source_id, market_id) order; returns
+        the row count.
+
+        With the C interner and a file target, the key-order sort and the
+        row writes run in C against a dlopen()ed libsqlite3
+        (``sorted_rows`` / ``flush_sqlite``): the same schema, statements,
+        WAL mode and single transaction as the sqlite3-module route below,
+        and the same records. Availability is checked up front, so a real
+        write error (a locked file, a full disk) propagates instead of
+        running the flush again through the fallback.
+        """
+        if (
+            str(db_path) != ":memory:"
+            and getattr(self._pairs, "sqlite_writer_available", bool)()
+        ):
+            order = self._pairs.sorted_rows(
+                np.ascontiguousarray(selected, dtype=np.int32)
+            )
+            return self._pairs.flush_sqlite(
+                str(db_path), order, self._rel, self._conf, self._iso
+            )
         rows, keys = self._ordered_flush_rows(selected, incremental, used)
         order = np.asarray(rows, dtype=np.int64)
         rel = self._rel[order].tolist()

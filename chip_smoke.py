@@ -51,17 +51,45 @@ Phases, one JSON line each:
                     views, band roots and count bit-equal (a NaN as a NaN),
                     raw consensus sums within tolerance; each launch must
                     report the band-tree depth its K_loc calls for.
-7. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
+7. ``native``       build the port's C extensions (``fastpack``,
+                    ``internmap``) from the package's sources with the
+                    system ``cc``: whether they built, the build seconds,
+                    the compiler, ``Python.h``, ``libsqlite3`` (the C
+                    SQLite writer's runtime) and, if the Python twins ran,
+                    the reason the build module recorded. A failing build
+                    with a compiler and ``Python.h`` present fails the run.
+8. ``main_path``    1,000,000 markets, Poisson(3)+1 signals each from a
                     10,000-source universe (seed 7), through
-                    ``build_settlement_plan_columnar`` on a CUDA store, two
-                    chained 20-step ``settle`` calls, the consensus fetch,
-                    ``store.sync()`` and ``flush_to_sqlite``. The kernel
-                    launch count must rise by exactly one per settle, each
-                    settle's consensus must match the plain version on the
-                    inputs that settle was given, the first settle's state
-                    must be bit-equal to the plain version's, and the flush
-                    must write every row.
-8. ``analytics_path`` the main path's plan and store (1M markets) through a
+                    ``build_settlement_plan_columnar`` on a CUDA store (the
+                    default host route: the C grouping pass, interner and
+                    SQLite writer when they built, ``intern_mode="auto"``),
+                    two chained 20-step ``settle`` calls, the consensus
+                    fetch, ``store.sync()`` and ``flush_to_sqlite``. The
+                    kernel launch count must rise by exactly one per settle,
+                    each settle's consensus must match the plain version on
+                    the inputs that settle was given, the first settle's
+                    state must be bit-equal to the plain version's, and the
+                    flush must write every row.
+9. ``host_routes``  a second store from the same data on the Python route
+                    (``native=False`` under ``BCE_NO_NATIVE=1``: the dict
+                    interner, the numpy grouping, the sqlite3 module)
+                    through the same two settles, sync and flush, timed
+                    like the main path: the plans' ``slot_rows`` and the
+                    consensus equal, and the two checkpoints'
+                    ``SELECT * FROM sources ORDER BY source_id, market_id``
+                    of equal sha256; then both routes on a 50,000-market
+                    cut, their ``iterdump()`` equal (the CREATE statement's
+                    whitespace normalised: the C writer's schema text is
+                    one line).
+10. ``delta_check`` a second batch drifting from the main path's (10% of
+                    markets replaced, 5% of the rest given new signals, the
+                    order shuffled) bound with ``intern_mode="auto"`` and
+                    ``"full"`` on twin stores that bound the main path's
+                    batch first: equal rows, equal checkpoint sha256 after
+                    a 2-step settle of each plan, the delta route's
+                    ``matched_pairs`` above 0, and a re-bind of the same
+                    batch that hits the pair fingerprint.
+11. ``analytics_path`` the main path's plan and store (1M markets) through a
                     resident ``ShardedSettlementSession``: two chained
                     20-step ``settle_with_analytics`` calls with the default
                     ``AnalyticsOptions``, then ``close`` (which syncs the
@@ -73,7 +101,7 @@ Phases, one JSON line each:
                     ``settle``, session ``settle`` and session
                     ``settle_with_analytics`` must leave byte-equal SQLite
                     files and bit-equal consensus.
-9. ``inference_path`` the same plan and store through a session with a
+12. ``inference_path`` the same plan and store through a session with a
                     real graph, made from the seed: 250,000 mutually
                     exclusive events of 4 consecutive markets
                     (``MarketBlocks``) and 2 correlation edges per market to
@@ -92,7 +120,7 @@ Phases, one JSON line each:
                     Then, on two fresh stores of 20,000 markets, the session
                     with a graph and without one must leave byte-equal
                     SQLite files.
-10. ``sharded_path`` the main path's plan and store (1M markets) through a
+13. ``sharded_path`` the main path's plan and store (1M markets) through a
                     session on a (1, 4) mesh of the one card
                     (``make_mesh((1, 4), [cuda:0] * 4)``: K padded to a
                     multiple of 4, K_loc slots a shard): two chained 20-step
@@ -110,7 +138,7 @@ Phases, one JSON line each:
                     leave byte-equal SQLite files, and one (1, 4) call with
                     the inference path's graph must run ``bp_sweep`` on the
                     merged consensus (bit-equal to its plain version).
-11. ``kernels``     each kernel's launches on its path, error, time (CUDA
+14. ``kernels``     each kernel's launches on its path, error, time (CUDA
                     events over 21 back-to-back launches after warm-up, each
                     on fresh input copies, issued while the stream waits on
                     the card so that host time between launches is not
@@ -149,8 +177,11 @@ CUDA and a directory without the package.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import os
+import sqlite3
 import subprocess
 import sys
 import tempfile
@@ -164,6 +195,9 @@ HBM_BYTES_PER_S = 3.35e12
 NOW = 20000.25  # epoch-days
 MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000, 4, 10_000, 7, 20
 PARITY_MARKETS = 20_000
+# The host routes' full iterdump() comparison, and the delta check's drift:
+# a tenth of the markets replaced, a twentieth of the rest redrawn.
+DUMP_MARKETS, REPLACED, REDRAWN = 50_000, 0.10, 0.05
 # The inference path's graph and sweep.
 EVENT_SIZE, CORRELATIONS, BP_TOL, BP_MAX_STEPS = 4, 2, 1e-5, 24
 # partials_check's K_loc, each with the band-tree depth of the kernel
@@ -178,6 +212,63 @@ TOL = {np.dtype(np.float32): dict(rtol=1e-5, atol=1e-6),
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def table_digest(path) -> str:
+    """sha256 of ``SELECT * FROM sources ORDER BY source_id, market_id``
+    (each row's repr: floats exactly)."""
+    digest = hashlib.sha256()
+    with contextlib.closing(sqlite3.connect(path)) as conn:
+        cursor = conn.execute(
+            "SELECT * FROM sources ORDER BY source_id, market_id")
+        while rows := cursor.fetchmany(1 << 16):
+            digest.update(repr(rows).encode())
+    return digest.hexdigest()
+
+
+def dump_lines(path) -> list:
+    """``iterdump()`` of a checkpoint with the CREATE statements'
+    whitespace normalised: the C writer's schema text is one line, the
+    sqlite3 module's several (the same columns, types and keys)."""
+    with contextlib.closing(sqlite3.connect(path)) as conn:
+        return [" ".join(line.split()) if line.startswith("CREATE") else line
+                for line in conn.iterdump()]
+
+
+def segment_index(starts, lengths):
+    """Flat indices of the segments [starts[i], starts[i] + lengths[i])."""
+    ends = np.cumsum(lengths)
+    return np.repeat(starts - (ends - lengths), lengths) + np.arange(
+        int(ends[-1]) if len(ends) else 0)
+
+
+def drifted_batch(rng, market_keys, counts, codes):
+    """The next batch of a drifting stream: REPLACED of the markets
+    replaced by new ones, REDRAWN of the rest given new signals, every
+    other market's sources kept (new probabilities), and the market order
+    shuffled. Returns ``(keys, codes, probs, offsets)``."""
+    num_markets = len(market_keys)
+    replaced = np.zeros(num_markets, dtype=bool)
+    replaced[rng.choice(num_markets, int(num_markets * REPLACED),
+                        replace=False)] = True
+    rest = np.flatnonzero(~replaced)
+    fresh = replaced.copy()
+    fresh[rng.choice(rest, int(len(rest) * REDRAWN), replace=False)] = True
+    new_counts = np.where(fresh, rng.poisson(MEAN_SIGNALS - 1, num_markets) + 1,
+                          counts)
+    new_offsets = np.concatenate([[0], np.cumsum(new_counts)])
+    new_codes = np.empty(int(new_offsets[-1]), dtype=codes.dtype)
+    kept = np.repeat(~fresh, new_counts)
+    starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    new_codes[kept] = codes[segment_index(starts[~fresh], counts[~fresh])]
+    new_codes[~kept] = rng.integers(0, SOURCES, int((~kept).sum()))
+    perm = rng.permutation(num_markets)
+    order = segment_index(new_offsets[:-1][perm], new_counts[perm])
+    keys = [f"market-new-{m}" if replaced[m] else market_keys[m]
+            for m in perm.tolist()]
+    out_codes = new_codes[order]
+    return (keys, out_codes, rng.random(len(out_codes)),
+            np.concatenate([[0], np.cumsum(new_counts[perm])]))
 
 
 def check_equal(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
@@ -694,7 +785,26 @@ def main() -> int:
     emit("partials_check", cases=cases, markets=1037,
          max_abs_sums_err=partials_err)
 
-    # 7. main_path
+    # 7. native: the port's C extensions, built from the checkout's sources
+    # (the Python twins run only without a compiler or Python.h, or with
+    # BCE_NO_NATIVE set; a failing build raises).
+    from bayesian_consensus_engine_tpu_torch.native import build as native_build
+
+    native_modules = {name: native_build.load(name)
+                      for name in native_build.SOURCES}
+    native_report = native_build.report()
+    if native_report["compiler"] and native_report["python_h"] \
+            and not native_build.native_disabled() and not native_report["built"]:
+        raise AssertionError(f"the C extensions did not build: {native_report}")
+    internmap = native_modules["internmap"]
+    emit("native", **native_report,
+         libsqlite3=bool(internmap and internmap.sqlite_writer_available()),
+         libraries=[os.path.relpath(module.__file__)
+                    for module in native_modules.values() if module])
+
+    # 8. main_path, on the default host route (the C packer, interner and
+    # SQLite writer when they built; intern_mode="auto").
+    work = tempfile.TemporaryDirectory()
     seconds = {}
     start = time.perf_counter()
     data_rng = np.random.default_rng(SEED)
@@ -742,10 +852,10 @@ def main() -> int:
     start = time.perf_counter()
     store.sync()
     seconds["sync"] = time.perf_counter() - start
-    with tempfile.TemporaryDirectory() as tmp:
-        start = time.perf_counter()
-        flushed = store.flush_to_sqlite(os.path.join(tmp, "settled.db"))
-        seconds["flush"] = time.perf_counter() - start
+    main_db = os.path.join(work.name, "settled.db")
+    start = time.perf_counter()
+    flushed = store.flush_to_sqlite(main_db)
+    seconds["flush"] = time.perf_counter() - start
     launches = settle_kernel.LAUNCHES
 
     if launches != 2:
@@ -791,10 +901,163 @@ def main() -> int:
     emit("main_path", markets=MARKETS, pairs=len(store),
          slots=int(plan.num_slots), steps=STEPS, launches=launches,
          flushed_rows=flushed, max_abs_consensus_err=main_err,
-         seconds=seconds, cut=None,
+         seconds=seconds, cut=None, interner=type(store._pairs).__name__,
+         intern_stats=plan.intern_stats,
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 8. analytics_path: the main path's plan and store through a resident
+    # 9. host_routes: a second store built from the same data on the Python
+    # route (native=False under BCE_NO_NATIVE=1: the dict interner, the
+    # numpy grouping, the sqlite3 module), through the same two settles,
+    # sync and flush. The plans' rows, the consensus and the checkpoints'
+    # ordered rows must be equal; then a full iterdump() comparison of the
+    # two routes on a DUMP_MARKETS cut.
+    def python_route(run):
+        previous = os.environ.get("BCE_NO_NATIVE")
+        os.environ["BCE_NO_NATIVE"] = "1"
+        try:
+            return run()
+        finally:
+            if previous is None:
+                del os.environ["BCE_NO_NATIVE"]
+            else:
+                os.environ["BCE_NO_NATIVE"] = previous
+
+    def drive_python_route():
+        timings = {}
+        settle_kernel.LAUNCHES = 0
+        start = time.perf_counter()
+        py_store = TensorReliabilityStore()
+        py_plan = pipeline.build_settlement_plan_columnar(
+            py_store, market_keys, sources, probs, offsets, native=False)
+        timings["plan"] = time.perf_counter() - start
+        results = []
+        for step, now in enumerate((NOW, NOW + STEPS), 1):
+            start = time.perf_counter()
+            results.append(pipeline.settle(py_store, py_plan, outcomes,
+                                           steps=STEPS, now=now))
+            results[-1].fence()
+            timings[f"settle_{step}"] = time.perf_counter() - start
+        start = time.perf_counter()
+        py_store.sync()
+        timings["sync"] = time.perf_counter() - start
+        start = time.perf_counter()
+        written = py_store.flush_to_sqlite(py_db)
+        timings["flush"] = time.perf_counter() - start
+        return (timings, py_plan, [r.consensus for r in results], written,
+                type(py_store._pairs).__name__, settle_kernel.LAUNCHES)
+
+    py_db = os.path.join(work.name, "python.db")
+    (py_seconds, py_plan, py_consensus, py_flushed, py_interner,
+     py_launches) = python_route(drive_python_route)
+    if py_interner != "IdInterner" or py_launches != 2:
+        raise AssertionError(f"python route: {py_interner}, {py_launches} "
+                             "launches for 2 settles")
+    if not np.array_equal(py_plan.slot_rows, plan.slot_rows):
+        raise AssertionError("the two routes' plans differ in slot_rows")
+    for got, want in zip(py_consensus, (consensus_1, consensus_2)):
+        if not np.array_equal(got, want, equal_nan=True):
+            raise AssertionError("the two routes' consensus differs")
+    del py_plan, py_consensus
+    digests = {"native": table_digest(main_db), "python": table_digest(py_db)}
+    if py_flushed != flushed or digests["native"] != digests["python"]:
+        raise AssertionError(f"the two routes' checkpoints differ: {flushed} "
+                             f"and {py_flushed} rows, {digests}")
+    # The C flush's key sort alone (the rest of its seconds is SQLite's).
+    sort_seconds = None
+    if hasattr(store._pairs, "sorted_rows"):
+        start = time.perf_counter()
+        store._pairs.sorted_rows(np.arange(len(store), dtype=np.int32))
+        sort_seconds = time.perf_counter() - start
+    cut = offsets[DUMP_MARKETS]
+    dumps = {}
+
+    def dump_route(route, native):
+        small = TensorReliabilityStore()
+        small_plan = pipeline.build_settlement_plan_columnar(
+            small, market_keys[:DUMP_MARKETS],
+            SourceCodes(codes[:cut], sources.table),
+            probs[:cut], offsets[: DUMP_MARKETS + 1], native=native,
+        )
+        for now in (NOW, NOW + STEPS):
+            pipeline.settle(small, small_plan, outcomes[:DUMP_MARKETS],
+                            steps=STEPS, now=now)
+        path = os.path.join(work.name, f"cut-{route}.db")
+        small.flush_to_sqlite(path)
+        return dump_lines(path)
+
+    dumps["native"] = dump_route("native", None)
+    dumps["python"] = python_route(lambda: dump_route("python", False))
+    if dumps["native"] != dumps["python"]:
+        raise AssertionError("the two routes' iterdump() differ on the cut")
+    emit("host_routes", markets=MARKETS,
+         seconds={"native": {"plan": seconds["plan"], "flush": seconds["flush"],
+                             "flush_sort": sort_seconds},
+                  "python": py_seconds},
+         interners={"native": type(store._pairs).__name__, "python": py_interner},
+         launches=py_launches, slot_rows_equal=True, sqlite_rows=flushed,
+         sqlite_sha256=digests["native"], dump_markets=DUMP_MARKETS,
+         dump_lines=len(dumps["native"]))
+    del dumps
+
+    # 10. delta_check: a drifting second batch bound with intern_mode="auto"
+    # and "full" on twin stores, both having bound the main path's batch
+    # first: equal rows, equal checkpoints after a settle of each plan, the
+    # delta route's matched pairs, and a re-bind that hits the fingerprint.
+    delta_rng = np.random.default_rng(SEED + 2)
+    second = drifted_batch(delta_rng, market_keys, counts, codes)
+    second_outcomes = delta_rng.random(MARKETS) < 0.5
+    batches = ((market_keys, sources, probs, offsets),
+               (second[0], SourceCodes(second[1], sources.table), second[2],
+                second[3]))
+    delta_seconds, delta_plans, delta_digests = {}, {}, {}
+    settle_kernel.LAUNCHES = 0
+    for mode in ("auto", "full"):
+        twin = TensorReliabilityStore()
+        delta_plans[mode] = []
+        for number, batch in enumerate(batches, 1):
+            start = time.perf_counter()
+            staged = pipeline.stage_settlement_plan_columnar(
+                *batch, intern_mode=mode)
+            delta_seconds[f"{mode}_stage_{number}"] = time.perf_counter() - start
+            start = time.perf_counter()
+            delta_plans[mode].append(staged.bind(twin))
+            delta_seconds[f"{mode}_bind_{number}"] = time.perf_counter() - start
+        if mode == "auto":
+            start = time.perf_counter()
+            rebound = pipeline.stage_settlement_plan_columnar(
+                *batches[1], intern_mode="auto").bind(twin)
+            delta_seconds["auto_rebind_2"] = time.perf_counter() - start
+        for bound, batch_outcomes, now in zip(
+                delta_plans[mode], (outcomes, second_outcomes), (NOW, NOW + 2)):
+            pipeline.settle(twin, bound, batch_outcomes, steps=2, now=now).fence()
+        twin.sync()
+        path = os.path.join(work.name, f"delta-{mode}.db")
+        twin.flush_to_sqlite(path)
+        delta_digests[mode] = table_digest(path)
+        del twin
+    delta_launches = settle_kernel.LAUNCHES
+    stats = delta_plans["auto"][1].intern_stats
+    for got, want in zip(delta_plans["auto"], delta_plans["full"]):
+        if not np.array_equal(got.slot_rows, want.slot_rows):
+            raise AssertionError("delta and full interning gave other rows")
+    if not np.array_equal(rebound.slot_rows, delta_plans["auto"][1].slot_rows):
+        raise AssertionError("the re-bound batch resolved to other rows")
+    if delta_digests["auto"] != delta_digests["full"]:
+        raise AssertionError(f"delta and full checkpoints differ: {delta_digests}")
+    if stats["mode"] != "delta" or stats["matched_pairs"] <= 0 \
+            or stats["fingerprint_hit"] \
+            or not rebound.intern_stats["fingerprint_hit"] \
+            or delta_launches != 4:
+        raise AssertionError(f"delta stats {stats}, re-bind "
+                             f"{rebound.intern_stats}, {delta_launches} launches")
+    emit("delta_check", markets=MARKETS, replaced=REPLACED, redrawn=REDRAWN,
+         stats=stats, full_stats=delta_plans["full"][1].intern_stats,
+         rebind_stats=rebound.intern_stats, launches=delta_launches,
+         seconds=delta_seconds, sqlite_sha256=delta_digests["auto"])
+    del delta_plans, rebound, second, batches
+    work.cleanup()
+
+    # 11. analytics_path: the main path's plan and store through a resident
     # session. Each one-pass call's inputs are copied as the loop hands
     # them to the kernel (the kernel updates the state in place), so that
     # the plain version can be run on them afterwards; the copies are made
@@ -908,7 +1171,7 @@ def main() -> int:
          parity_markets=PARITY_MARKETS, parity_sqlite_bytes=len(parity_dumps[0]),
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 9. inference_path: the same plan and store through a session with a
+    # 12. inference_path: the same plan and store through a session with a
     # real graph. Each sweep's seeds and outputs are copied as the loop
     # hands them to the kernel, so that the plain version can be run on
     # them afterwards; the copies are made inside the timed calls.
@@ -1055,7 +1318,7 @@ def main() -> int:
          parity_sqlite_bytes=len(graph_dumps[0]),
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 10. sharded_path: the main path's plan and store through a session on
+    # 13. sharded_path: the main path's plan and store through a session on
     # a (1, 4) mesh of the one card. Each partials launch's inputs are
     # copied as the loop hands them to the kernel (it updates the state in
     # place), and its outputs after it, so that the plain version can be
@@ -1242,7 +1505,7 @@ def main() -> int:
          graph_launches=graph_launches,
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 11. kernels: each kernel and its plain version timed on its path's
+    # 14. kernels: each kernel and its plain version timed on its path's
     # inputs (fresh clones each run, so every run does the same work). The
     # chained (warm) settle, where every row exists and is read, is the
     # steady state and the headline; the first (cold) settle reads no

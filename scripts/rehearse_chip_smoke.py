@@ -1,0 +1,71 @@
+"""Rehearse chip_smoke.py's host phases on the CPU, at a small size.
+
+Usage: python scripts/rehearse_chip_smoke.py [MARKETS] [DUMP_MARKETS]
+
+Runs chip_smoke's ``native``, ``main_path``, ``host_routes`` and
+``delta_check`` phases (7 to 10) on CPU stores, from the repository root.
+The script's ``main()`` is cut to its import block and those phases,
+``"cuda"`` becomes ``"cpu"``, stores are built with ``device="cpu"``,
+each call of the settle kernel's wrapper is counted where the card would
+launch it, and MARKETS (default 5,000) and DUMP_MARKETS (default 1,000)
+replace the full-size constants. The kernels take their plain torch
+versions, so no figure printed here is a device figure: the rehearsal
+finds wrong paths, shapes and control flow before a chip call, and shows
+the host routes' relative cost on this machine.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+SHIM = """
+torch.cuda.synchronize = lambda *a, **k: None
+torch.cuda.max_memory_allocated = lambda *a, **k: 0
+from bayesian_consensus_engine_tpu_torch import pipeline as _pipeline
+from bayesian_consensus_engine_tpu_torch.ops import settle_kernel as _settle_kernel
+_plain_settle = _pipeline.settle_cycles
+
+
+def _counted_settle(*args, **kwargs):
+    _settle_kernel.LAUNCHES += 1
+    return _plain_settle(*args, **kwargs)
+
+
+_pipeline.settle_cycles = _counted_settle
+"""
+
+
+def rehearsal_source(markets: int, dump_markets: int) -> str:
+    """chip_smoke.py cut to its host phases, on the CPU."""
+    source = (ROOT / "chip_smoke.py").read_text()
+    head, body = source.split("def main() -> int:\n", 1)
+    imports = body[: body.index("    # 1. device")]
+    phases = body[body.index("    # 7. native"): body.index("    # 11. analytics_path")]
+    head = re.sub(r"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000",
+                  f"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = {markets}", head)
+    head = head.replace("DUMP_MARKETS, REPLACED, REDRAWN = 50_000",
+                        f"DUMP_MARKETS, REPLACED, REDRAWN = {dump_markets}")
+    head = head.replace("import numpy as np\nimport torch\n",
+                        "import numpy as np\nimport torch\n" + SHIM, 1)
+    imports = imports.replace("if not torch.cuda.is_available():", "if False:")
+    text = head + "def main() -> int:\n" + imports + phases + "    return 0\n"
+    return text.replace('"cuda"', '"cpu"').replace(
+        "TensorReliabilityStore()", 'TensorReliabilityStore(device="cpu")')
+
+
+def main() -> int:
+    markets = int(sys.argv[1]) if len(sys.argv) > 1 else 5_000
+    dump_markets = int(sys.argv[2]) if len(sys.argv) > 2 else 1_000
+    sys.path.insert(0, str(ROOT))
+    namespace = {"__name__": "chip_smoke_rehearsal"}
+    exec(compile(rehearsal_source(markets, dump_markets),  # noqa: S102
+                 "chip_smoke_rehearsal", "exec"), namespace)
+    return namespace["main"]()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -211,3 +211,90 @@ def test_record_api_matches_jax():
             (r.reliability, r.confidence) for r in (cold, dry, up, down)
         ] + [(r.source_id, r.market_id) for r in store.list_sources()])
     assert values[0] == values[1]
+
+
+def _seeded_pair(seed=0):
+    """A JAX-package store and a port store holding the same records
+    (SEEDED plus a random spread), with a queried pair list that mixes
+    live, interned-but-dead and unknown pairs."""
+    rng = np.random.default_rng(seed)
+    rows = list(SEEDED) + [
+        (f"s{i % 7}", f"m{i % 5}", float(rng.random()), float(rng.random()),
+         f"2026-0{1 + i % 9}-1{i % 10}T0{i % 10}:00:00+00:00")
+        for i in range(40)
+    ]
+    stores = [JaxStore(), TorchStore(device="cpu")]
+    for store in stores:
+        for source, market, rel, conf, iso in rows:
+            record = store.get_reliability(source, market)
+            store.put_record(dataclasses.replace(
+                record, reliability=rel, confidence=conf, updated_at=iso))
+        store.rows_for_pairs([("dead", "m1")])  # interned, never written
+    pairs = [(s, m) for s, m, *_ in rows[::3]] + [("dead", "m1"), ("no", "one")]
+    return stores, pairs
+
+
+@pytest.mark.parametrize("decay", [False, True])
+def test_batch_get_reliability_matches_jax(decay):
+    (jstore, tstore), pairs = _seeded_pair()
+    now = 20600.5  # epoch-days: after every seeded stamp
+    want = jstore.batch_get_reliability(pairs, apply_decay=decay, now=now)
+    got = tstore.batch_get_reliability(pairs, apply_decay=decay, now=now)
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[1], want[1])
+    if decay:
+        # The decay's exp2: the tolerance ROADMAP.md states for decayed reads.
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-3)
+        assert not np.array_equal(got[0], tstore.batch_get_reliability(pairs)[0])
+    else:
+        np.testing.assert_array_equal(got[0], want[0])
+    assert len(tstore) == len(jstore)  # reads never allocate
+
+
+def test_batch_update_reliability_matches_jax():
+    (jstore, tstore), pairs = _seeded_pair(1)
+    correct = [i % 3 != 0 for i in range(len(pairs))]
+    for store in (jstore, tstore):
+        store.batch_update_reliability(pairs, correct)
+    got, want = tstore.list_sources(), jstore.list_sources()
+    assert [(r.source_id, r.market_id, r.reliability, r.confidence)
+            for r in got] == [(r.source_id, r.market_id, r.reliability,
+                               r.confidence) for r in want]
+    # One shared stamp on every updated row (the wall clock's, so the two
+    # stores' may differ by the time between the calls).
+    stamps = {tstore.get_reliability(s, m).updated_at for s, m in pairs}
+    assert len(stamps) == 1 and "" not in stamps
+
+
+def test_absorb_rows_matches_jax():
+    (jstore, tstore), _pairs = _seeded_pair(2)
+    rows = np.array([5, 1, 30, 17, 0, len(tstore) - 1], dtype=np.int64)
+    rel = np.array([0.125, 0.7, 0.5, 0.875, 0.25, 0.0625])
+    conf = np.array([0.6, 0.3, 0.9, 0.55, 0.65, 0.7])
+    days = np.array([40.0, 0.0, 12.5, 7.25, 3.0, 1.0])
+    exists = np.array([True, True, False, True, True, True])
+    epoch0 = 20500.0
+    jstore.absorb_rows(rows, rel, conf, days, exists, epoch0)
+    tstore.absorb_rows(torch.from_numpy(rows), torch.from_numpy(rel),
+                       torch.from_numpy(conf), torch.from_numpy(days),
+                       torch.from_numpy(exists), epoch0)
+    assert [dataclasses.astuple(r) for r in tstore.list_sources()] == [
+        dataclasses.astuple(r) for r in jstore.list_sources()]
+
+
+def test_device_state_donate_matches_jax():
+    (jstore, tstore), _pairs = _seeded_pair(3)
+    with jax.enable_x64(True):
+        want, want_epoch0 = jstore.device_state(jnp.float64, donate=True)
+    got, epoch0 = tstore.device_state(torch.float64, donate=True)
+    assert epoch0 == want_epoch0
+    for mine, ref in zip(got, want):
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(ref))
+    assert tstore._device_cache is None
+    kept, _ = tstore.device_state(torch.float64)
+    assert tstore._device_cache[0] is kept and kept.reliability is not got.reliability
+    # A donated cache is forgotten too, and the caller's tensors stay on the
+    # store's device.
+    donated, _ = tstore.device_state(torch.float64, donate=True)
+    assert donated is kept and tstore._device_cache is None
+    assert donated.reliability.device == tstore.device

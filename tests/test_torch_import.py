@@ -1,10 +1,12 @@
 """The port stands alone: importing it (every module of the analytics,
-inference and mesh slices included), settling on the CPU, settling through
-the resident session with analytics and graph inference, and settling on a
+inference and mesh slices and the native host path included), building and
+loading its own C extensions, settling on the CPU, settling through the
+resident session with analytics and graph inference, and settling on a
 sources-sharded CPU mesh loads neither JAX nor any module of the JAX
-package, and its device policy is explicit (CUDA unless the CPU is asked
-for; no silent fallback)."""
+package (its ``_native`` extensions included), and its device policy is
+explicit (CUDA unless the CPU is asked for; no silent fallback)."""
 
+import os
 import pathlib
 import subprocess
 import sys
@@ -33,6 +35,12 @@ from bayesian_consensus_engine_tpu_torch.ops import (
 from bayesian_consensus_engine_tpu_torch.parallel import (
     collectives, distributed, mesh, sharded,
 )
+from bayesian_consensus_engine_tpu_torch.core import batch
+from bayesian_consensus_engine_tpu_torch.native import build
+from bayesian_consensus_engine_tpu_torch.utils import interning
+
+assert build.load("fastpack") is not None and build.load("internmap") is not None
+assert isinstance(interning.make_pair_interner(), interning.NativePairInterner)
 
 store = port.TensorReliabilityStore(device="cpu")
 payloads = [
@@ -78,14 +86,17 @@ loaded = sorted(
 assert not loaded, loaded
 assert any(name.startswith("bayesian_consensus_engine_tpu_torch")
            for name in sys.modules)
+for name in ("fastpack", "internmap"):
+    assert "bayesian_consensus_engine_tpu_torch._native." + name in sys.modules
 print("PORT_STANDS_ALONE")
 """
 
 
 def test_port_imports_nothing_of_jax():
+    env = {k: v for k, v in os.environ.items() if k != "BCE_NO_NATIVE"}
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(_ROOT))],
-        capture_output=True, text=True, timeout=120,
+        capture_output=True, text=True, timeout=120, env=env,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "PORT_STANDS_ALONE" in proc.stdout
