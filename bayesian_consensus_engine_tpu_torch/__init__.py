@@ -13,10 +13,19 @@ bottom → top, each module named after its JAX counterpart:
                 ``csrc/settle_cycles.cu``, ``onepass_kernel`` +
                 ``csrc/onepass_settle.cu``, ``bp_kernel`` +
                 ``csrc/bp_sweep.cu``, ``partials_kernel`` +
-                ``csrc/onepass_partials.cu``, all built by ``cuda_build``)
-  core/         host packing: payloads → ordered pair arrays (``batch``)
+                ``csrc/onepass_partials.cu``, all built by ``cuda_build``),
+                and the batched consensus sums as ordered segment sums
+                (``consensus``)
+  core/         input validation (``validate``), the scalar consensus
+                engine (``engine``), and host packing plus the batched
+                array engine (``batch``: payloads → ordered pair arrays →
+                one device pass → reference-shaped documents)
   state/        scalar decay/update math, the SQLite checkpoint backend,
-                and the device-tensor store (``tensor_store``)
+                the device-tensor store (``tensor_store``), and the
+                market → domain → global fallback wrapper (``namespaced``)
+  models/       markets, the market store and cross-market aggregator
+                (``market``), and the deterministic tie-breaker
+                (``tiebreak``)
   parallel/     the (markets, sources) mesh (``mesh``), in-process
                 collectives (``collectives``), this process's band
                 (``distributed``), and the fused settle + analytics loop
@@ -38,10 +47,18 @@ of the settle kernel, every session settle one launch of the one-pass
 kernel (on a sources-sharded mesh, one launch of the partials kernel a
 shard and the cross-shard merge), and every graph sweep one cooperative
 launch of the belief sweep kernel (none at a depth of 0); on the CPU each
-kernel's plain torch version runs.
+kernel's plain torch version runs. The batched consensus pass
+(``compute_consensus(..., backend="torch")``, ``compute_batch_consensus``)
+is plain PyTorch in a fixed order, the same code and bits on both devices.
 """
 
 from bayesian_consensus_engine_tpu_torch.analytics import AnalyticsOptions
+from bayesian_consensus_engine_tpu_torch.core import (
+    ValidationError,
+    compute_consensus,
+    validate_input_payload,
+)
+from bayesian_consensus_engine_tpu_torch.core.batch import compute_batch_consensus
 from bayesian_consensus_engine_tpu_torch.pipeline import (
     SettlementPlan,
     SettlementResult,
@@ -62,9 +79,13 @@ __all__ = [
     "SettlementResult",
     "ShardedSettlementSession",
     "TensorReliabilityStore",
+    "ValidationError",
     "build_settlement_plan",
     "build_settlement_plan_columnar",
+    "compute_batch_consensus",
+    "compute_consensus",
     "settle",
     "settle_payloads",
     "settle_sharded",
+    "validate_input_payload",
 ]

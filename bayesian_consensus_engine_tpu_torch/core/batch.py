@@ -1,17 +1,25 @@
-"""Host packing layer — the host half of ``core/batch.py``.
+"""Host packing layer + batched array consensus engine.
 
 This is the seam where ragged, string-keyed payloads become dense int32 and
-float arrays: (market, source) pairs are ordered by **sorted source id
-within each market** so the device sums floats in the same order the
-scalar engine does, and duplicate signals from one source average in
-original signal order.
+float arrays and back: (market, source) pairs are ordered by **sorted
+source id within each market** so the device sums floats in the same order
+the scalar engine does, duplicate signals from one source average in
+original signal order, and output documents are rehydrated on the host in
+the exact reference shape.
 
-Each pass runs in the port's C extension (``native/fastpack.c``, built at
-first use by ``native/build.py``) when it is available, else in its
-numpy/Python twin; the two are bit-identical, and both equal the JAX
+Each packing pass runs in the port's C extension (``native/fastpack.c``,
+built at first use by ``native/build.py``) when it is available, else in
+its numpy/Python twin; the two are bit-identical, and both equal the JAX
 package's for the same input. ``native=None`` auto-detects, ``True``
 forces the C pass (raising when it is unavailable), ``False`` the twin.
-The device half (batched consensus documents) is not ported yet.
+
+The device pass (:func:`run_packed`) is ``ops.consensus``'s ordered
+segment sums: the per-pair duplicate mean, then the per-market
+(Σw, Σp̄w, Σcw). It runs on CUDA unless ``device="cpu"`` is passed, in
+float32 unless ``dtype=torch.float64`` is, and gives the JAX package's
+batched bits on either device. Unlike the JAX package it pads nothing:
+its power-of-two buckets only let jit reuse compilations, and the port
+compiles nothing per shape.
 """
 
 from __future__ import annotations
@@ -22,9 +30,20 @@ from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 
+import torch
+
+from bayesian_consensus_engine_tpu_torch.ops.consensus import (
+    pair_mean_from_flat,
+    weighted_sums_from_pairs,
+)
 from bayesian_consensus_engine_tpu_torch.utils.config import (
     DEFAULT_CONFIDENCE,
     DEFAULT_RELIABILITY,
+    SCHEMA_VERSION,
+)
+from bayesian_consensus_engine_tpu_torch.utils.device import (
+    resolve_device,
+    resolve_dtype,
 )
 from bayesian_consensus_engine_tpu_torch.native import build as _native_build
 from bayesian_consensus_engine_tpu_torch.utils.interning import (
@@ -40,9 +59,33 @@ def cold_start_lookup(_sid: str, _mid: str) -> tuple[float, float, bool]:
     return DEFAULT_RELIABILITY, DEFAULT_CONFIDENCE, False
 
 
+def mapping_lookup(
+    table: Mapping[str, Mapping[str, float]] | None,
+) -> ReliabilityLookup:
+    """Adapt a per-source dict (one market's reliability table) to a lookup.
+
+    Presence semantics match the scalar engine: a key that exists — even
+    with missing fields — is NOT cold-start.
+    """
+    if table is None:
+        return cold_start_lookup
+
+    def lookup(sid: str, _mid: str) -> tuple[float, float, bool]:
+        entry = table.get(sid)
+        if entry is None:
+            return DEFAULT_RELIABILITY, DEFAULT_CONFIDENCE, False
+        return (
+            entry.get("reliability", DEFAULT_RELIABILITY),
+            entry.get("confidence", DEFAULT_CONFIDENCE),
+            True,
+        )
+
+    return lookup
+
+
 @dataclass(frozen=True)
 class PackedBatch:
-    """Dense packing of M markets' signals.
+    """Dense packing of M markets' signals, ready for the device pass.
 
     Pairs are ordered (market row asc, source id asc) — the float-summation
     order of the scalar engine. ``pair_slice(m)`` gives market *m*'s pairs.
@@ -461,3 +504,194 @@ def pack_markets(
         signals_per_market=np.asarray(signals_per_market, dtype=np.int32),
         pair_offsets=np.asarray(pair_offsets, dtype=np.int32),
     )
+
+
+def run_packed(
+    batch: PackedBatch,
+    device=None,
+    dtype=None,
+    rounds: "list | None" = None,
+):
+    """Run the device pass over a packed batch; returns host numpy arrays
+    ``(pair_mean f[P], total_weight f[M], weighted_prob f[M],
+    weighted_conf f[M])``.
+
+    ``device=None`` is CUDA (raising without it), ``dtype=None`` float32;
+    the host's float64 packing is rounded to *dtype* on the way in. When
+    *rounds* is a list, each ordered sum appends its number of rounds (its
+    longest segment): the mean's, then the weighted sums'.
+    """
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+
+    def floats(array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(array).to(device=device, dtype=dtype)
+
+    def ints(array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(array).to(device=device, dtype=torch.int64)
+
+    pair_mean = pair_mean_from_flat(
+        floats(batch.flat_probs), ints(batch.flat_pair), batch.num_pairs, rounds
+    )
+    total_weight, weighted_prob, weighted_conf = weighted_sums_from_pairs(
+        pair_mean,
+        floats(batch.pair_reliability),
+        floats(batch.pair_confidence),
+        ints(batch.pair_market),
+        batch.num_markets,
+        rounds,
+    )
+    return tuple(
+        x.cpu().numpy()
+        for x in (pair_mean, total_weight, weighted_prob, weighted_conf)
+    )
+
+
+def _format_document(
+    batch: PackedBatch,
+    market_row: int,
+    total_weight: np.ndarray,
+    weighted_prob: np.ndarray,
+    weighted_conf: np.ndarray,
+) -> dict[str, Any]:
+    """Rehydrate one market's reference-shaped output document.
+
+    The two normalising divides happen here, on host Python floats, so the
+    document matches the scalar engine bit for bit when the device sums do.
+    """
+    pairs = batch.pair_slice(market_row)
+    tw = float(total_weight[market_row])
+    has_weight = tw != 0  # scalar parity: the scalar path tests == 0
+
+    source_weights = []
+    cold_sources = []
+    for p in range(pairs.start, pairs.stop):
+        weight = float(batch.pair_reliability[p])
+        source_weights.append(
+            {
+                "sourceId": batch.pair_source_ids[p],
+                "weight": weight,
+                "normalizedWeight": weight / tw if has_weight else 0.0,
+            }
+        )
+        if not batch.pair_known[p]:
+            cold_sources.append(batch.pair_source_ids[p])
+
+    return {
+        "schemaVersion": SCHEMA_VERSION,
+        "consensus": float(weighted_prob[market_row]) / tw if has_weight else None,
+        "confidence": float(weighted_conf[market_row]) / tw if has_weight else 0.0,
+        "sourceWeights": source_weights,
+        "normalization": {
+            "totalWeight": tw,
+            "sourceCount": pairs.stop - pairs.start,
+        },
+        "diagnostics": {
+            "status": "computed",
+            "sources": int(batch.signals_per_market[market_row]),
+            "uniqueSources": pairs.stop - pairs.start,
+            "coldStartSources": cold_sources,
+        },
+    }
+
+
+def compute_batch_consensus(
+    markets: Sequence[tuple[str, Sequence[Mapping[str, Any]]]],
+    lookup: ReliabilityLookup = cold_start_lookup,
+    device=None,
+    dtype=None,
+) -> dict[str, dict[str, Any]]:
+    """Batched consensus over many markets in one device pass.
+
+    Returns ``{market_id: output_document}`` with each document in the
+    reference shape, stamped with ``marketId`` like
+    ``Market.compute_consensus``. Markets with no signals get the reduced
+    4-key document. *device* and *dtype* are :func:`run_packed`'s.
+    """
+    live = [(mid, sigs) for mid, sigs in markets if sigs]
+    results: dict[str, dict[str, Any]] = {}
+
+    if live:
+        batch = pack_markets(live, lookup)
+        _pair_mean, total_weight, weighted_prob, weighted_conf = run_packed(
+            batch, device=device, dtype=dtype
+        )
+        for row, market_id in enumerate(batch.market_keys):
+            document = _format_document(
+                batch, row, total_weight, weighted_prob, weighted_conf
+            )
+            document["marketId"] = market_id
+            results[market_id] = document
+
+    for market_id, signals in markets:
+        if not signals:
+            results[market_id] = {
+                "schemaVersion": SCHEMA_VERSION,
+                "consensus": None,
+                "confidence": 0.0,
+                "marketId": market_id,
+            }
+    return results
+
+
+def store_lookup(store) -> ReliabilityLookup:
+    """Adapt a ``ReliabilityStore`` to a packing lookup (decay-on-read).
+
+    ``known`` is always True, matching the scalar market sweep: it builds a
+    reliability entry for every signalling source, so the sweep never
+    reports coldStartSources.
+    """
+
+    def lookup(sid: str, mid: str) -> tuple[float, float, bool]:
+        record = store.get_reliability(sid, mid, apply_decay=True)
+        return record.reliability, record.confidence, True
+
+    return lookup
+
+
+def compute_all_consensus_batched(
+    market_store,
+    reliability_store=None,
+    device=None,
+    dtype=None,
+) -> dict[str, dict[str, Any]]:
+    """Batched twin of ``MarketStore.compute_all_consensus``: one device pass
+    over every OPEN market instead of a market-by-market loop. Results are
+    cached on each ``Market`` (``consensus_result``) like the scalar sweep.
+    """
+    # `MarketStatus` is a str-Enum, so the wire value "open" IS the status
+    # contract; comparing against it keeps core/ below models/.
+    open_markets = [
+        m for m in market_store.list_markets() if m.status == "open"
+    ]
+    payload = [(str(m.id), m.signals) for m in open_markets]
+    lookup = (
+        store_lookup(reliability_store)
+        if reliability_store is not None
+        else cold_start_lookup
+    )
+    results = compute_batch_consensus(payload, lookup, device=device, dtype=dtype)
+    for market in open_markets:
+        if market.signals:
+            market.consensus_result = results[str(market.id)]
+    return results
+
+
+def compute_consensus_torch(
+    signals: Sequence[Mapping[str, Any]],
+    source_reliability: Mapping[str, Mapping[str, float]] | None = None,
+    device=None,
+    dtype=None,
+) -> dict[str, Any]:
+    """Single-market array-path twin of ``engine.compute_consensus``.
+
+    Same output shape and key order; the float sums come from the device
+    pass (at *dtype*, float32 by default). The scalar path remains the
+    byte-exact contract; at float64 this path reproduces it on the golden
+    fixture.
+    """
+    batch = pack_markets([("_", signals)], mapping_lookup(source_reliability))
+    _pair_mean, total_weight, weighted_prob, weighted_conf = run_packed(
+        batch, device=device, dtype=dtype
+    )
+    return _format_document(batch, 0, total_weight, weighted_prob, weighted_conf)

@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's settlement paths on one CUDA card and check them.
+"""Drive the PyTorch port's settlement and consensus paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -168,7 +169,38 @@ Phases, one JSON line each:
                     K_loc takes, with its ``band_tree_depth``, which the
                     partials kernel reports itself);
                     ``bp_sweep`` and the two one-pass kernels also
-                    ``launches_per_call``.
+                    ``launches_per_call``. The line is printed after phase 15.
+15. ``batch_consensus`` the consensus surface, which runs none of the four
+                    kernels: the main path's 1,000,000 markets as object
+                    payloads (``{"sourceId", "probability"}`` dicts) with a
+                    per-source table from the seed (reliability and
+                    confidence U(0, 1), 10% of sources absent: cold start,
+                    5% present with an empty entry), through one
+                    ``pack_markets`` on the C route with ``mapping_lookup``,
+                    then ``run_packed`` (the ordered segment sums of
+                    ``ops/consensus.py``) on the card and on the CPU at
+                    float32 and float64: all four outputs bit-equal card
+                    against CPU, each ordered sum's rounds equal to its
+                    longest segment. ``compute_batch_consensus`` on the card
+                    at float64 over the first 250,000 markets (a cut: its
+                    host formatting of 1M documents alone takes tens of
+                    seconds): every document equal to the one formatted from
+                    the 1M-market pass, and 2,000 sampled ones within
+                    rel 1e-12 of the scalar ``compute_consensus``. The
+                    golden fixture through ``compute_consensus(backend=
+                    "torch", device="cuda", dtype=torch.float64)`` and the
+                    scalar path, byte for byte; the three ``sim_*`` fixtures
+                    well-formed, deterministic, within rel 1e-12 of the
+                    scalar path and in their scenario's range. Then
+                    ``MarketStore.compute_all_consensus(store,
+                    backend="torch")`` (device CUDA by default, float64) over
+                    10,000 markets, over a SQLite store and a card tensor
+                    store given the same updates, against the scalar sweep
+                    within rel 1e-6 (decay is read at other instants), no
+                    cold-start sources. Prints host seconds per stage, the
+                    rounds, the pass's peak device bytes above what the
+                    earlier phases hold, and the
+                    ``nvidia-smi`` line.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -561,6 +593,268 @@ def inference_graph(keys, seed, blocks_module):
     edges = list(zip([keys[i] for i in src.tolist()],
                      [keys[i] for i in dst.tolist()], weights.tolist()))
     return blocks, edges
+
+
+# batch_consensus: the sampled markets held against the scalar engine, the
+# markets of the store sweeps, and the per-source table's shares of sources
+# absent (cold start) and present with an empty entry.
+SAMPLE_MARKETS, SWEEP_MARKETS, ABSENT, EMPTY_ENTRY = 2_000, 10_000, 0.10, 0.05
+# compute_batch_consensus runs over the first DOCUMENT_MARKETS of the
+# MARKETS markets (the card-against-CPU check runs over all of them): its
+# host formatting of a million documents alone would take tens of seconds.
+DOCUMENT_MARKETS = 250_000
+# The JAX package's tolerances of the batched path against the scalar one:
+# float64 sums (tests/test_batch_parity.py), and the store sweeps, whose
+# decay-on-read is taken at slightly different instants.
+DOC_RTOL, SWEEP_RTOL = 1e-12, 1e-6
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+
+
+def documents_close(got, want, rtol, what):
+    """``got`` within *rtol* of ``want`` as ``assert_documents_close`` of
+    tests/test_batch_parity.py holds them (``marketId`` aside)."""
+    import math
+
+    def close(a, b):
+        return math.isclose(a, b, rel_tol=rtol, abs_tol=1e-12)
+
+    problems = []
+    for key in ("consensus", "confidence"):
+        if (want[key] is None) != (got[key] is None) or (
+                want[key] is not None and not close(got[key], want[key])):
+            problems.append((key, got[key], want[key]))
+    if [w["sourceId"] for w in got["sourceWeights"]] != [
+            w["sourceId"] for w in want["sourceWeights"]]:
+        problems.append("sourceWeights ids")
+    for g, w in zip(got["sourceWeights"], want["sourceWeights"]):
+        if not (close(g["weight"], w["weight"])
+                and close(g["normalizedWeight"], w["normalizedWeight"])):
+            problems.append(("sourceWeights", g, w))
+    if not close(got["normalization"]["totalWeight"],
+                 want["normalization"]["totalWeight"]) or \
+            got["normalization"]["sourceCount"] != \
+            want["normalization"]["sourceCount"]:
+        problems.append(("normalization", got["normalization"],
+                         want["normalization"]))
+    if got["diagnostics"] != want["diagnostics"] or \
+            got["schemaVersion"] != want["schemaVersion"]:
+        problems.append(("diagnostics", got["diagnostics"], want["diagnostics"]))
+    if problems:
+        raise AssertionError(f"{what}: {problems}")
+
+
+def batch_consensus_phase(smi, market_keys, codes, probs, offsets):
+    """The consensus surface on the card: the main path's markets as object
+    payloads through ``pack_markets`` and ``run_packed`` (card against CPU,
+    bit for bit, both dtypes), ``compute_batch_consensus`` against the
+    scalar engine, the fixtures, and the market store's sweeps."""
+    import random
+
+    from bayesian_consensus_engine_tpu_torch import models
+    from bayesian_consensus_engine_tpu_torch.core import (
+        batch,
+        compute_consensus,
+        validate_input_payload,
+    )
+    from bayesian_consensus_engine_tpu_torch.state import SQLiteReliabilityStore
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    seconds = {}
+    start = time.perf_counter()
+    names = [f"src-{i}" for i in range(SOURCES)]
+    signals = [{"sourceId": names[c], "probability": p}
+               for c, p in zip(codes.tolist(), probs.tolist())]
+    bounds = offsets.tolist()
+    payloads = [(key, signals[bounds[m]:bounds[m + 1]])
+                for m, key in enumerate(market_keys)]
+    del signals
+    # The per-source table, from the seed: reliability and confidence
+    # U(0, 1); ABSENT of the sources missing (cold start), EMPTY_ENTRY
+    # present with an empty entry (defaults, not cold start).
+    table_rng = np.random.default_rng(SEED)
+    roll = table_rng.random(SOURCES)
+    values = table_rng.random((SOURCES, 2)).tolist()
+    table = {}
+    for i, name in enumerate(names):
+        if roll[i] >= ABSENT + EMPTY_ENTRY:
+            table[name] = {"reliability": values[i][0],
+                           "confidence": values[i][1]}
+        elif roll[i] >= ABSENT:
+            table[name] = {}
+    lookup = batch.mapping_lookup(table)
+    seconds["payloads"] = time.perf_counter() - start
+
+    # 1. One pack on the C route, then the device pass on the card and on
+    # the CPU at each dtype: the four outputs bit-equal (a NaN as a NaN).
+    start = time.perf_counter()
+    packed = batch.pack_markets(payloads, lookup, native=True)
+    seconds["pack"] = time.perf_counter() - start
+    names_out = ("pair_mean", "total_weight", "weighted_prob", "weighted_conf")
+    rounds = {}
+    peak = {}
+    outputs = {}
+    for dtype in (torch.float32, torch.float64):
+        label = str(dtype).replace("torch.", "")
+        for device in ("cuda", "cpu"):
+            # Twice: the first pass of a process also loads the modules of
+            # the library kernels it calls.
+            for run in ("first", "again"):
+                counted = []
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    held = torch.cuda.memory_allocated()
+                start = time.perf_counter()
+                out = batch.run_packed(packed, device=device, dtype=dtype,
+                                       rounds=counted)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    # The pass's own peak, above what earlier phases hold.
+                    peak[label] = torch.cuda.max_memory_allocated() - held
+                    resident = held
+                seconds[f"pass_{device}_{label}_{run}"] = \
+                    time.perf_counter() - start
+            rounds[f"{device}_{label}"] = dict(zip(("pair_mean",
+                                                    "weighted_sums"), counted))
+            outputs[device] = out
+        for name, got, want in zip(names_out, outputs["cuda"], outputs["cpu"]):
+            check_bits(torch.from_numpy(got), torch.from_numpy(want),
+                       f"batch_consensus {label} {name}: card against CPU")
+        if rounds[f"cuda_{label}"] != rounds[f"cpu_{label}"]:
+            raise AssertionError(f"rounds differ: {rounds}")
+    longest = {"pair_mean": int(np.bincount(packed.flat_pair).max()),
+               "weighted_sums": int(np.diff(packed.pair_offsets).max())}
+    if rounds["cuda_float64"] != longest:
+        raise AssertionError(f"rounds {rounds['cuda_float64']}, longest "
+                             f"segments {longest}")
+    # The first DOCUMENT_MARKETS markets' documents from the card's float64
+    # sums, as compute_batch_consensus formats them.
+    _mean, total_weight, weighted_prob, weighted_conf = outputs["cuda"]
+    start = time.perf_counter()
+    formatted = [batch._format_document(packed, row, total_weight,
+                                        weighted_prob, weighted_conf)
+                 for row in range(DOCUMENT_MARKETS)]
+    seconds["format"] = time.perf_counter() - start
+    num_pairs = packed.num_pairs
+    cold_pairs = int((~packed.pair_known).sum())
+    del packed, outputs, total_weight, weighted_prob, weighted_conf
+
+    # 2. compute_batch_consensus on the card at float64 over the first
+    # DOCUMENT_MARKETS markets (each market's document depends on its own
+    # signals alone, so they must equal the ones formatted above); a sample
+    # of them against the scalar engine on the same table.
+    start = time.perf_counter()
+    documents = batch.compute_batch_consensus(
+        payloads[:DOCUMENT_MARKETS], lookup, device="cuda", dtype=torch.float64)
+    seconds["compute_batch_consensus"] = time.perf_counter() - start
+    if len(documents) != DOCUMENT_MARKETS:
+        raise AssertionError(f"{len(documents)} documents for "
+                             f"{DOCUMENT_MARKETS} markets")
+    start = time.perf_counter()
+    for row, (market_id, _signals) in enumerate(payloads[:DOCUMENT_MARKETS]):
+        document = documents[market_id]
+        if document.pop("marketId") != market_id or document != formatted[row]:
+            raise AssertionError(f"{market_id}: not the formatted document")
+    sample = random.Random(SEED).sample(range(DOCUMENT_MARKETS), SAMPLE_MARKETS)
+    for row in sample:
+        market_id, market_signals = payloads[row]
+        documents_close(documents[market_id],
+                        compute_consensus(market_signals, table), DOC_RTOL,
+                        f"batched {market_id}")
+    seconds["documents_check"] = time.perf_counter() - start
+    del documents, formatted
+
+    # 3. The fixtures through the array path on the card at float64 and
+    # through the scalar path: the golden one byte for byte, the simulated
+    # ones as tests/test_golden_fixtures.py checks them.
+    fixtures = {}
+    for name in ("golden_regression", "sim_uniform_agreement",
+                 "sim_polarized_split", "sim_single_outlier"):
+        with open(os.path.join(FIXTURES, f"{name}.json"), encoding="utf-8") as fh:
+            fixture = json.load(fh)
+        validate_input_payload(fixture["input"])
+        fixture_signals = fixture["input"]["signals"]
+        card = compute_consensus(fixture_signals, backend="torch",
+                                 device="cuda", dtype=torch.float64)
+        scalar = compute_consensus(fixture_signals)
+        if "expectedOutput" in fixture:
+            expected = json.dumps(fixture["expectedOutput"], indent=2)
+            for what, document in (("card", card), ("scalar", scalar)):
+                if json.dumps(document, indent=2) != expected:
+                    raise AssertionError(f"{name}: the {what} document is not "
+                                         "the golden bytes")
+        if set(card) != {"schemaVersion", "consensus", "confidence",
+                         "sourceWeights", "normalization", "diagnostics"} \
+                or json.loads(json.dumps(card)) != card \
+                or card != compute_consensus(fixture_signals, backend="torch",
+                                             device="cuda", dtype=torch.float64):
+            raise AssertionError(f"{name}: malformed or not deterministic")
+        documents_close(card, scalar, DOC_RTOL, f"fixture {name}")
+        fixtures[name] = card["consensus"]
+    semantics = {
+        "sim_uniform_agreement": 0.78 <= fixtures["sim_uniform_agreement"] <= 0.82,
+        "sim_polarized_split": 0.15 < fixtures["sim_polarized_split"] < 0.85,
+        "sim_single_outlier": abs(fixtures["sim_single_outlier"]
+                                  - (0.60 + 0.62 + 0.58 + 0.61 + 0.05) / 5)
+        <= 1e-6 * 0.492,
+    }
+    if not all(semantics.values()):
+        raise AssertionError(f"fixture semantics: {semantics} {fixtures}")
+
+    # 4. The market store's sweep over SWEEP_MARKETS markets with the array
+    # backend on the card (device=None), over a SQLite store and a card
+    # tensor store given the same updates, against the scalar sweep.
+    market_store = models.MarketStore()
+    for market_id, market_signals in payloads[:SWEEP_MARKETS]:
+        market = market_store.get_or_create(models.MarketId(market_id))
+        for signal in market_signals:
+            market.add_signal(signal)
+    update_rng = random.Random(SEED)
+    stores = {"sqlite": SQLiteReliabilityStore(":memory:"),
+              "tensor": TensorReliabilityStore()}
+    updates = 0
+    for market_id, market_signals in payloads[:SWEEP_MARKETS]:
+        for signal in market_signals:
+            if update_rng.random() < 0.3:
+                correct = update_rng.random() < 0.5
+                for store in stores.values():
+                    store.update_reliability(signal["sourceId"], market_id,
+                                             correct)
+                updates += 1
+    sweeps = {}
+    for name, store in stores.items():
+        start = time.perf_counter()
+        scalar = market_store.compute_all_consensus(store)
+        seconds[f"sweep_scalar_{name}"] = time.perf_counter() - start
+        start = time.perf_counter()
+        swept = market_store.compute_all_consensus(store, backend="torch",
+                                                   dtype=torch.float64)
+        seconds[f"sweep_torch_{name}"] = time.perf_counter() - start
+        if set(swept) != set(scalar) or len(swept) != SWEEP_MARKETS:
+            raise AssertionError(f"sweep over {name}: market sets differ")
+        for market_id, document in swept.items():
+            if document["diagnostics"]["coldStartSources"]:
+                raise AssertionError(f"{market_id}: cold-start sources")
+            if document.pop("marketId") != scalar[market_id].pop("marketId"):
+                raise AssertionError(f"{market_id}: wrong marketId")
+            documents_close(document, scalar[market_id], SWEEP_RTOL,
+                            f"sweep over {name} {market_id}")
+        sweeps[name] = len(swept)
+        store.close()
+
+    emit("batch_consensus", markets=len(payloads), signals=int(offsets[-1]),
+         pairs=num_pairs, cold_start_pairs=cold_pairs, rounds=rounds,
+         peak_device_bytes=peak, resident_device_bytes=resident,
+         seconds=seconds,
+         sampled_markets=SAMPLE_MARKETS, fixtures=fixtures,
+         document_markets=DOCUMENT_MARKETS, sweep_markets=sweeps,
+         sweep_updates=updates,
+         cut=f"compute_batch_consensus over {DOCUMENT_MARKETS} of "
+             f"{len(payloads)} markets",
+         nvidia_smi=smi)
 
 
 def main() -> int:
@@ -1762,6 +2056,10 @@ def main() -> int:
                             in name), None)
                   for dt, code in (("float32", "f"), ("float64", "d"))},
     }
+
+    # 15. batch_consensus
+    batch_consensus_phase(smi, market_keys, codes, probs, offsets)
+
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
                                   partials_entry]}), flush=True)
     print(smi, flush=True)

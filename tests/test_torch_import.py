@@ -1,6 +1,7 @@
 """The port stands alone: importing it (every module of the analytics,
-inference and mesh slices and the native host path included), building and
-loading its own C extensions, settling on the CPU, settling through the
+inference and mesh slices, the native host path and the consensus surface
+included), building and loading its own C extensions, computing scalar and
+batched consensus documents, settling on the CPU, settling through the
 resident session with analytics and graph inference, and settling on a
 sources-sharded CPU mesh loads neither JAX nor any module of the JAX
 package (its ``_native`` extensions included), and its device policy is
@@ -35,9 +36,29 @@ from bayesian_consensus_engine_tpu_torch.ops import (
 from bayesian_consensus_engine_tpu_torch.parallel import (
     collectives, distributed, mesh, sharded,
 )
-from bayesian_consensus_engine_tpu_torch.core import batch
+from bayesian_consensus_engine_tpu_torch.core import batch, engine, validate
 from bayesian_consensus_engine_tpu_torch.native import build
+from bayesian_consensus_engine_tpu_torch.ops import consensus
+from bayesian_consensus_engine_tpu_torch import models
+from bayesian_consensus_engine_tpu_torch.state import namespaced
 from bayesian_consensus_engine_tpu_torch.utils import interning
+import torch
+
+signals = [{{"sourceId": "b", "probability": 0.4}},
+           {{"sourceId": "a", "probability": 0.9}}]
+validate.validate_input_payload(
+    {{"schemaVersion": "1.0.0", "marketId": "m", "signals": signals}})
+scalar = engine.compute_consensus(signals)
+batched = port.compute_consensus(signals, backend="torch", device="cpu",
+                                 dtype=torch.float64)
+assert batched == scalar, (batched, scalar)
+market_store = models.MarketStore()
+market_store.add_signal(models.MarketId("m"), signals[0])
+with namespaced.NamespacedReliabilityStore(":memory:") as ns_store:
+    ns_store.update_reliability("b", True, market_id="m")
+    swept = market_store.compute_all_consensus(
+        ns_store.backing_store, backend="torch", device="cpu")
+assert abs(swept["m"]["consensus"] - 0.4) < 1e-6, swept
 
 assert build.load("fastpack") is not None and build.load("internmap") is not None
 assert isinstance(interning.make_pair_interner(), interning.NativePairInterner)
@@ -110,6 +131,20 @@ def test_store_without_cuda_raises_unless_cpu_asked(monkeypatch):
         TensorReliabilityStore(device="cuda")
     store = TensorReliabilityStore(device="cpu")
     assert store.device == torch.device("cpu")
+
+
+def test_array_backend_without_cuda_raises_unless_cpu_asked(monkeypatch):
+    from bayesian_consensus_engine_tpu_torch import compute_consensus
+
+    signals = [{"sourceId": "a", "probability": 0.6}]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend in ("torch", "jax", "tpu"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compute_consensus(signals, backend=backend)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compute_consensus(signals, backend=backend, device="cuda")
+    doc = compute_consensus(signals, backend="torch", device="cpu")
+    assert doc["consensus"] == pytest.approx(0.6, rel=1e-6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.int32, "float32"])
