@@ -20,8 +20,14 @@ bottom → top, each module named after its JAX counterpart:
                 engine (``engine``), and host packing plus the batched
                 array engine (``batch``: payloads → ordered pair arrays →
                 one device pass → reference-shaped documents)
+  obs/          host observability the store and journal record into:
+                counters and histograms (``metrics``), phase spans
+                (``timeline``) and span chains (``trace``)
   state/        scalar decay/update math, the SQLite checkpoint backend,
-                the device-tensor store (``tensor_store``), and the
+                the device-tensor store (``tensor_store``: synchronous
+                and background SQLite flushes, journal epochs), the
+                durability journal with replay, compaction and the
+                admitted-trace sidecar (``journal``), and the
                 market → domain → global fallback wrapper (``namespaced``)
   models/       markets, the market store and cross-market aggregator
                 (``market``), and the deterministic tie-breaker

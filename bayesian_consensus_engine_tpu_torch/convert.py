@@ -75,6 +75,7 @@ def store_from_records(records, device=None) -> TensorReliabilityStore:
     store._days[rows] = [iso_to_days(s) for s in iso]
     store._exists[rows] = True
     store._dirty[rows] = True
+    store._journal_dirty[rows] = True
     for row, value in zip(rows.tolist(), iso):
         store._iso[row] = value
     return store

@@ -1,6 +1,6 @@
 """Reliability state layer of the port: the SQLite checkpoint backend, the
-device-tensor store, the namespaced fallback wrapper, and the shared scalar
-decay/update math."""
+device-tensor store, the durability journal, the namespaced fallback
+wrapper, and the shared scalar decay/update math."""
 
 from bayesian_consensus_engine_tpu_torch.state.records import ReliabilityRecord
 from bayesian_consensus_engine_tpu_torch.state.sqlite_store import (
@@ -15,9 +15,15 @@ from bayesian_consensus_engine_tpu_torch.state.namespaced import (
     ReliabilityProvider,
     domain_market_id,
 )
+from bayesian_consensus_engine_tpu_torch.state.journal import (
+    JournalWriter,
+    compact_journal,
+    replay_journal,
+)
 
 __all__ = [
     "GLOBAL_MARKET_ID",
+    "JournalWriter",
     "NamespacedReliabilityRecord",
     "NamespacedReliabilityStore",
     "ReliabilityNamespace",
@@ -25,5 +31,7 @@ __all__ = [
     "ReliabilityRecord",
     "ReliabilityStore",
     "SQLiteReliabilityStore",
+    "compact_journal",
     "domain_market_id",
+    "replay_journal",
 ]

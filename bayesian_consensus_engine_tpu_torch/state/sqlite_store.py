@@ -13,8 +13,9 @@ In the port this store is the *durable checkpoint format*: the
 device-resident :class:`~.tensor_store.TensorReliabilityStore` imports from
 and flushes to this exact schema, so on-disk state stays byte-compatible
 with the JAX package's checkpoints and the reference's DB files. A copy of
-``bayesian_consensus_engine_tpu/state/sqlite_store.py`` without its
-metrics counter and timeline span (the port's observability comes later).
+``bayesian_consensus_engine_tpu/state/sqlite_store.py``, recording into the
+port's own ``obs`` (the ``interchange_export`` span and the
+``sqlite.rows_written`` counter).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import sqlite3
 from pathlib import Path
 from typing import Iterable, List, Optional, Protocol, Union, runtime_checkable
 
+from bayesian_consensus_engine_tpu_torch.obs.metrics import metrics_registry
+from bayesian_consensus_engine_tpu_torch.obs.timeline import active_timeline
 from bayesian_consensus_engine_tpu_torch.utils.config import (
     DECAY_HALF_LIFE_DAYS,
     DECAY_MINIMUM,
@@ -305,17 +308,25 @@ class SQLiteReliabilityStore:
         sql = _FRESH_INSERT_SQL if empty else _UPSERT_SQL
         # Bulk-load page cache (the default ~2 MB thrashes on multi-million-
         # row B-trees), restored afterwards so a long-lived store connection
-        # does not keep a 256 MB cache ceiling from one bulk call.
+        # does not keep a 256 MB cache ceiling from one bulk call. The
+        # transaction is the "interchange_export" phase of the obs timeline
+        # (the SQLite floor the journal tier exists to duck) — a no-op span
+        # unless this thread is recording.
         prior_cache = self._conn.execute("PRAGMA cache_size").fetchone()[0]
         self._conn.execute("PRAGMA cache_size=-262144")
         try:
-            self._conn.execute("BEGIN")
-            try:
-                self._conn.executemany(sql, rows)
-            except BaseException:
-                self._conn.execute("ROLLBACK")
-                raise
-            self._conn.execute("COMMIT")
+            with active_timeline().span("interchange_export"):
+                self._conn.execute("BEGIN")
+                try:
+                    cursor = self._conn.executemany(sql, rows)
+                except BaseException:
+                    self._conn.execute("ROLLBACK")
+                    raise
+                self._conn.execute("COMMIT")
+            if cursor.rowcount > 0:
+                metrics_registry().counter("sqlite.rows_written").inc(
+                    cursor.rowcount
+                )
         finally:
             self._conn.execute(f"PRAGMA cache_size={int(prior_cache)}")
 

@@ -22,15 +22,25 @@ store's device. Three access tiers:
      ``host_rows`` and registers its merges with ``defer_settle_recipe``
      (no flat state; ``pending_overlaps`` says when it must sync first).
 
-Durability: ``from_sqlite`` / ``flush_to_sqlite`` keep on-disk checkpoints
-byte-compatible with the JAX package's and the reference's DB files. With
-the port's C interner (``native/internmap.c``) a flush to a file sorts and
-writes in C against a dlopen()ed ``libsqlite3``; otherwise it goes through
-the ``sqlite3`` module, with the same records.
+Durability, two tiers:
 
-The device is explicit (``device=None`` means CUDA, and a machine without
-CUDA raises unless ``device="cpu"`` was asked for). Not ported yet:
-asynchronous flushes, the journal and the orbax checkpoint.
+  * **SQLite** — ``from_sqlite`` / ``flush_to_sqlite`` keep on-disk
+    checkpoints byte-compatible with the JAX package's and the reference's
+    DB files. With the port's C interner (``native/internmap.c``) a flush
+    to a file sorts and writes in C against a dlopen()ed ``libsqlite3``;
+    otherwise it goes through the ``sqlite3`` module, with the same
+    records. ``flush_to_sqlite_async`` snapshots the rows at the call and
+    writes them on a background thread (the C writer with the GIL
+    released), returning a :class:`FlushHandle`.
+  * **Journal** — ``flush_to_journal`` / ``flush_to_journal_async`` append
+    one epoch of the rows dirtied since the last epoch to a
+    :class:`~.journal.JournalWriter` (``state/journal.py``), with the JAX
+    package's bytes; ``replay_journal`` rebuilds a store from it.
+
+The two tiers keep separate dirty flags, so neither steals rows from the
+other. The device is explicit (``device=None`` means CUDA, and a machine
+without CUDA raises unless ``device="cpu"`` was asked for). Not ported
+yet: the orbax checkpoint (``save_checkpoint`` / ``load_checkpoint``).
 """
 
 from __future__ import annotations
@@ -43,6 +53,12 @@ from typing import List, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from bayesian_consensus_engine_tpu_torch.obs.metrics import (
+    metrics_registry as _metrics_registry,
+)
+from bayesian_consensus_engine_tpu_torch.obs.timeline import (
+    active_timeline as _active_timeline,
+)
 from bayesian_consensus_engine_tpu_torch.state.decay import (
     apply_reliability_decay,
     days_since_update,
@@ -116,6 +132,145 @@ def _locked(method):
             return method(self, *args, **kwargs)
 
     return wrapper
+
+
+class FlushHandle:
+    """An in-flight background SQLite checkpoint (``flush_to_sqlite_async``).
+
+    ``result()`` joins the writer thread and returns the written row count,
+    re-raising the writer's failure after ROLLING BACK the store's flush
+    bookkeeping (the snapshotted rows are re-marked dirty and the last-
+    flush target is restored, so the next flush re-covers everything this
+    one claimed — the on-disk file itself is untouched by a failed write:
+    the writer is one SQLite transaction). The store joins any in-flight
+    handle before starting another flush, so writes to a target never
+    interleave.
+    """
+
+    __slots__ = ("_store", "_thread", "_writer", "_rows", "_exc",
+                 "_restore", "_finished", "_fingerprint")
+
+    def __init__(self, store, writer, restore) -> None:
+        self._store = store
+        self._writer = writer
+        self._restore = restore  # (selected, dead, prev_path, prev_fp) | None
+        self._rows: Optional[int] = None
+        self._exc: Optional[BaseException] = None
+        self._finished = False
+        # Captured by the writer thread AFTER its transaction commits: the
+        # target's post-write content identity, recorded on the store at
+        # join so the next auto-incremental flush can verify nothing else
+        # touched the file in between (see _plan_flush).
+        self._fingerprint = None
+        self._thread = threading.Thread(
+            target=self._run, name="bce-flush", daemon=True
+        )
+        self._thread.start()
+
+    def _run(self) -> None:
+        # No store lock in here: the writer touches only snapshot data, and
+        # taking the lock from this thread could deadlock with a joiner
+        # that already holds it (result() is called under the store lock by
+        # the flush entry points).
+        try:
+            self._rows, self._fingerprint = self._writer()
+        except BaseException as exc:  # noqa: BLE001 — re-raised in result()
+            self._exc = exc
+
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    def result(self, timeout: Optional[float] = None) -> int:
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError("background flush still running")
+        if self._finished:
+            if self._exc is not None:
+                raise self._exc
+            return self._rows
+        self._finished = True
+        if self._exc is not None:
+            store = self._store
+            with store._host_lock:
+                if store._flush_inflight is self:
+                    store._flush_inflight = None
+                if self._restore is not None:
+                    selected, dead, prev_path, prev_fp = self._restore
+                    store._dirty[selected] = True
+                    if dead:
+                        store._dirty[dead] = True
+                    store._last_flush_path = prev_path
+                    store._last_flush_fp = prev_fp
+            raise self._exc
+        with self._store._host_lock:
+            if self._store._flush_inflight is self:
+                self._store._flush_inflight = None
+            if self._restore is not None:
+                # Restorable target ⇒ this flush claimed it: record its
+                # post-write identity for the next incremental check.
+                self._store._last_flush_fp = self._fingerprint
+        return self._rows
+
+
+class JournalFlushHandle:
+    """An in-flight background journal epoch (``flush_to_journal_async``).
+
+    The durability twin of :class:`FlushHandle` for the journal tier: the
+    epoch's CONTENT was snapshotted synchronously under the store lock
+    (the drained truth as of the ``flush_to_journal_async`` call); only
+    the framing, CRC, append, and fsync run on the writer thread.
+    ``result()`` joins and returns the epoch's dirty-row count; a failed
+    write re-raises here with the snapshot's rows re-marked
+    journal-dirty (the next epoch re-covers them) and the journal file
+    truncated back to its pre-append length (best effort — the writer
+    never advanced its epoch index, so a resumed/continuing writer
+    appends at the same valid end replay stops at). The store joins any
+    in-flight epoch before starting another, so epochs never interleave.
+    """
+
+    __slots__ = ("_store", "_thread", "_writer", "_rows", "_exc",
+                 "_restore_idx", "_finished")
+
+    def __init__(self, store, writer, restore_idx) -> None:
+        self._store = store
+        self._writer = writer
+        self._restore_idx = restore_idx  # rows to re-mark journal-dirty
+        self._rows: Optional[int] = None
+        self._exc: Optional[BaseException] = None
+        self._finished = False
+        self._thread = threading.Thread(
+            target=self._run, name="bce-journal-flush", daemon=True
+        )
+        self._thread.start()
+
+    def _run(self) -> None:
+        # Same lock discipline as FlushHandle._run: snapshot data only.
+        try:
+            self._rows = self._writer()
+        except BaseException as exc:  # noqa: BLE001 — re-raised in result()
+            self._exc = exc
+
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    def result(self, timeout: Optional[float] = None) -> int:
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError("background journal epoch still running")
+        if self._finished:
+            if self._exc is not None:
+                raise self._exc
+            return self._rows
+        self._finished = True
+        store = self._store
+        with store._host_lock:
+            if store._journal_inflight is self:
+                store._journal_inflight = None
+            if self._exc is not None:
+                store._journal_dirty[self._restore_idx] = True
+        if self._exc is not None:
+            raise self._exc
+        return self._rows
 
 
 class _PairEpochTable:
@@ -213,9 +368,21 @@ class TensorReliabilityStore:
         self._dirty = np.zeros(capacity, dtype=bool)
         self._last_flush_path: Optional[str] = None
         self._last_flush_fp = None
+        # Separate dirty tracking for the durability journal
+        # (state/journal.py): journal epochs and SQLite flushes are
+        # independent tiers — a journal epoch must not steal rows from
+        # the next SQLite checkpoint or vice versa.
+        self._journal_dirty = np.zeros(capacity, dtype=bool)
         # The last bound batch's resolved pairs (rows_for_pairs_delta).
+        # Dropped by the recovery paths (absorb_replayed_rows, journal
+        # replay), so a bind after recovery re-witnesses every pair.
         self._pair_epoch: Optional[_PairEpochTable] = None
+        # One reentrant lock over every public host-side method; the
+        # background writers (FlushHandle, JournalFlushHandle) never take
+        # it while they write.
         self._host_lock = threading.RLock()
+        self._flush_inflight: Optional[FlushHandle] = None
+        self._journal_inflight: Optional[JournalFlushHandle] = None
 
     # -- row management ------------------------------------------------------
 
@@ -246,6 +413,7 @@ class TensorReliabilityStore:
         self._days = grow(self._days, NEVER)
         self._exists = grow(self._exists, False)
         self._dirty = grow(self._dirty, False)
+        self._journal_dirty = grow(self._journal_dirty, False)
 
     def _row_for(self, source_id: str, market_id: str) -> int:
         """Row for a pair, allocating (but NOT marking existing) if new."""
@@ -271,10 +439,12 @@ class TensorReliabilityStore:
         DELTA-SHAPED: the pending flat state subsumes every recipe of the
         chain, so one device-side take of the UNION of touched rows feeds
         :meth:`_merge_device_rows`, and the cost scales with the rows
-        touched since the last sync, not the store size.
+        touched since the last sync, not the store size. The device-to-
+        host transfer is the ``fetch`` phase of the obs timeline.
         """
         if self._pending is None and self._pending_sync is None:
             return
+        timeline = _active_timeline()
         recipes = self._pending_sync
         self._pending_sync = None
         if recipes is not None:
@@ -294,22 +464,29 @@ class TensorReliabilityStore:
                         "sync recipe touches rows beyond the pending state"
                     )
                 if union.size:
-                    rel_u = _device_take(state.reliability, union)
-                    days_u = _device_take(state.updated_days, union)
-                    exists_u = _device_take(state.exists, union).astype(bool)
+                    with timeline.span("fetch"):
+                        rel_u = _device_take(state.reliability, union)
+                        days_u = _device_take(state.updated_days, union)
+                        exists_u = _device_take(
+                            state.exists, union
+                        ).astype(bool)
                     self._merge_device_rows(
                         union, rel_u, None, days_u, exists_u, epoch0
+                    )
+                    _metrics_registry().counter("store.delta_sync_rows").inc(
+                        int(union.size)
                     )
             else:
                 # Orphaned recipes (the pending state was handed forward
                 # and its successor never deferred): their own gathered
                 # reliabilities are still exact.
-                for (touched, rel_touched_dev, recipe_epoch0,
-                     stamp_rel) in recipes:
-                    self._apply_settle_recipe(
-                        touched, _to_numpy(rel_touched_dev),
-                        recipe_epoch0, stamp_rel,
-                    )
+                with timeline.span("fetch"):
+                    for (touched, rel_touched_dev, recipe_epoch0,
+                         stamp_rel) in recipes:
+                        self._apply_settle_recipe(
+                            touched, _to_numpy(rel_touched_dev),
+                            recipe_epoch0, stamp_rel,
+                        )
             # The flat device state is still EXACTLY the host's truth for
             # rel/days/exists, so it stays as the cache: a settle after a
             # flush or read chains with zero re-upload. Only its
@@ -325,14 +502,15 @@ class TensorReliabilityStore:
         # Merge at the PENDING state's length: pairs interned after the
         # settle have host-only (cold) rows — correct.
         used = int(state.reliability.shape[0])
-        self._merge_device_rows(
-            slice(0, used),
-            _to_numpy(state.reliability),
-            None,  # confidences: host-authoritative
-            _to_numpy(state.updated_days),
-            _to_numpy(state.exists).astype(bool),
-            epoch0,
-        )
+        with timeline.span("fetch"):
+            self._merge_device_rows(
+                slice(0, used),
+                _to_numpy(state.reliability),
+                None,  # confidences: host-authoritative
+                _to_numpy(state.updated_days),
+                _to_numpy(state.exists).astype(bool),
+                epoch0,
+            )
         self._device_cache = None
         self._cache_conf_drifted = False
 
@@ -392,6 +570,7 @@ class TensorReliabilityStore:
         self._exists[touched] = True
         changed = touched[rel_changed | stamps_changed | newly_existing]
         self._dirty[changed] = True
+        self._journal_dirty[changed] = True
         changed_rows = touched[stamps_changed]
         if changed_rows.size:
             iso_value = days_to_iso(stamp_abs)
@@ -480,6 +659,7 @@ class TensorReliabilityStore:
         self._exists[row] = True
         self._iso[row] = record.updated_at
         self._dirty[row] = True
+        self._journal_dirty[row] = True
         self._invalidate()
 
     @_locked
@@ -502,8 +682,19 @@ class TensorReliabilityStore:
             for key, row in selected
         ]
 
+    @_locked
     def close(self) -> None:
-        """Nothing runs in the background yet; kept for the store protocol."""
+        """Join any in-flight background checkpoint (the writer threads
+        are daemons — dropped at interpreter exit, which would silently
+        lose the checkpoint; a SQLite transaction rolls back and a torn
+        journal epoch is dropped at replay, but the caller asked for
+        durability). A prior write failure re-raises here with the flush
+        bookkeeping rolled back, like any flush entry point. The journal
+        tier joins first — its epoch is the rolling durability floor."""
+        if self._journal_inflight is not None:
+            self._journal_inflight.result()
+        if self._flush_inflight is not None:
+            self._flush_inflight.result()
 
     def __enter__(self) -> "TensorReliabilityStore":
         return self
@@ -759,6 +950,7 @@ class TensorReliabilityStore:
         self._days[rows] = stamp_days
         self._exists[rows] = True
         self._dirty[rows] = True
+        self._journal_dirty[rows] = True
         for row in rows:
             self._iso[row] = stamp_iso
         self._invalidate()
@@ -805,6 +997,7 @@ class TensorReliabilityStore:
         """
         self._conf[rows] = values
         self._dirty[rows] = True
+        self._journal_dirty[rows] = True
         if self._pending is None:
             self._invalidate()
         # With a pending settled state the cache stays: stored confidences
@@ -1108,8 +1301,10 @@ class TensorReliabilityStore:
         self._exists[idx] = new_exists
         if isinstance(idx, slice):
             self._dirty[idx] |= touched
+            self._journal_dirty[idx] |= touched
         else:
             self._dirty[idx[touched]] = True
+            self._journal_dirty[idx[touched]] = True
         # A settlement stamps every touched row with the same handful of
         # day values, so format each UNIQUE stamp once.
         changed_rows = (
@@ -1157,9 +1352,11 @@ class TensorReliabilityStore:
         its content; otherwise it writes every row. Forcing ``True``
         against another target raises. Rows are written in
         (source_id, market_id) order, so repeated full flushes of the same
-        state produce identical DB bytes.
+        state produce identical DB bytes. Joins any in-flight
+        :meth:`flush_to_sqlite_async` first (a failure there surfaces
+        here).
         """
-        target, incremental, selected, dead, used = self._plan_flush(
+        target, incremental, selected, dead, used, _deferred = self._plan_flush(
             db_path, incremental
         )
         written = self._write_sqlite_rows(db_path, selected, incremental, used)
@@ -1167,18 +1364,58 @@ class TensorReliabilityStore:
             with SQLiteReliabilityStore(db_path) as sqlite_store:
                 id_of = self._pairs.id_of
                 sqlite_store.delete_rows(id_of(r) for r in dead)
+        if incremental:
+            _metrics_registry().counter("interchange.delta_rows").inc(
+                int(selected.size)
+            )
         if target is not None:
             self._dirty[:used] = False
             self._last_flush_path = target
             self._last_flush_fp = interchange_fingerprint(target)
         return written
 
-    def _plan_flush(self, db_path, incremental: Optional[bool]):
-        """Sync pending device state, resolve the incremental mode, and
-        select the rows to write / delete. Returns
-        ``(target, incremental, selected, dead, used)``."""
-        self._sync_pending()
+    def _plan_flush(self, db_path, incremental: Optional[bool],
+                    resolve_pending: bool = True):
+        """Shared flush-entry bookkeeping: join any in-flight background
+        flush, sync pending device state, resolve the incremental mode,
+        and select the rows to write / delete. Returns
+        ``(target, incremental, selected, dead, used, deferred)``.
+
+        ``resolve_pending=False`` checkpoints the host truth AS APPLIED —
+        deferred settle results (a session's recipes, a flat chain's
+        recipes) are left deferred instead of drained, so the flush never
+        blocks on the device. Rows behind a deferred recipe are left out
+        whole (``deferred``) and stay dirty: the file is a complete, valid
+        snapshot of every APPLIED settlement, and a later resolving flush
+        (the default) makes it current.
+        """
+        if self._flush_inflight is not None:
+            # Serialise checkpoints: a second flush may not interleave with
+            # (or outrun) an in-flight one; a prior failure surfaces here.
+            self._flush_inflight.result()
+        # ":memory:" is a fresh empty DB on every open — never a valid
+        # incremental target.
         in_memory = str(db_path) == ":memory:"
+        deferred = np.empty(0, dtype=np.int64)
+        if resolve_pending:
+            self._sync_pending()
+        elif self._pending is not None and not self._pending_sync:
+            # A recipe-less flat pending state: its changed rows are
+            # unknowable, so a consistent partial snapshot is impossible —
+            # resolve rather than write torn records.
+            self._sync_pending()
+        elif self._pending_sync:
+            # Rows behind deferred recipes must be excluded ENTIRELY: the
+            # settle's eager confidence replay already updated (and
+            # dirtied) their host confidences, while reliability/stamp
+            # wait on the recipe — writing them now would pair new
+            # confidence with old reliability, a state that never
+            # existed. They stay dirty so the next resolving flush covers
+            # them whole.
+            deferred = np.unique(np.concatenate([
+                np.asarray(touched, dtype=np.int64)
+                for touched, _rel, _e, _s in self._pending_sync
+            ]))
         target = None if in_memory else str(Path(db_path).resolve())
         same_target = (
             target is not None
@@ -1207,13 +1444,92 @@ class TensorReliabilityStore:
         # reachable through absorb() of a mutated device state) are DELETED
         # from the file, or an incremental flush would strand them.
         dead_mask = self._dirty[:used] & ~self._exists[:used]
+        deferred = deferred[deferred < used]
+        if deferred.size:
+            select[deferred] = False
+            dead_mask[deferred] = False
         dead = np.nonzero(dead_mask)[0].tolist() if same_target else []
         selected = np.nonzero(select)[0]
-        return target, incremental, selected, dead, used
+        return target, incremental, selected, dead, used, deferred
+
+    @_locked
+    def flush_to_sqlite_async(
+        self,
+        db_path: Union[str, Path],
+        incremental: Optional[bool] = None,
+        resolve_pending: bool = True,
+    ) -> FlushHandle:
+        """Checkpoint like :meth:`flush_to_sqlite`, writing on a background
+        thread so the caller overlaps the SQLite transaction with further
+        host or device work.
+
+        The expensive write is split from a cheap synchronous SNAPSHOT: row
+        selection, key/value/timestamp capture, and dirty-flag bookkeeping
+        all happen before this returns (the checkpoint's content is exactly
+        the store's state as of this call); only the SQLite transaction runs
+        on the thread — through the C writer with the GIL RELEASED
+        (``NativePairInterner.flush_snapshot``) when the C interner is in
+        use and the target is a file, so the overlap is real. Mutating the
+        store after this call is safe and does not affect the in-flight
+        checkpoint; the file's bytes equal :meth:`flush_to_sqlite`'s.
+
+        Returns a :class:`FlushHandle`; call ``result()`` to join and get
+        the written row count (a failed write rolls the bookkeeping back —
+        see FlushHandle). Any subsequent flush joins the in-flight one
+        first, so checkpoints never interleave. A ``:memory:`` target also
+        runs on the thread — harmless (each connection opens a fresh
+        transient DB, exactly like the synchronous path) — so always join
+        via ``result()``, never assume completion.
+
+        ``resolve_pending=False`` snapshots the APPLIED host truth without
+        draining deferred device results (see ``_plan_flush``): the call
+        never blocks on the device, at the cost of the file lagging by
+        the deferred chain until a later resolving flush.
+        """
+        target, incremental, selected, dead, used, deferred = self._plan_flush(
+            db_path, incremental, resolve_pending
+        )
+        dead_ids = [self._pairs.id_of(r) for r in dead]
+        writer = self._build_snapshot_writer(db_path, selected, incremental,
+                                             used, dead_ids)
+        if incremental:
+            # Counted AFTER the background write lands (as the journal
+            # tier does): a failed write must not claim its rows, and the
+            # retry would otherwise count them twice.
+            inner_writer = writer
+            delta_count = int(selected.size)
+
+            def writer():
+                out = inner_writer()
+                _metrics_registry().counter("interchange.delta_rows").inc(
+                    delta_count
+                )
+                return out
+
+        prev_path = self._last_flush_path
+        prev_fp = self._last_flush_fp
+        if target is not None:
+            self._dirty[:used] = False
+            if deferred.size:
+                # Excluded-for-consistency rows (behind deferred recipes)
+                # were not written: keep them dirty so the next resolving
+                # flush covers them whole.
+                self._dirty[deferred] = True
+            self._last_flush_path = target
+            restore = (selected, dead, prev_path, prev_fp)
+        else:
+            restore = None
+        handle = FlushHandle(self, writer, restore)
+        self._flush_inflight = handle
+        return handle
 
     def _ordered_flush_rows(self, selected, incremental, used):
-        """Selected rows in (source_id, market_id) key order + a row→key
-        accessor; touches only the selected rows when few are selected."""
+        """The sqlite3-module route's parameter columns — source ids,
+        market ids, reliabilities, confidences, stamps — of the selected
+        rows in (source_id, market_id) key order: one home for the
+        checkpoint write order, shared by the synchronous flush and the
+        async snapshot (their files must be byte-identical). Touches only
+        the selected rows when few are selected."""
         rows = selected.tolist()
         if incremental and len(rows) * 8 < used:
             id_of = self._pairs.id_of
@@ -1221,7 +1537,68 @@ class TensorReliabilityStore:
         else:
             keys = self._pairs.ids()
         rows.sort(key=keys.__getitem__)
-        return rows, keys
+        order = np.asarray(rows, dtype=np.int64)
+        key_sel = [keys[r] for r in rows]
+        iso = self._iso
+        return ([k[0] for k in key_sel], [k[1] for k in key_sel],
+                self._rel[order].tolist(), self._conf[order].tolist(),
+                [iso[r] for r in rows])
+
+    def _c_writer_for(self, db_path) -> bool:
+        """Whether a flush to *db_path* takes the C writer: the C interner
+        with ``libsqlite3`` loadable, and a file target. Checked up front,
+        so a real write error (a locked file, a full disk) propagates
+        instead of running the flush again through the fallback."""
+        return str(db_path) != ":memory:" and getattr(
+            self._pairs, "sqlite_writer_available", bool)()
+
+    def _build_snapshot_writer(self, db_path, selected, incremental, used,
+                               dead_ids):
+        """A zero-argument callable that writes the snapshotted rows and
+        returns ``(rows written, the target's fingerprint)``.
+
+        C route: one ``snapshot_rows`` blob (key halves + stamps + values
+        copied out of the live arena) written by ``flush_snapshot`` with
+        the GIL released. Fallback: the sqlite3-module parameter rows are
+        materialised NOW, in :meth:`_ordered_flush_rows` order (snapshot
+        semantics), and executed on the thread — sqlite3 releases the GIL
+        during its own C work, so the overlap degrades gracefully rather
+        than disappearing.
+        """
+
+        def delete_dead(path):
+            if dead_ids:
+                with SQLiteReliabilityStore(path) as sqlite_store:
+                    sqlite_store.delete_rows(iter(dead_ids))
+
+        if self._c_writer_for(db_path):
+            order = self._pairs.sorted_rows(
+                np.ascontiguousarray(selected, dtype=np.int32)
+            )
+            blob = self._pairs.snapshot_rows(
+                order, self._rel, self._conf, self._iso
+            )
+            flush_snapshot = self._pairs.flush_snapshot
+            path = str(db_path)
+
+            def writer():
+                written = flush_snapshot(path, blob)
+                delete_dead(path)
+                return written, interchange_fingerprint(path)
+
+            return writer
+
+        columns = self._ordered_flush_rows(selected, incremental, used)
+
+        def writer():
+            with SQLiteReliabilityStore(db_path) as sqlite_store:
+                sqlite_store.put_rows(zip(*columns))
+            delete_dead(db_path)
+            if str(db_path) == ":memory:":
+                return len(columns[0]), None
+            return len(columns[0]), interchange_fingerprint(db_path)
+
+        return writer
 
     def _write_sqlite_rows(
         self, db_path, selected: np.ndarray, incremental: bool, used: int
@@ -1229,37 +1606,203 @@ class TensorReliabilityStore:
         """Write *selected* rows in (source_id, market_id) order; returns
         the row count.
 
-        With the C interner and a file target, the key-order sort and the
-        row writes run in C against a dlopen()ed libsqlite3
-        (``sorted_rows`` / ``flush_sqlite``): the same schema, statements,
-        WAL mode and single transaction as the sqlite3-module route below,
-        and the same records. Availability is checked up front, so a real
-        write error (a locked file, a full disk) propagates instead of
-        running the flush again through the fallback.
+        With the C interner and a file target (:meth:`_c_writer_for`), the
+        key-order sort and the row writes run in C against a dlopen()ed
+        libsqlite3 (``sorted_rows`` / ``flush_sqlite``): the same schema,
+        statements, WAL mode and single transaction as the sqlite3-module
+        route below, and the same records. The C write is the
+        ``interchange_export`` phase of the obs timeline (the sqlite3
+        route records the same phase inside ``put_rows``).
         """
-        if (
-            str(db_path) != ":memory:"
-            and getattr(self._pairs, "sqlite_writer_available", bool)()
-        ):
+        if self._c_writer_for(db_path):
             order = self._pairs.sorted_rows(
                 np.ascontiguousarray(selected, dtype=np.int32)
             )
-            return self._pairs.flush_sqlite(
-                str(db_path), order, self._rel, self._conf, self._iso
-            )
-        rows, keys = self._ordered_flush_rows(selected, incremental, used)
-        order = np.asarray(rows, dtype=np.int64)
-        rel = self._rel[order].tolist()
-        conf = self._conf[order].tolist()
-        iso = self._iso
-        key_sel = [keys[r] for r in rows]
-        params = zip(
-            [k[0] for k in key_sel],
-            [k[1] for k in key_sel],
-            rel,
-            conf,
-            [iso[r] for r in rows],
-        )
+            with _active_timeline().span("interchange_export"):
+                return self._pairs.flush_sqlite(
+                    str(db_path), order, self._rel, self._conf, self._iso
+                )
+        columns = self._ordered_flush_rows(selected, incremental, used)
         with SQLiteReliabilityStore(db_path) as sqlite_store:
-            sqlite_store.put_rows(params)
-        return len(rows)
+            sqlite_store.put_rows(zip(*columns))
+        return len(columns[0])
+
+    # -- durability (journal) ------------------------------------------------
+
+    def _journal_epoch_snapshot(self, journal):
+        """Select + copy one journal epoch's content (caller holds the
+        lock): ``(used, idx, append_args)``. The copies make the snapshot
+        independent of later store mutation — what lets the async path
+        hand it to a writer thread. Dirty flags are NOT cleared here."""
+        self._sync_pending()
+        self._resync_sidecars()
+        used = len(self._pairs)
+        if used < journal.rows_covered:
+            raise ValueError(
+                f"store holds {used} rows but the journal already covers "
+                f"{journal.rows_covered} — resume a journal only with a "
+                "store replayed from it"
+            )
+        if journal.epoch_index == 0:
+            select = self._exists[:used] | self._journal_dirty[:used]
+        else:
+            select = self._journal_dirty[:used]
+        idx = np.flatnonzero(select)
+        if hasattr(self._pairs, "pair_blob"):
+            # C fast path: wire-format bytes straight from the key arena.
+            new_pairs = self._pairs.pair_blob(journal.rows_covered, used)
+        else:
+            new_pairs = [
+                self._pairs.id_of(r) for r in range(journal.rows_covered, used)
+            ]
+        iso = self._iso
+        args = (
+            used,
+            new_pairs,
+            idx,
+            self._rel[idx],  # fancy indexing: already a copy
+            self._conf[idx],
+            self._days[idx],
+            self._exists[idx],
+            [iso[i] for i in idx.tolist()],
+        )
+        return used, idx, args
+
+    @_locked
+    def _join_journal_inflight(self) -> None:
+        """Join any in-flight background epoch (epochs serialise; a prior
+        background failure surfaces HERE, never silently). The wait is the
+        ``journal_async_wait`` phase — near zero when the write overlapped
+        the work since the last epoch."""
+        if self._journal_inflight is not None:
+            with _active_timeline().span("journal_async_wait"):
+                self._journal_inflight.result()
+
+    @_locked
+    def flush_to_journal(self, journal, tag: int = 0) -> int:
+        """Append one durability epoch to *journal* (state/journal.py).
+
+        Joins any in-flight background epoch first (epochs serialise),
+        then resolves pending device results (the delta sync: one
+        touched-rows transfer) and appends only the rows dirtied since the
+        LAST journal epoch plus any newly interned pairs. Journal dirtiness
+        is tracked separately from SQLite dirtiness: an epoch here never
+        shrinks the next :meth:`flush_to_sqlite` and vice versa. The first
+        epoch on a journal is a full snapshot, so replay is self-contained
+        even when the journal is attached to a non-empty store. Returns the
+        number of rows written. *tag* is the replay watermark
+        (:func:`~.journal.replay_journal` returns the last complete
+        epoch's tag).
+        """
+        self._join_journal_inflight()
+        used, idx, args = self._journal_epoch_snapshot(journal)
+        journal.append_epoch(*args, tag=tag)
+        self._journal_dirty[:used] = False
+        return int(idx.size)
+
+    @_locked
+    def flush_to_journal_async(self, journal, tag: int = 0
+                               ) -> JournalFlushHandle:
+        """Append an epoch like :meth:`flush_to_journal`, with the frame/
+        CRC/write/fsync on a background thread so the epoch's durability
+        wait overlaps the caller's next batch instead of blocking it.
+
+        The epoch's CONTENT is pinned synchronously: any in-flight epoch
+        is joined (epochs serialise, and a background failure surfaces at
+        that join), pending device results drain (the delta sync), and
+        the dirty rows/new pairs are snapshotted under the lock before
+        this returns — mutating the store afterwards cannot leak into the
+        epoch, and the file's bytes equal :meth:`flush_to_journal`'s.
+        Returns a :class:`JournalFlushHandle`; ``result()`` joins and
+        returns the row count (a failed write re-marks the snapshot rows
+        journal-dirty and truncates the torn frame — see the handle).
+        """
+        self._join_journal_inflight()
+        used, idx, args = self._journal_epoch_snapshot(journal)
+        self._journal_dirty[:used] = False
+
+        def writer():
+            journal.append_epoch(*args, tag=tag)
+            return int(idx.size)
+
+        handle = JournalFlushHandle(self, writer, idx)
+        self._journal_inflight = handle
+        return handle
+
+    def absorb_replayed_rows(
+        self, rows, rel, conf, days, exists, iso_values
+    ) -> None:
+        """Overwrite *rows* with journal-replayed values (a recovery merge).
+
+        The remapped twin of :meth:`_apply_journal_epoch`'s value half: the
+        caller has already interned the epoch's pairs (obtaining *rows* —
+        this store's assignment, not the journal's) and replays the dirty
+        columns onto them verbatim. Values land exactly as written (f64
+        host truth, ISO sidecars included) and the rows are marked dirty
+        for both durability tiers, so the adopting store's NEXT journal
+        epoch and SQLite flush carry them.
+
+        Callers adopting into a LIVE store must hand rows disjoint from
+        any pending device settlement — this method does not resolve
+        deferrals.
+        """
+        rows = np.ascontiguousarray(rows, dtype=np.int64)
+        with self._host_lock:
+            if rows.size and int(rows.max()) >= len(self._pairs):
+                raise ValueError(
+                    f"row {int(rows.max())} is beyond this store's "
+                    f"{len(self._pairs)} interned pairs"
+                )
+            # Recovery invalidates the epoch pair table: the adopted rows
+            # were interned outside the bind trace, so the next delta
+            # resolve must re-witness against the post-adoption interner.
+            self._pair_epoch = None
+            self._ensure_capacity(max(len(self._pairs), 1))
+            self._resync_sidecars()
+            self._rel[rows] = rel
+            self._conf[rows] = conf
+            self._days[rows] = days
+            self._exists[rows] = exists
+            iso = self._iso
+            for row, value in zip(rows.tolist(), iso_values):
+                iso[row] = value
+            self._dirty[rows] = True
+            self._journal_dirty[rows] = True
+            self._invalidate()
+
+    def _apply_journal_epoch(
+        self, used_after, pairs, idx, rel, conf, days, exists, iso_values
+    ) -> None:
+        """Replay hook for :func:`~.journal.replay_journal`: intern the
+        epoch's new pairs in row order — which reproduces the original row
+        assignment — then overwrite the epoch's dirty rows. The new pairs
+        go through the interner's batch pass (one C call with the C
+        interner); rows must extend the store contiguously, as one
+        ``intern`` a pair would give them."""
+        with self._host_lock:
+            before = len(self._pairs)
+            try:
+                rows = self._pairs.intern_arrays(
+                    [p[0] for p in pairs], [p[1] for p in pairs]
+                )
+            finally:
+                self._resync_sidecars()
+            if not np.array_equal(rows, np.arange(before, used_after)):
+                raise ValueError(
+                    "journal pairs do not extend the store contiguously "
+                    f"(rows {before}..{used_after} expected)"
+                )
+            # Same recovery rule as absorb_replayed_rows: replayed epochs
+            # intern outside the bind trace — drop the pair table.
+            self._pair_epoch = None
+            self._ensure_capacity(max(used_after, 1))
+            self._rel[idx] = rel
+            self._conf[idx] = conf
+            self._days[idx] = days
+            self._exists[idx] = exists
+            iso = self._iso
+            for row, value in zip(idx.tolist(), iso_values):
+                iso[row] = value
+            self._dirty[idx] = True
+            self._journal_dirty[idx] = True
+            self._invalidate()

@@ -169,7 +169,9 @@ Phases, one JSON line each:
                     K_loc takes, with its ``band_tree_depth``, which the
                     partials kernel reports itself);
                     ``bp_sweep`` and the two one-pass kernels also
-                    ``launches_per_call``. The line is printed after phase 15.
+                    ``launches_per_call``; ``settle_cycles`` also
+                    ``journal_launches``, its launches in phase 16's delta
+                    step. The line is printed after phase 16.
 15. ``batch_consensus`` the consensus surface, which runs none of the four
                     kernels: the main path's 1,000,000 markets as object
                     payloads (``{"sourceId", "probability"}`` dicts) with a
@@ -201,6 +203,32 @@ Phases, one JSON line each:
                     rounds, the pass's peak device bytes above what the
                     earlier phases hold, and the
                     ``nvidia-smi`` line.
+16. ``journal``     the journal tier and the background flushes on the main
+                    store (every row settled by phases 8 and 11-13): a
+                    ``JournalWriter`` on a fresh file and a full-snapshot
+                    epoch of every row (``flush_to_journal``, tag 0); a plan
+                    over the first 100,000 markets, one 20-step ``settle``
+                    (exactly one ``settle_cycles`` launch), then
+                    ``flush_to_journal_async`` (tag 1: the touched rows
+                    only) and ``flush_to_sqlite_async`` to the main path's
+                    file (incremental: every row dirtied since its flush)
+                    together; ``replay_journal(device="cuda")`` while the
+                    SQLite write runs, equal to the live store (reliability,
+                    confidence, stamps, existence, ISO stamps and row
+                    assignment) at tag 1; the replayed store's
+                    ``flush_to_sqlite_async`` to a fresh file, whose
+                    ``SELECT *`` sha256 must equal the incremental file's.
+                    Then on a store of 1,037 markets settled three times,
+                    journaled twice and traced three times: a torn tail
+                    replays to tag 0, a resumed writer appends after it
+                    (tag 5, replaying to the resumed store), compaction
+                    keeps state and tag and shrinks the file, and
+                    ``extract_trace`` returns the two batches the journal
+                    covers (``strict=True`` refuses the third). Prints the
+                    seconds of each step (the async calls' blocking time and
+                    each ``result()``'s wait), the epochs' rows and bytes,
+                    and the registry's ``journal.*`` and
+                    ``interchange.delta_rows`` counters.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -857,6 +885,229 @@ def batch_consensus_phase(smi, market_keys, codes, probs, offsets):
          nvidia_smi=smi)
 
 
+# journal: the delta batch (the first JOURNAL_MARKETS markets of the main
+# path's data, settled once more at JOURNAL_NOW, after every earlier settle
+# of the main store) and the small store of the torn-tail, resume,
+# compaction and trace checks (the kernel checks' market count).
+JOURNAL_MARKETS, JOURNAL_SMALL_MARKETS = 100_000, 1037
+JOURNAL_NOW = NOW + 8 * STEPS
+
+
+def journal_phase(smi, store, market_keys, codes, probs, offsets, outcomes,
+                  main_db, work_dir):
+    """The journal tier and the background flushes on the main store: a
+    full-snapshot epoch, a settled delta written as an async epoch beside an
+    async incremental SQLite flush, replay on the card against the live
+    store and its full flush against the incremental file; then torn-tail,
+    resume, compaction and trace-sidecar checks on a small store. Returns
+    the settle kernel's launches in the delta step."""
+    from bayesian_consensus_engine_tpu_torch import obs, pipeline
+    from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
+    from bayesian_consensus_engine_tpu_torch.ops import settle_kernel
+    from bayesian_consensus_engine_tpu_torch.state import journal
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    table = [f"src-{i}" for i in range(SOURCES)]
+
+    def columns(markets):
+        cut = int(offsets[markets])
+        return (market_keys[:markets], SourceCodes(codes[:cut], table),
+                probs[:cut], offsets[: markets + 1])
+
+    def host_state(subject):
+        subject.sync()
+        used = len(subject)
+        return (subject._rel[:used], subject._conf[:used],
+                subject._days[:used], subject._exists[:used])
+
+    def same_state(got, want, what):
+        for name, x, y in zip(("rel", "conf", "days", "exists"),
+                              host_state(got), host_state(want)):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{what}: {name} differs")
+        used = len(want)
+        if got._iso[:used] != want._iso[:used] or len(got) != used:
+            raise AssertionError(f"{what}: ISO stamps or row count differ")
+        if got._pairs.ids() != want._pairs.ids():
+            raise AssertionError(f"{what}: row assignment differs")
+
+    registry = obs.MetricsRegistry()
+    previous = obs.set_metrics_registry(registry)
+    seconds = {}
+    try:
+        # 1. A full-snapshot epoch of every row.
+        path = os.path.join(work_dir, "main.jrnl")
+        start = time.perf_counter()
+        writer = journal.JournalWriter(path)
+        snapshot_rows = store.flush_to_journal(writer, tag=0)
+        seconds["snapshot_epoch"] = time.perf_counter() - start
+        snapshot_end = os.path.getsize(path)
+        if snapshot_rows != len(store):
+            raise AssertionError(f"snapshot epoch: {snapshot_rows} rows of "
+                                 f"{len(store)}")
+
+        # 2. The delta: a plan over the first JOURNAL_MARKETS markets, one
+        # settle (one settle_cycles launch), then an async epoch and an
+        # async incremental flush to the main path's file, together.
+        start = time.perf_counter()
+        plan = pipeline.build_settlement_plan_columnar(
+            store, *columns(JOURNAL_MARKETS))
+        seconds["delta_plan"] = time.perf_counter() - start
+        touched = int(np.unique(plan.slot_rows[plan.mask]).size)
+        settle_kernel.LAUNCHES = 0
+        start = time.perf_counter()
+        result = pipeline.settle(store, plan, outcomes[:JOURNAL_MARKETS],
+                                 steps=STEPS, now=JOURNAL_NOW)
+        result.fence()
+        seconds["delta_settle"] = time.perf_counter() - start
+        launches = settle_kernel.LAUNCHES
+        if launches != 1:
+            raise AssertionError(f"{launches} kernel launches for 1 settle")
+        consensus = result.consensus
+        if consensus.shape != (JOURNAL_MARKETS,) or \
+                not np.all(np.isfinite(consensus)):
+            raise AssertionError("delta consensus is not finite of shape (M,)")
+        start = time.perf_counter()
+        epoch = store.flush_to_journal_async(writer, tag=1)
+        seconds["journal_async_call"] = time.perf_counter() - start
+        sqlite_start = time.perf_counter()
+        flush = store.flush_to_sqlite_async(main_db)
+        seconds["sqlite_async_call"] = time.perf_counter() - sqlite_start
+        start = time.perf_counter()
+        delta_rows = epoch.result()
+        seconds["journal_result_wait"] = time.perf_counter() - start
+        writer.close()
+        delta_bytes = os.path.getsize(path) - snapshot_end
+        if delta_rows != touched:
+            raise AssertionError(f"delta epoch: {delta_rows} rows, the settle "
+                                 f"touched {touched}")
+
+        # 3. Replay on the card while the SQLite write runs, against the
+        # live store; then the replayed store's full async flush against
+        # the incremental file.
+        start = time.perf_counter()
+        replayed, tag = journal.replay_journal(path, device="cuda")
+        seconds["replay"] = time.perf_counter() - start
+        sqlite_done_after_replay = flush.done()
+        start = time.perf_counter()
+        sqlite_rows = flush.result()
+        seconds["sqlite_result_wait"] = time.perf_counter() - start
+        seconds["sqlite_async_total"] = time.perf_counter() - sqlite_start
+        if tag != 1 or replayed.device.type != "cuda":
+            raise AssertionError(f"replay: tag {tag}, {replayed.device}")
+        start = time.perf_counter()
+        same_state(replayed, store, "replayed store")
+        seconds["replay_check"] = time.perf_counter() - start
+        fresh_db = os.path.join(work_dir, "replayed.db")
+        start = time.perf_counter()
+        fresh_rows = replayed.flush_to_sqlite_async(fresh_db).result()
+        seconds["replay_full_flush"] = time.perf_counter() - start
+        # The main store's counters (the small checks below add to them).
+        counters = {name: value for name, value
+                    in registry.export()["counters"].items()
+                    if name.startswith(("journal.", "interchange."))}
+        if counters.get("interchange.delta_rows") != sqlite_rows:
+            raise AssertionError(f"the flush to the main file was not "
+                                 f"incremental: {counters}")
+        if fresh_rows != len(store):
+            raise AssertionError(f"replayed flush: {fresh_rows} rows of "
+                                 f"{len(store)}")
+        start = time.perf_counter()
+        digests = {"incremental": table_digest(main_db),
+                   "replayed": table_digest(fresh_db)}
+        seconds["digests"] = time.perf_counter() - start
+        if digests["incremental"] != digests["replayed"]:
+            raise AssertionError(f"checkpoints differ: {digests}")
+        del replayed
+
+        # 4. A small store: a torn tail, a resume after it, compaction and
+        # the trace sidecar bounded by the journal's tag.
+        small = TensorReliabilityStore()
+        small_columns = columns(JOURNAL_SMALL_MARKETS)
+        small_plan = pipeline.build_settlement_plan_columnar(small,
+                                                             *small_columns)
+        small_outcomes = outcomes[:JOURNAL_SMALL_MARKETS]
+        small_path = os.path.join(work_dir, "small.jrnl")
+        epoch_rows = []
+        with journal.JournalWriter(small_path) as small_writer, \
+                journal.TraceWriter(journal.trace_path_for(small_path)) as trace:
+            for index in range(3):
+                now = NOW + index * STEPS
+                pipeline.settle(small, small_plan, small_outcomes, steps=STEPS,
+                                now=now).fence()
+                keys, sources, batch_probs, batch_offsets = small_columns
+                trace.append_batch(keys, [table[c] for c in sources.codes.tolist()],
+                                   batch_probs, batch_offsets, small_outcomes,
+                                   now, STEPS)
+                if index < 2:  # the third batch never becomes durable
+                    epoch_rows.append(small.flush_to_journal(small_writer,
+                                                             tag=index))
+        raw = open(small_path, "rb").read()
+        torn_path = os.path.join(work_dir, "torn.jrnl")
+        with open(torn_path, "wb") as f:
+            f.write(raw[:-7])  # mid-CRC of the second epoch
+        torn, torn_tag = journal.replay_journal(torn_path, device="cuda")
+        if torn_tag != 0 or len(torn) != len(small):
+            raise AssertionError(f"torn tail: tag {torn_tag}, {len(torn)} rows")
+        with journal.JournalWriter(torn_path, resume=True) as resumed:
+            if resumed.epoch_index != 1:
+                raise AssertionError(f"resume at epoch {resumed.epoch_index}")
+            torn_plan = pipeline.build_settlement_plan_columnar(torn,
+                                                                *small_columns)
+            pipeline.settle(torn, torn_plan, small_outcomes, steps=STEPS,
+                            now=JOURNAL_NOW).fence()
+            torn.flush_to_journal(resumed, tag=5)
+        again, again_tag = journal.replay_journal(torn_path, device="cuda")
+        if again_tag != 5:
+            raise AssertionError(f"resumed journal replays to tag {again_tag}")
+        same_state(again, torn, "resumed journal")
+        before, before_tag = journal.replay_journal(small_path, device="cuda")
+        before_size = os.path.getsize(small_path)
+        kept = journal.compact_journal(small_path, device="cuda")
+        after, after_tag = journal.replay_journal(small_path, device="cuda")
+        if (kept, before_tag, after_tag) != (len(small), 1, 1) or \
+                os.path.getsize(small_path) >= before_size:
+            raise AssertionError(f"compaction: {kept} rows, tags {before_tag} "
+                                 f"-> {after_tag}")
+        same_state(after, before, "compacted journal")
+        batches = journal.read_trace(journal.trace_path_for(small_path),
+                                     strict=True)
+        covered, trace_tag = journal.extract_trace(small_path)
+        if len(batches) != 3 or [b.index for b in covered] != [0, 1] or \
+                trace_tag != 1:
+            raise AssertionError(f"trace: {len(batches)} batches, "
+                                 f"{len(covered)} covered, tag {trace_tag}")
+        if not np.array_equal(batches[0].probabilities, small_columns[2]):
+            raise AssertionError("trace batch 0 differs from its input")
+        try:
+            journal.extract_trace(small_path, strict=True)
+        except journal.TornTraceError:
+            pass
+        else:
+            raise AssertionError("strict extract_trace accepted a trace "
+                                 "beyond the journal's tag")
+    finally:
+        obs.set_metrics_registry(previous)
+
+    emit("journal", markets=len(market_keys), rows=len(store),
+         snapshot_rows=snapshot_rows, snapshot_bytes=snapshot_end - len(
+             journal.MAGIC),
+         delta_markets=JOURNAL_MARKETS, delta_rows=delta_rows,
+         delta_bytes=delta_bytes, launches=launches,
+         sqlite_incremental_rows=sqlite_rows,
+         sqlite_done_after_replay=sqlite_done_after_replay,
+         replayed_rows=fresh_rows, sqlite_sha256=digests["replayed"],
+         small={"markets": JOURNAL_SMALL_MARKETS, "rows": len(small),
+                "epoch_rows": epoch_rows, "torn_tag": torn_tag,
+                "resumed_tag": again_tag, "compacted_rows": kept,
+                "trace_batches": len(batches), "covered": len(covered)},
+         counters=counters,
+         seconds=seconds, nvidia_smi=smi)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1349,7 +1600,10 @@ def main() -> int:
          rebind_stats=rebound.intern_stats, launches=delta_launches,
          seconds=delta_seconds, sqlite_sha256=delta_digests["auto"])
     del delta_plans, rebound, second, batches
-    work.cleanup()
+    # The main path's checkpoint stays for the journal phase (16).
+    for name in os.listdir(work.name):
+        if not name.startswith("settled.db"):
+            os.remove(os.path.join(work.name, name))
 
     # 11. analytics_path: the main path's plan and store through a resident
     # session. Each one-pass call's inputs are copied as the loop hands
@@ -2059,6 +2313,12 @@ def main() -> int:
 
     # 15. batch_consensus
     batch_consensus_phase(smi, market_keys, codes, probs, offsets)
+
+    # 16. journal
+    settle_entry["journal_launches"] = journal_phase(
+        smi, store, market_keys, codes, probs, offsets, outcomes, main_db,
+        work.name)
+    work.cleanup()
 
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
                                   partials_entry]}), flush=True)

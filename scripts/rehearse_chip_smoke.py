@@ -3,15 +3,17 @@
 Usage: python scripts/rehearse_chip_smoke.py [MARKETS] [DUMP_MARKETS]
 
 Runs chip_smoke's ``native``, ``main_path``, ``host_routes`` and
-``delta_check`` phases (7 to 10) on CPU stores, from the repository root.
-The script's ``main()`` is cut to its import block and those phases,
-``"cuda"`` becomes ``"cpu"``, stores are built with ``device="cpu"``,
-each call of the settle kernel's wrapper is counted where the card would
-launch it, and MARKETS (default 5,000) and DUMP_MARKETS (default 1,000)
-replace the full-size constants. The kernels take their plain torch
-versions, so no figure printed here is a device figure: the rehearsal
-finds wrong paths, shapes and control flow before a chip call, and shows
-the host routes' relative cost on this machine.
+``delta_check`` phases (7 to 10), then its ``journal`` phase (16) on the
+main path's store, on CPU stores, from the repository root. The script's
+``main()`` is cut to its import block and those phases, ``"cuda"``
+becomes ``"cpu"``, stores are built with ``device="cpu"``, each call of
+the settle kernel's wrapper is counted where the card would launch it,
+and MARKETS (default 5,000), DUMP_MARKETS (default 1,000) and the journal
+phase's delta (100,000 markets, at most half of MARKETS) replace the
+full-size constants. The kernels take their plain torch versions, so no
+figure printed here is a device figure: the rehearsal finds wrong paths,
+shapes and control flow before a chip call, and shows the host routes'
+and the journal tier's relative cost on the machine it runs on.
 """
 
 from __future__ import annotations
@@ -45,14 +47,23 @@ def rehearsal_source(markets: int, dump_markets: int) -> str:
     head, body = source.split("def main() -> int:\n", 1)
     imports = body[: body.index("    # 1. device")]
     phases = body[body.index("    # 7. native"): body.index("    # 11. analytics_path")]
+    journal = (
+        '    smi = "rehearsal on the CPU"\n'
+        "    journal_phase(smi, store, market_keys, codes, probs, offsets,\n"
+        "                  outcomes, main_db, work.name)\n"
+    )
     head = re.sub(r"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000",
                   f"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = {markets}", head)
     head = head.replace("DUMP_MARKETS, REPLACED, REDRAWN = 50_000",
                         f"DUMP_MARKETS, REPLACED, REDRAWN = {dump_markets}")
+    head = head.replace(
+        "JOURNAL_MARKETS, JOURNAL_SMALL_MARKETS = 100_000",
+        f"JOURNAL_MARKETS, JOURNAL_SMALL_MARKETS = {min(100_000, markets // 2)}")
     head = head.replace("import numpy as np\nimport torch\n",
                         "import numpy as np\nimport torch\n" + SHIM, 1)
     imports = imports.replace("if not torch.cuda.is_available():", "if False:")
-    text = head + "def main() -> int:\n" + imports + phases + "    return 0\n"
+    text = (head + "def main() -> int:\n" + imports + phases + journal
+            + "    return 0\n")
     return text.replace('"cuda"', '"cpu"').replace(
         "TensorReliabilityStore()", 'TensorReliabilityStore(device="cpu")')
 
@@ -61,7 +72,8 @@ def main() -> int:
     markets = int(sys.argv[1]) if len(sys.argv) > 1 else 5_000
     dump_markets = int(sys.argv[2]) if len(sys.argv) > 2 else 1_000
     sys.path.insert(0, str(ROOT))
-    namespace = {"__name__": "chip_smoke_rehearsal"}
+    namespace = {"__name__": "chip_smoke_rehearsal",
+                 "__file__": str(ROOT / "chip_smoke.py")}
     exec(compile(rehearsal_source(markets, dump_markets),  # noqa: S102
                  "chip_smoke_rehearsal", "exec"), namespace)
     return namespace["main"]()

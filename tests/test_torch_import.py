@@ -1,11 +1,13 @@
 """The port stands alone: importing it (every module of the analytics,
-inference and mesh slices, the native host path and the consensus surface
-included), building and loading its own C extensions, computing scalar and
-batched consensus documents, settling on the CPU, settling through the
-resident session with analytics and graph inference, and settling on a
-sources-sharded CPU mesh loads neither JAX nor any module of the JAX
-package (its ``_native`` extensions included), and its device policy is
-explicit (CUDA unless the CPU is asked for; no silent fallback)."""
+inference and mesh slices, the native host path, the consensus surface,
+the journal and its ``obs`` modules included), building and loading its
+own C extensions, computing scalar and batched consensus documents,
+settling on the CPU, settling through the resident session with analytics
+and graph inference, settling on a sources-sharded CPU mesh, and writing,
+replaying and compacting a two-epoch journal beside a background SQLite
+flush loads neither JAX nor any module of the JAX package (its ``_native``
+extensions included), and its device policy is explicit (CUDA unless the
+CPU is asked for; no silent fallback)."""
 
 import os
 import pathlib
@@ -40,8 +42,11 @@ from bayesian_consensus_engine_tpu_torch.core import batch, engine, validate
 from bayesian_consensus_engine_tpu_torch.native import build
 from bayesian_consensus_engine_tpu_torch.ops import consensus
 from bayesian_consensus_engine_tpu_torch import models
-from bayesian_consensus_engine_tpu_torch.state import namespaced
+from bayesian_consensus_engine_tpu_torch.state import journal, namespaced
+from bayesian_consensus_engine_tpu_torch.obs import metrics, timeline, trace
 from bayesian_consensus_engine_tpu_torch.utils import interning
+import os
+import tempfile
 import torch
 
 signals = [{{"sourceId": "b", "probability": 0.4}},
@@ -98,6 +103,27 @@ with port.ShardedSettlementSession(store, plan, cpu_mesh) as session:
     )
 assert len(tb.prediction) == 2 and len(bands_out.lo) == 2
 
+registry = metrics.MetricsRegistry()
+metrics.set_metrics_registry(registry)
+phases = timeline.PhaseTimeline()
+with tempfile.TemporaryDirectory() as work, timeline.recording(phases):
+    path = os.path.join(work, "j.jrnl")
+    with journal.JournalWriter(path) as writer:
+        assert store.flush_to_journal(writer, tag=0) == len(store)
+        port.settle_payloads(store, payloads, [False, True], steps=1,
+                             now=20012.0)
+        handle = store.flush_to_journal_async(writer, tag=1)
+        flush = store.flush_to_sqlite_async(os.path.join(work, "j.db"))
+        assert handle.result() == 2 and flush.result() == 2
+    replayed, tag = journal.replay_journal(path, device="cpu")
+    assert tag == 1 and replayed.list_sources() == store.list_sources()
+    assert replayed._pairs.ids() == store._pairs.ids()
+    assert journal.compact_journal(path, device="cpu") == len(store)
+metrics.set_metrics_registry(None)
+assert registry.export()["counters"]["journal.epochs"] == 3
+assert "journal_fsync" in phases.counts()
+assert not trace.active_tracer().enabled
+
 PACKAGE = "bayesian_consensus_engine_tpu"
 loaded = sorted(
     name for name in sys.modules
@@ -131,6 +157,31 @@ def test_store_without_cuda_raises_unless_cpu_asked(monkeypatch):
         TensorReliabilityStore(device="cuda")
     store = TensorReliabilityStore(device="cpu")
     assert store.device == torch.device("cpu")
+
+
+def test_journal_recovery_without_cuda_raises_unless_cpu_asked(
+        monkeypatch, tmp_path):
+    from bayesian_consensus_engine_tpu_torch.state import (
+        JournalWriter,
+        compact_journal,
+        replay_journal,
+    )
+
+    path = tmp_path / "j.jrnl"
+    store = TensorReliabilityStore(device="cpu")
+    store.batch_update_reliability([("a", "m"), ("b", "m")], [True, False])
+    with JournalWriter(path) as writer:
+        store.flush_to_journal(writer, tag=3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for recover in (replay_journal, compact_journal):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            recover(path)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            recover(path, device="cuda")
+    replayed, tag = replay_journal(path, device="cpu")
+    assert tag == 3 and replayed.device == torch.device("cpu")
+    assert replayed.list_sources() == store.list_sources()
+    assert compact_journal(path, device="cpu") == 2
 
 
 def test_array_backend_without_cuda_raises_unless_cpu_asked(monkeypatch):
