@@ -4,8 +4,9 @@ The JAX package ``bayesian_consensus_engine_tpu`` is the reference this
 package is held against; nothing here imports it (or JAX). Layer map,
 bottom → top, each module named after its JAX counterpart:
 
-  utils/        constants (``config``), time conversion, interning, and
-                the device/dtype policy (``device``)
+  utils/        constants (``config``), time conversion, interning, the
+                device/dtype policy (``device``) and the card's memory
+                counters (``profiling``)
   ops/          the cycle as plain tensor math (``decay``, ``update``,
                 ``cycle_math``), the tie-break, band and belief-sweep math
                 (``tiebreak``, ``uncertainty``, ``propagate``), and the
@@ -20,9 +21,13 @@ bottom → top, each module named after its JAX counterpart:
                 engine (``engine``), and host packing plus the batched
                 array engine (``batch``: payloads → ordered pair arrays →
                 one device pass → reference-shaped documents)
-  obs/          host observability the store and journal record into:
-                counters and histograms (``metrics``), phase spans
-                (``timeline``) and span chains (``trace``)
+  obs/          host observability the store, journal, pipeline and
+                serve driver record into: counters and histograms
+                (``metrics``), phase spans (``timeline``), span chains
+                (``trace``), SLO goodput (``slo``), burn-rate health
+                (``health``), the run ledger (``ledger``), the
+                Prometheus/HTTP exporter (``export``) and the fleet merge
+                (``fleet``)
   state/        scalar decay/update math, the SQLite checkpoint backend,
                 the device-tensor store (``tensor_store``: synchronous
                 and background SQLite flushes, journal epochs), the
@@ -40,9 +45,13 @@ bottom → top, each module named after its JAX counterpart:
                 the market graph (``graph``)
   infer/        graph inference: ``InferenceOptions``,
                 ``propagate_beliefs`` and combinatorial ``MarketBlocks``
-  pipeline      plan → settle → deferred absorb → SQLite checkpoint, and
-                the resident session on one card or a mesh
-                (``ShardedSettlementSession``)
+  pipeline      plan → settle → deferred absorb → SQLite checkpoint, the
+                resident session on one card or a mesh
+                (``ShardedSettlementSession``, with ``refresh`` and
+                ``adopt``), and the streamed service (``PlanPrefetcher``,
+                ``settle_stream``)
+  serve/        the stream's loop body as an API: ``SessionDriver``,
+                ``PlanCache`` and ``drive_trace`` (``driver``)
   convert       build a store from either package's records, a graph
                 from a JAX ``MarketGraph``'s fields, and a mesh session's
                 block state from global numpy arrays and back
@@ -66,6 +75,7 @@ from bayesian_consensus_engine_tpu_torch.core import (
 )
 from bayesian_consensus_engine_tpu_torch.core.batch import compute_batch_consensus
 from bayesian_consensus_engine_tpu_torch.pipeline import (
+    PlanPrefetcher,
     SettlementPlan,
     SettlementResult,
     ShardedSettlementSession,
@@ -74,6 +84,12 @@ from bayesian_consensus_engine_tpu_torch.pipeline import (
     settle,
     settle_payloads,
     settle_sharded,
+    settle_stream,
+)
+from bayesian_consensus_engine_tpu_torch.serve.driver import (
+    PlanCache,
+    SessionDriver,
+    drive_trace,
 )
 from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
     TensorReliabilityStore,
@@ -81,6 +97,9 @@ from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
 
 __all__ = [
     "AnalyticsOptions",
+    "PlanCache",
+    "PlanPrefetcher",
+    "SessionDriver",
     "SettlementPlan",
     "SettlementResult",
     "ShardedSettlementSession",
@@ -93,5 +112,7 @@ __all__ = [
     "settle",
     "settle_payloads",
     "settle_sharded",
+    "settle_stream",
+    "drive_trace",
     "validate_input_payload",
 ]

@@ -8,7 +8,7 @@ block are the whole block. :func:`process_market_rows` and
 session reads as the JAX session does; ``init_distributed``,
 ``make_hybrid_mesh``, ``global_block`` and bands spread over several
 processes (``torch.distributed``) are not ported yet (ROADMAP queue 1
-item 11).
+item 9).
 """
 
 from __future__ import annotations

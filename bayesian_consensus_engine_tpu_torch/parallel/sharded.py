@@ -43,6 +43,7 @@ CPU every kernel's plain version runs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.bp_kernel import bp_sweep
@@ -67,6 +68,7 @@ from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
     SOURCES_AXIS,
     Mesh,
     make_mesh,
+    unshard_slot_block,
 )
 from bayesian_consensus_engine_tpu_torch.utils.config import (
     DEFAULT_CONFIDENCE,
@@ -183,14 +185,14 @@ def build_cycle_analytics_loop(
         raise NotImplementedError(
             "tiebreak_kind='sorted' (the sort-based grouping kernel, "
             "ops/tiebreak.py::batched_tiebreak) is not ported yet: "
-            "ROADMAP queue 1 item 8"
+            "ROADMAP queue 1 item 7"
         )
     if with_graph and n_market_shards > 1:
         raise NotImplementedError(
             f"a graph sweep on a mesh with {n_market_shards} markets shards "
             "(the all-gather of the seeds and neighbour blocks, and "
             "infer/partition.py's banded sweep) is not ported yet: ROADMAP "
-            "queue 1 item 11; use a mesh with one markets shard"
+            "queue 1 item 9; use a mesh with one markets shard"
         )
 
     def sweep(consensus, bands, neighbor_idx, neighbor_w):
@@ -399,4 +401,90 @@ def init_block_state(num_markets: int, num_slots: int, dtype=torch.float32,
         confidence=torch.full(shape, DEFAULT_CONFIDENCE, dtype=dtype, device=device),
         updated_days=torch.zeros(shape, dtype=dtype, device=device),
         exists=torch.zeros(shape, dtype=torch.bool, device=device),
+    )
+
+
+def relayout_slot_state(
+    state,
+    src,
+    enter_pos,
+    enter_rel,
+    enter_conf,
+    enter_days,
+    enter_exists,
+    new_shape: tuple,
+    mesh: Mesh,
+):
+    """Carry a resident slot-major block onto a new plan's (K, M) layout.
+
+    The device half of ``ShardedSettlementSession.adopt``: after a
+    topology miss the session's block is re-laid out for the incoming plan
+    (slots move, markets reorder, the padded extents may grow) without a
+    round trip through the host. ``src`` (int64, length ``K_new * M_new``)
+    maps each new flat slot-major position to the old block's flat
+    position it carries forward, or -1 for positions not carried (padding
+    and rows entering the active set); ``enter_pos`` and ``enter_*``
+    scatter the entering rows' host values (already cast to the block's
+    dtype, stamps relative to the session epoch) into their new positions.
+    Every other position takes the cold-start defaults, as a fresh state
+    build leaves unmasked padding.
+
+    Rows leaving the active set are not gathered: the session's standing
+    sync recipe (a lazy gather over the old block) still covers them.
+    The old ``reliability`` tensors are therefore left as they are (that
+    recipe may still read them); the other three fields are replaced.
+
+    *state* is the session's grid of per-shard blocks on *mesh*
+    (``state[i][j]``, as ``parallel/mesh.shard_slot_block`` cuts them):
+    each field is put together on the mesh's first device, so the gather
+    crosses the shards of a sources-sharded mesh, and the relaid block is
+    cut back onto the mesh as such a grid.
+    """
+    new_shape = tuple(int(x) for x in new_shape)
+    device = mesh.devices[0][0]
+    fields = tuple(
+        unshard_slot_block(
+            tuple(tuple(shard[f] for shard in row) for row in state), device
+        )
+        for f in range(4)
+    )
+    src_t = torch.as_tensor(np.asarray(src, dtype=np.int64), device=device)
+    carried = src_t >= 0
+    src_carried = src_t[carried]
+    pos_t = torch.as_tensor(np.asarray(enter_pos, dtype=np.int64), device=device)
+    size = new_shape[0] * new_shape[1]
+
+    def onto(old, fill, entered):
+        out = torch.full((size,), fill, dtype=old.dtype, device=device)
+        out[carried] = old.reshape(-1)[src_carried]
+        if pos_t.numel():
+            out[pos_t] = torch.as_tensor(entered, device=device)
+        return out.reshape(new_shape)
+
+    relaid = MarketBlockState(
+        reliability=onto(fields[0], DEFAULT_RELIABILITY, enter_rel),
+        confidence=onto(fields[1], DEFAULT_CONFIDENCE, enter_conf),
+        updated_days=onto(fields[2], 0.0, enter_days),
+        exists=onto(fields[3], False, enter_exists),
+    )
+    return _shard_block_state(relaid, mesh)
+
+
+def _shard_block_state(state, mesh: Mesh) -> tuple:
+    """A global slot-major :class:`MarketBlockState` cut into the mesh's
+    grid of per-shard states, each piece a contiguous copy on its shard's
+    device (the layout ``shard_slot_block`` gives)."""
+    num_slots, num_markets = state.reliability.shape
+    m_size, s_size = mesh.shape[MARKETS_AXIS], mesh.shape[SOURCES_AXIS]
+    k_loc, m_loc = num_slots // s_size, num_markets // m_size
+    return tuple(
+        tuple(
+            MarketBlockState(*(
+                field[j * k_loc:(j + 1) * k_loc, i * m_loc:(i + 1) * m_loc]
+                .to(mesh.devices[i][j]).contiguous()
+                for field in state
+            ))
+            for j in range(s_size)
+        )
+        for i in range(m_size)
     )

@@ -41,10 +41,24 @@ one launch of the partials kernel (``ops/partials_kernel.py``) per shard
 followed by the cross-shard merge; with a graph, the belief sweep's
 launches (``ops/bp_kernel.py``) follow. ``settle_sharded`` is the one-shot
 wrapper.
+
+The streamed service settles a sequence of batches:
+:class:`PlanPrefetcher` builds plan N+1 on a worker thread while plan N
+settles, and :func:`settle_stream` drives each batch through the serve
+driver (``serve/driver.py``) — the flat ``settle``, or ONE resident
+session that refreshes its probability block on a topology hit and
+adopts the next plan (re-laying its block out on the device) on a miss —
+with journal epochs or background SQLite checkpoints. The phase spans
+(``upload``, ``state_adopt``, ``settle_dispatch``, ``analytics``,
+``pack``, ``replay``) and the ``ingest.*``, ``intern.*`` and ``stream.*``
+metrics are the JAX package's.
 """
 
 from __future__ import annotations
 
+import collections
+import queue
+import threading
 import time
 import weakref
 from dataclasses import dataclass
@@ -57,6 +71,8 @@ from bayesian_consensus_engine_tpu_torch.core.batch import (
     SourceCodes,
     _columnar_native_available,
     _intern_source_codes,
+    _object_native_available,
+    columns_from_payloads,
     group_columns,
     pack_markets,
     pair_accumulate,
@@ -68,6 +84,12 @@ from bayesian_consensus_engine_tpu_torch.convert import sharded_block_from_numpy
 from bayesian_consensus_engine_tpu_torch.analytics.graph import MarketGraph
 from bayesian_consensus_engine_tpu_torch.infer.blocks import MarketBlocks
 from bayesian_consensus_engine_tpu_torch.infer.bp import InferenceOptions
+from bayesian_consensus_engine_tpu_torch.obs.metrics import metrics_registry
+from bayesian_consensus_engine_tpu_torch.obs.timeline import (
+    PhaseTimeline,
+    active_timeline,
+)
+from bayesian_consensus_engine_tpu_torch.obs.trace import active_tracer
 from bayesian_consensus_engine_tpu_torch.ops.propagate import PropagatedBeliefs
 from bayesian_consensus_engine_tpu_torch.ops.settle_kernel import (
     settle_cycles,
@@ -95,6 +117,7 @@ from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
 from bayesian_consensus_engine_tpu_torch.parallel.sharded import (
     build_cycle_analytics_loop,
     build_cycle_loop,
+    relayout_slot_state,
 )
 from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
     DeviceReliabilityState,
@@ -219,6 +242,7 @@ def build_settlement_plan(
         raise ValueError("duplicate market ids in one settlement plan")
 
     packed = pack_markets(payloads, native=native)
+    _count_pack(_object_native_available() if native is None else bool(native))
     market_of_pair = packed.pair_market
     pair_markets = [keys[row] for row in market_of_pair.tolist()]
     rows = store.rows_for_arrays(
@@ -316,6 +340,8 @@ class StagedColumnarPlan:
             "mode": "delta" if use_delta else "full",
             **resolve_stats,
         }
+        _count_intern(intern_stats)
+        _count_pack(self.used_native)
         sid_of_rank, pair_rank = self.sid_of_rank, self.pair_rank
         market_keys, pair_market = self.market_keys, self.pair_market
         plan = _assemble_plan(
@@ -333,6 +359,25 @@ class StagedColumnarPlan:
         )
         object.__setattr__(plan, "intern_stats", intern_stats)
         return plan
+
+
+def _count_pack(used_native: bool) -> None:
+    """``ingest.native_packs`` / ``ingest.python_packs``: which packer built
+    the plan (no-ops unless obs enabled a registry)."""
+    name = "ingest.native_packs" if used_native else "ingest.python_packs"
+    metrics_registry().counter(name).inc()
+
+
+def _count_intern(stats: dict) -> None:
+    """``intern.delta_pairs`` / ``intern.full_pairs``: how many pairs this
+    bind walked through the interner, by route (the delta route's count IS
+    the pair delta; matched pairs never reach the interner). No-ops unless
+    obs enabled a registry."""
+    name = (
+        "intern.delta_pairs" if stats["mode"] == "delta"
+        else "intern.full_pairs"
+    )
+    metrics_registry().counter(name).inc(int(stats["interned_pairs"]))
 
 
 def stage_settlement_plan_columnar(
@@ -665,18 +710,19 @@ def _device_plan(plan: SettlementPlan, dtype: torch.dtype, device: torch.device)
     _rows, offsets = _plan_touched(plan)
     parent = getattr(plan, "_refreshed_from", None)
     donor = getattr(parent, "_device_arrays", None) if parent is not None else None
-    probs = torch.tensor(plan.probs, dtype=dtype, device=device)
-    if donor is not None and donor[0] == key:
-        cached = (key, donor[1], probs, donor[3], donor[4])
-        object.__setattr__(parent, "_device_arrays", None)
-    else:
-        cached = (
-            key,
-            torch.tensor(plan.slot_rows, device=device),
-            probs,
-            torch.tensor(plan.mask, device=device),
-            torch.tensor(offsets, device=device),
-        )
+    with active_timeline().span("upload"):
+        probs = torch.tensor(plan.probs, dtype=dtype, device=device)
+        if donor is not None and donor[0] == key:
+            cached = (key, donor[1], probs, donor[3], donor[4])
+            object.__setattr__(parent, "_device_arrays", None)
+        else:
+            cached = (
+                key,
+                torch.tensor(plan.slot_rows, device=device),
+                probs,
+                torch.tensor(plan.mask, device=device),
+                torch.tensor(offsets, device=device),
+            )
     object.__setattr__(plan, "_device_arrays", cached)
     if parent is not None:
         # Served its purpose; dropping it keeps a long reuse chain from
@@ -719,33 +765,38 @@ def settle(
 
     # take_device_state hands forward a pending (unsynced) predecessor
     # settlement if one exists — the chained-settle fast path: no host→
-    # device re-upload and no per-settle absorb.
-    flat, epoch0 = store.take_device_state(dtype)
+    # device re-upload and no per-settle absorb. The phase spans (no-ops
+    # unless this thread records a timeline) time the host-side call
+    # windows only: the launch is not fenced.
+    timeline = active_timeline()
+    with timeline.span("upload"):
+        flat, epoch0 = store.take_device_state(dtype)
     now_abs = _now_days() if now is None else now
     flat, epoch0 = _rebase_epoch(flat, epoch0, now_abs)
 
     _, slot_rows_d, probs_d, mask_d, offsets_d = _device_plan(
         plan, dtype, store.device
     )
-    outcome_d = torch.as_tensor(
-        np.asarray(outcomes, dtype=bool), device=store.device
-    )
     np_dtype = _NUMPY_DTYPE[dtype]
     now0 = float(np_dtype(now_abs - epoch0))
-    rel, conf, days, exists, consensus, rel_touched = settle_cycles(
-        flat.reliability,
-        flat.confidence,
-        flat.updated_days,
-        flat.exists,
-        slot_rows_d,
-        probs_d,
-        mask_d,
-        outcome_d,
-        offsets_d,
-        len(touched_rows),
-        now0,
-        steps,
-    )
+    with timeline.span("settle_dispatch"):
+        outcome_d = torch.as_tensor(
+            np.asarray(outcomes, dtype=bool), device=store.device
+        )
+        rel, conf, days, exists, consensus, rel_touched = settle_cycles(
+            flat.reliability,
+            flat.confidence,
+            flat.updated_days,
+            flat.exists,
+            slot_rows_d,
+            probs_d,
+            mask_d,
+            outcome_d,
+            offsets_d,
+            len(touched_rows),
+            now0,
+            steps,
+        )
     # Deferred absorb: the settled state becomes the store's pending device
     # truth; the exact confidence trajectory is maintained host-side NOW.
     # The sync recipe lets that merge fetch only the touched reliabilities:
@@ -787,7 +838,7 @@ def settle_payloads(
 
 _NO_PROCESS_BANDS = (
     "process bands (a mesh spread over several processes through "
-    "torch.distributed) are not ported yet: ROADMAP queue 1 item 11"
+    "torch.distributed) are not ported yet: ROADMAP queue 1 item 9"
 )
 
 
@@ -810,6 +861,12 @@ def _sharded_plan_cache(plan: SettlementPlan, mesh: Mesh, dtype):
     gives them the cold prior). ``band_rows``/``band_mask`` are the padded
     host arrays (in one process the band is every market) and
     ``probs_g``/``mask_g`` grids of per-shard blocks.
+
+    A plan made by :meth:`SettlementPlan.refresh` whose parent holds this
+    cache pays only the probability leg: ``band_rows``, ``band_mask`` and
+    the device ``mask_g`` are the parent's (identical by construction),
+    one new ``probs_g`` is uploaded, and the parent's cache is dropped so
+    its stale probabilities are freed.
     """
     key = (mesh, dtype)
     cache = getattr(plan, "_sharded_cache", None)
@@ -824,8 +881,18 @@ def _sharded_plan_cache(plan: SettlementPlan, mesh: Mesh, dtype):
             -(-max(num_slots, 1) // sources_extent) * sources_extent - num_slots
         )
         widths = ((0, pad_k), (0, padded_total - plan.num_markets))
-        band_rows = _pad_plan(plan.slot_rows, widths, -1)
-        band_mask = _pad_plan(plan.mask, widths, False)
+        parent = getattr(plan, "_refreshed_from", None)
+        donor = (
+            getattr(parent, "_sharded_cache", None)
+            if parent is not None else None
+        )
+        if donor is not None and donor[0] == key:
+            band_rows, band_mask, mask_g = donor[2], donor[3], donor[5]
+            object.__setattr__(parent, "_sharded_cache", None)
+        else:
+            band_rows = _pad_plan(plan.slot_rows, widths, -1)
+            band_mask = _pad_plan(plan.mask, widths, False)
+            mask_g = global_slot_block(band_mask, mesh, padded_total)
         band_probs = _pad_plan(plan.probs, widths, 0.0)
         cache = (
             key,
@@ -833,9 +900,13 @@ def _sharded_plan_cache(plan: SettlementPlan, mesh: Mesh, dtype):
             band_rows,
             band_mask,
             global_slot_block(band_probs, mesh, padded_total, dtype=dtype),
-            global_slot_block(band_mask, mesh, padded_total),
+            mask_g,
         )
         object.__setattr__(plan, "_sharded_cache", cache)
+        if parent is not None:
+            # Served its purpose; dropping it keeps a long reuse chain from
+            # pinning every predecessor plan in memory.
+            object.__setattr__(plan, "_refreshed_from", None)
     return cache[1:]
 
 
@@ -903,8 +974,9 @@ class _BandView:
 
 
 class ShardedSettlementSession:
-    """Chained, device-resident settlements of one plan, on one card or a
-    ``(markets, sources)`` mesh.
+    """Chained, device-resident settlements of one plan — or, through
+    :meth:`refresh` and :meth:`adopt`, a long-lived succession of plans —
+    on one card or a ``(markets, sources)`` mesh.
 
     The slot-major (K, M) block state is built from the store ONCE; every
     settle runs on the retained block (on CUDA one launch of the one-pass
@@ -926,9 +998,14 @@ class ShardedSettlementSession:
     that the block is spread over, padded as the JAX session pads it
     (markets up to a multiple of the markets extent, slots up to a
     multiple of the sources extent); ``None`` means the (1, 1) mesh of
-    the store's device, one card. Results cover the plan's markets. A
-    process ``band`` raises; ``refresh``, ``adopt``, the stream and the
-    serving layer are not ported yet.
+    the store's device, one card. Results cover the plan's markets.
+    :meth:`refresh` swaps in a probability-only twin of the plan (only the
+    probability block is uploaded); :meth:`adopt` swaps in any plan bound
+    to the same store and re-lays the resident block out on the device —
+    the two moves :func:`settle_stream` and
+    :class:`~.serve.driver.SessionDriver` make every batch. A process
+    ``band`` raises (ROADMAP queue 1 item 9), in the constructor and in
+    :meth:`adopt`.
     """
 
     def __init__(
@@ -944,17 +1021,12 @@ class ShardedSettlementSession:
         if band is not None:
             raise ValueError(f"band={band!r}: {_NO_PROCESS_BANDS}")
         self._store = store
-        self._plan = plan
         self._mesh = mesh
         # Where per-market outputs and graph blocks live: the mesh's first
         # device.
         self._device = mesh.devices[0][0]
         self._cdtype = resolve_dtype(dtype)
-        (self._padded_total, self._band_rows, self._band_mask, self._probs_g,
-         self._mask_g) = _sharded_plan_cache(plan, mesh, self._cdtype)
-        # The padded global mask _BandGather selects the touched slots with.
-        self._gather_mask = unshard_slot_block(self._mask_g)
-        self._touched = self._band_rows[self._band_mask]
+        self._bind_plan(plan)
         self._state = None  # built lazily: the epoch depends on the first now
         self._epoch0 = None
         self._loop = None
@@ -967,6 +1039,19 @@ class ShardedSettlementSession:
         self._graph_cache = None
 
     # -- state lifecycle -----------------------------------------------------
+
+    def _bind_plan(self, plan: SettlementPlan) -> None:
+        """Take *plan*'s padded block and device copies (an ``upload``
+        phase) and its touched rows."""
+        with active_timeline().span("upload"):
+            (self._padded_total, self._band_rows, self._band_mask,
+             self._probs_g, self._mask_g) = _sharded_plan_cache(
+                plan, self._mesh, self._cdtype
+            )
+            # The padded global mask _BandGather selects touched slots with.
+            self._gather_mask = unshard_slot_block(self._mask_g)
+        self._plan = plan
+        self._touched = self._band_rows[self._band_mask]
 
     def _build_state(self, epoch0: float) -> None:
         store = self._store
@@ -994,9 +1079,9 @@ class ShardedSettlementSession:
 
     def _settle_preamble(self, outcomes: Sequence[bool], now: Optional[float]):
         """The shared pre-launch path of every settle entry: plan/outcome
-        validation, (re)build of the resident state, exact host
-        confidences, and the device outcome vector. Returns ``(now_abs,
-        conf_exact, outcome_g)``."""
+        validation, (re)build of the resident state (an ``upload`` phase),
+        exact host confidences, and the padded outcome vector. Returns
+        ``(now_abs, conf_exact, outcome_padded)``."""
         store, plan = self._store, self._plan
         _check_plan(store, plan, outcomes)
         now_abs = _now_days() if now is None else now
@@ -1007,13 +1092,16 @@ class ShardedSettlementSession:
             # this plan's rows.
             if store.pending_overlaps(self._touched):
                 store.sync()
-            self._build_state(min(store.epoch_origin(sync=False), now_abs - 1.0))
+            with active_timeline().span("upload"):
+                self._build_state(
+                    min(store.epoch_origin(sync=False), now_abs - 1.0)
+                )
         conf_exact = store.host_confidences(self._touched)
-        outcome_g = shard_market_vector(np.pad(
+        outcome_padded = np.pad(
             np.asarray(outcomes, dtype=bool),
             (0, self._padded_total - len(outcomes)), constant_values=False,
-        ), self._mesh)
-        return now_abs, conf_exact, outcome_g
+        )
+        return now_abs, conf_exact, outcome_padded
 
     def _now0(self, now_abs: float) -> float:
         """The first step's day relative to the epoch, in the state's dtype."""
@@ -1056,11 +1144,13 @@ class ShardedSettlementSession:
         now: Optional[float] = None,
     ) -> SettlementResult:
         """Run *steps* cycles on the retained state."""
-        now_abs, conf_exact, outcome_g = self._settle_preamble(outcomes, now)
-        new_state, consensus = self._loop(
-            self._probs_g, self._mask_g, outcome_g, self._state,
-            self._now0(now_abs), steps,
-        )
+        now_abs, conf_exact, outcome = self._settle_preamble(outcomes, now)
+        with active_timeline().span("settle_dispatch"):
+            new_state, consensus = self._loop(
+                self._probs_g, self._mask_g,
+                shard_market_vector(outcome, self._mesh), self._state,
+                self._now0(now_abs), steps,
+            )
         self._settle_commit(new_state, steps, now_abs, conf_exact)
         _live, keys = self._band_live()
         return SettlementResult(
@@ -1094,11 +1184,13 @@ class ShardedSettlementSession:
             self._mesh, chunk_agents=chunk_agents, precision=precision,
             with_bands=False,
         )
-        now_abs, conf_exact, outcome_g = self._settle_preamble(outcomes, now)
-        new_state, consensus, tiebreak, _bands, _prop = loop(
-            self._probs_g, self._mask_g, outcome_g, self._state,
-            self._now0(now_abs), steps,
-        )
+        now_abs, conf_exact, outcome = self._settle_preamble(outcomes, now)
+        with active_timeline().span("settle_dispatch"):
+            new_state, consensus, tiebreak, _bands, _prop = loop(
+                self._probs_g, self._mask_g,
+                shard_market_vector(outcome, self._mesh), self._state,
+                self._now0(now_abs), steps,
+            )
         self._settle_commit(new_state, steps, now_abs, conf_exact)
         _live, keys = self._band_live()
         return (
@@ -1232,8 +1324,7 @@ class ShardedSettlementSession:
                 )
             damping, sweep_steps, sweep_tol = inference.resolve(graph)
             sweep_mode = "moments" if inference.moments else "point"
-        loop = build_cycle_analytics_loop(
-            self._mesh,
+        loop_options = dict(
             chunk_agents=chunk_agents,
             chunk_slots=chunk_slots,
             precision=options.precision,
@@ -1250,12 +1341,20 @@ class ShardedSettlementSession:
                 else options.sweep_kernel
             ),
         )
-        now_abs, conf_exact, outcome_g = self._settle_preamble(outcomes, now)
-        graph_args = self._graph_blocks(graph) if sweep_steps > 0 else ()
-        new_state, consensus, tiebreak, bands, propagated = loop(
-            self._probs_g, self._mask_g, outcome_g, self._state,
-            self._now0(now_abs), steps, *graph_args,
-        )
+        now_abs, conf_exact, outcome = self._settle_preamble(outcomes, now)
+        timeline = active_timeline()
+        with timeline.span("analytics"):
+            # The analytics tier's own overhead only (graph alignment and
+            # upload, the loop's build); the launch stays on
+            # settle_dispatch, as in the JAX session.
+            graph_args = self._graph_blocks(graph) if sweep_steps > 0 else ()
+            loop = build_cycle_analytics_loop(self._mesh, **loop_options)
+        with timeline.span("settle_dispatch"):
+            new_state, consensus, tiebreak, bands, propagated = loop(
+                self._probs_g, self._mask_g,
+                shard_market_vector(outcome, self._mesh), self._state,
+                self._now0(now_abs), steps, *graph_args,
+            )
         self._settle_commit(new_state, steps, now_abs, conf_exact)
         _live, keys = self._band_live()
         if propagated is not None and blocks is not None:
@@ -1297,11 +1396,156 @@ class ShardedSettlementSession:
             mean=upload(proj_mean), stderr=upload(proj_stderr)
         )
 
+    def refresh(self, plan: SettlementPlan) -> None:
+        """Adopt a probability-only twin of the session's plan in place.
+
+        *plan* must come from :meth:`SettlementPlan.refresh` on this
+        session's current plan (same topology: the slot layout, row
+        mapping and mask are shared array objects). Only the new
+        probability block is uploaded; ``mask_g`` and the resident block
+        state stay on the device, and the old probability block is freed.
+        The steady daily re-settlement of a long-lived session: refresh
+        with the day's probabilities, then :meth:`settle` with the day's
+        outcomes.
+        """
+        if plan is self._plan:
+            return
+        if (
+            plan.slot_rows is not self._plan.slot_rows
+            or plan.mask is not self._plan.mask
+        ):
+            raise ValueError(
+                "session refresh needs a probability-only twin of the "
+                "current plan (SettlementPlan.refresh on the same "
+                "topology); this plan has its own slot layout"
+            )
+        self._bind_plan(plan)
+
     def _release_standing(self) -> None:
         """The session is leaving its block: the standing recipe (if any)
         becomes the only thing pinning it, so its bytes count against the
-        store's deferral budget again."""
+        store's deferral budget again (``held_nbytes`` checks
+        ``_standing_gather is self`` through a weak reference, so clearing
+        the attribute, or the session dying, is the release)."""
         self._standing_gather = None
+
+    def adopt(self, plan: SettlementPlan, band=None) -> str:
+        """Swap the session onto a new-topology *plan* without teardown.
+
+        The topology-miss half of the resident streamed service: where
+        :meth:`refresh` takes the probability-only twin, ``adopt`` takes
+        any plan bound to the same store and carries the resident block
+        across the swap. Returns how the swap was served:
+
+        * ``"refresh"`` — *plan* shares the current plan's topology arrays
+          (the fingerprint hit): probability upload only.
+        * ``"relayout"`` — the resident block was carried across on the
+          device (:func:`~.parallel.sharded.relayout_slot_state`): rows
+          staying in the active set move with it (no host traffic), rows
+          entering upload their host values (fresh pairs enter as cold
+          defaults), and rows leaving stay covered by the standing sync
+          recipe and reach the host store at the next checkpoint or sync,
+          as any deferred gather does. Growth of the padded extents
+          re-pads the block. The result is bit-equal to tearing the
+          session down and rebuilding it.
+        * ``"rebuild:<reason>"`` — the resident state was dropped and the
+          next :meth:`settle` rebuilds from the host: ``no-resident-state``
+          (nothing to carry yet) or ``backdated-stamps`` (an entering
+          row's host stamp has no positive expression against the session
+          epoch).
+
+        The JAX package's ``band=`` route (process bands, the
+        ``rebuild:band-change`` case and the host-staged relayout of a
+        multi-process session) is ROADMAP queue 1 item 9: a ``band``
+        raises here, as in the constructor.
+        """
+        if band is not None:
+            raise ValueError(f"band={band!r}: {_NO_PROCESS_BANDS}")
+        if plan is self._plan:
+            return "refresh"
+        if (
+            plan.slot_rows is self._plan.slot_rows
+            and plan.mask is self._plan.mask
+        ):
+            self.refresh(plan)
+            return "refresh"
+        # A topology miss: the swap (row-set delta, host reads of entering
+        # rows, device relayout) is the state_adopt phase; the plan upload
+        # inside stays on upload (exclusive nesting).
+        with active_timeline().span("state_adopt"):
+            return self._adopt_miss(plan)
+
+    def _adopt_miss(self, plan: SettlementPlan) -> str:
+        store = self._store
+        old_state = self._state
+        old_band_rows, old_band_mask = self._band_rows, self._band_mask
+        self._bind_plan(plan)
+        # Mid-swap from here: drop the resident binding FIRST, so that an
+        # exception below (a sync failure, a device error in the relayout)
+        # leaves a clean rebuild posture — never the old layout's block
+        # bound to the new plan, which a retrying caller would settle
+        # against the wrong rows. The old block stays reachable through
+        # the standing recipe and the local reference.
+        self._release_standing()
+        self._state = None
+        if old_state is None:
+            return "rebuild:no-resident-state"
+
+        # The row-set delta between the outgoing and incoming layouts, as
+        # flat slot-major positions (each plan maps a row to one slot).
+        old_pos = np.flatnonzero(old_band_mask.ravel())
+        old_rows = old_band_rows.ravel()[old_pos]
+        new_pos = np.flatnonzero(self._band_mask.ravel())
+        new_rows = self._band_rows.ravel()[new_pos]
+        if old_rows.size:
+            order = np.argsort(old_rows, kind="stable")
+            sorted_rows = old_rows[order]
+            sorted_pos = old_pos[order]
+            idx = np.minimum(
+                np.searchsorted(sorted_rows, new_rows), old_rows.size - 1
+            )
+            staying = sorted_rows[idx] == new_rows
+        else:
+            sorted_pos = old_pos
+            idx = np.zeros(new_rows.size, dtype=np.int64)
+            staying = np.zeros(new_rows.size, dtype=bool)
+        entering_rows = new_rows[~staying]
+        entering_pos = new_pos[~staying]
+
+        # Entering rows may sit behind an older deferred recipe (a previous
+        # adopt's leaving rows re-entering): resolve it before reading
+        # their host values. The standing recipe covers only the outgoing
+        # set, disjoint from the entering rows, so steady drift never
+        # syncs here.
+        if entering_rows.size and store.pending_overlaps(entering_rows):
+            store.sync()
+        host_rel, host_conf, host_days, host_exists = store.host_rows(
+            entering_rows, sync=False
+        )
+        live = host_days > NEVER
+        rel_days = np.where(live, host_days - self._epoch0, 0.0)
+        if bool((live & (rel_days <= 0)).any()):
+            # A host stamp at or below the session epoch has no positive
+            # relative expression: the next settle rebuilds at a new epoch.
+            return "rebuild:backdated-stamps"
+
+        # Cast exactly as _build_state casts, so the relaid block is
+        # bit-equal to a rebuild.
+        np_dtype = _NUMPY_DTYPE[self._cdtype]
+        src = np.full(self._band_mask.size, -1, dtype=np.int64)
+        src[new_pos[staying]] = sorted_pos[idx[staying]]
+        self._state = relayout_slot_state(
+            old_state,
+            src,
+            entering_pos,
+            host_rel.astype(np_dtype),
+            host_conf.astype(np_dtype),
+            rel_days.astype(np_dtype),
+            host_exists.astype(bool),
+            self._band_mask.shape,
+            self._mesh,
+        )
+        return "relayout"
 
     def sync(self) -> None:
         """Merge every deferred settlement into the host store now."""
@@ -1337,3 +1581,465 @@ def settle_sharded(
     result = session.settle(outcomes, steps=steps, now=now)
     session.close()
     return result
+
+
+# -- the streamed service ------------------------------------------------------
+
+
+class PlanPrefetcher:
+    """Build settlement plans one batch ahead on a worker thread.
+
+    Ingest (pack → intern → block fill) is host CPU work, while the settle
+    it feeds is device work the host only launches; settled serially, a
+    stream of batches leaves the card idle during every ingest and the
+    host idle during every settle. This iterator overlaps them: ONE worker
+    thread builds plan N+1 (and, with ``depth`` > 1, N+1+k) while the
+    caller settles plan N.
+
+        with PlanPrefetcher(store, batches, num_slots=K) as plans:
+            for plan, outcomes in zip(plans, outcome_batches):
+                settle(store, plan, outcomes, steps=steps)
+
+    Builds run in batch order on the single worker, so interning order —
+    and therefore row assignment, block content and results — equals the
+    serial loop's. The store's host tier is thread-safe (its lock), which
+    makes the worker's interning safe against the caller's settle-side
+    host reads.
+
+    ``columnar=False``: *batches* yields dict payloads
+    (:func:`build_settlement_plan`). ``columnar=True``: *batches* yields
+    ``(market_keys, source_ids, probabilities, offsets)`` tuples
+    (:func:`build_settlement_plan_columnar`). A build error (or an error
+    of the batch iterator itself) surfaces on the ``next()`` that would
+    have yielded that plan; later batches are not attempted.
+
+    ``reuse_plans=True`` fingerprints each batch's topology
+    (:func:`~.core.batch.topology_fingerprint`) and, when it matches the
+    previous batch's, refreshes the previous plan with the new
+    probabilities (:meth:`SettlementPlan.refresh`) instead of rebuilding —
+    no pack, intern or block fill. Dict payloads are flattened once to
+    columns (:func:`~.core.batch.columns_from_payloads`) and built through
+    the columnar path, bit-identical to the dict path. ``intern_mode``
+    (``"auto"`` default) routes every columnar build's interning through
+    the store's epoch pair table; ``"full"`` walks every pair. Each build's
+    seconds feed the ``stream.plan_build_s`` histogram.
+    """
+
+    def __init__(
+        self,
+        store,
+        batches,
+        columnar: bool = False,
+        num_slots: "int | str | None" = None,
+        native: Optional[bool] = None,
+        depth: int = 1,
+        reuse_plans: bool = False,
+        intern_mode: str = "auto",
+    ) -> None:
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        self._cancelled = threading.Event()
+        self._sentinel = object()
+        last_plan: "list[Optional[SettlementPlan]]" = [None]
+
+        def build(batch):
+            if not reuse_plans:
+                if columnar:
+                    keys, source_ids, probabilities, offsets = batch
+                    return build_settlement_plan_columnar(
+                        store, keys, source_ids, probabilities, offsets,
+                        num_slots=num_slots, native=native,
+                        intern_mode=intern_mode,
+                    )
+                return build_settlement_plan(
+                    store, batch, native=native, num_slots=num_slots
+                )
+            if columnar:
+                keys, source_ids, probabilities, offsets = batch
+                probabilities = np.ascontiguousarray(
+                    probabilities, dtype=np.float64
+                )
+            else:
+                # Dict payloads flatten to columns here, on the worker, so
+                # the consumer thread never walks the signals.
+                keys, source_ids, probabilities, offsets = (
+                    columns_from_payloads(batch, native=native)
+                )
+            digest = topology_fingerprint(keys, source_ids, offsets)
+            prev = last_plan[0]
+            if prev is not None and prev.fingerprint == digest:
+                plan = prev.refresh(probabilities)
+            else:
+                plan = build_settlement_plan_columnar(
+                    store, keys, source_ids, probabilities, offsets,
+                    num_slots=num_slots, fingerprint=digest, native=native,
+                    intern_mode=intern_mode,
+                )
+            last_plan[0] = plan
+            return plan
+
+        # Build times feed the registry, not the timeline: the worker
+        # overlaps the consumer's wall clock, so its seconds must not enter
+        # the additive phase breakdown (the consumer's share is
+        # settle_stream's "pack" wait span).
+        build_hist = metrics_registry().histogram("stream.plan_build_s")
+
+        def work():
+            try:
+                iterator = iter(batches)
+                while not self._cancelled.is_set():
+                    try:
+                        batch = next(iterator)
+                    except StopIteration:
+                        break
+                    build_start = time.perf_counter()
+                    plan = build(batch)
+                    build_hist.observe(time.perf_counter() - build_start)
+                    self._put(("ok", plan))
+            except BaseException as exc:  # noqa: BLE001 — re-raised on next()
+                self._put(("err", exc))
+            finally:
+                self._put((self._sentinel, None))
+
+        self._worker = threading.Thread(
+            target=work, name="bce-plan-prefetch", daemon=True
+        )
+        self._worker.start()
+
+    def _put(self, item) -> None:
+        # A bounded put would deadlock against a consumer that stopped
+        # consuming (close() mid-stream): poll with the cancel flag.
+        while True:
+            try:
+                self._queue.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                if self._cancelled.is_set():
+                    return
+
+    def __iter__(self) -> "PlanPrefetcher":
+        return self
+
+    def __next__(self) -> SettlementPlan:
+        kind, value = self._queue.get()
+        if kind is self._sentinel:
+            self._queue.put((self._sentinel, None))  # stay terminated
+            raise StopIteration
+        if kind == "err":
+            raise value
+        return value
+
+    def close(self) -> None:
+        """Stop building; pending batches are dropped, the worker joined."""
+        self._cancelled.set()
+        while True:  # drain so a blocked worker put() can finish
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item[0] is self._sentinel:
+                break
+        self._worker.join(timeout=60)
+
+    def __enter__(self) -> "PlanPrefetcher":
+        return self
+
+    def __exit__(self, *exc_info: object) -> None:
+        self.close()
+
+
+def settle_stream(
+    store,
+    batches,
+    steps: int = 1,
+    now: Optional[float] = None,
+    db_path=None,
+    checkpoint_every: int = 1,
+    num_slots: "int | str | None" = "bucket",
+    columnar: bool = False,
+    native: Optional[bool] = None,
+    stats: Optional[list] = None,
+    mesh=None,
+    band=None,
+    dtype=None,
+    lazy_checkpoints: bool = False,
+    journal=None,
+    reuse_plans: bool = False,
+    sync_checkpoints: bool = False,
+    resident_session: bool = True,
+    intern_mode: str = "auto",
+    trace=None,
+):
+    """The streamed settle-and-checkpoint service loop, overlapped.
+
+    One generator wires the service together:
+
+    * plan N+1 builds on a prefetch thread while plan N settles
+      (:class:`PlanPrefetcher`; ``num_slots`` defaults to ``"bucket"``);
+    * settles chain device-resident (deferred absorb);
+    * every *checkpoint_every* batches the store checkpoints — a journal
+      epoch with *journal*, else a SQLite flush to *db_path* written on a
+      background thread — and a tail flush on exit makes the final file
+      complete. A failed background write surfaces at the next flush; the
+      final join re-raises a last-write failure.
+
+    *batches* yields ``(payloads, outcomes)`` pairs — with
+    ``columnar=True``, ``((market_keys, source_ids, probabilities,
+    offsets), outcomes)``. ``now=None`` stamps the wall clock per settle;
+    a float is the first batch's settlement day, advancing one day a
+    batch. Yields one :class:`SettlementResult` per batch, in order.
+    Results, store state and checkpoint files equal the serial build →
+    settle → flush loop.
+
+    *reuse_plans* refreshes the previous plan on a topology-fingerprint
+    hit (probabilities only: no pack, intern or block fill, and on the
+    mesh path only the probability block is uploaded); a miss rebuilds.
+    Bit-exact with ``reuse_plans=False``.
+
+    *stats*, if given, is a list the service appends one dict per batch
+    to: ``{"batch", "markets", "plan_wait_s", "settle_dispatch_s",
+    "checkpoint_s", "plan_reused", "session_adopt", "intern_s",
+    "interned_pairs"}``. ``plan_wait_s`` is how long the consumer waited
+    on the prefetch thread; ``settle_dispatch_s`` is the host cost of
+    launching the settle (not fenced: device time is not in it, and
+    device backpressure shows in ``checkpoint_s``, whose flush drains the
+    pending results — ``None`` on batches that did not checkpoint). The
+    dict of a batch is appended BEFORE its checkpoint and its yield, so
+    ``len(stats)`` is the settled count even when a checkpoint raises:
+    resume with ``batches[len(stats):]``. ``session_adopt`` is how the
+    resident session served the batch under ``mesh=`` (``"start"``,
+    ``"refresh"``, ``"relayout"`` or ``"rebuild:<reason>"``, see
+    :meth:`ShardedSettlementSession.adopt`), ``None`` on the flat path
+    and with *resident_session* off.
+
+    When this thread records a phase timeline
+    (:func:`~.obs.timeline.recording`), each stats dict also carries
+    ``"phases"``: the batch's additive breakdown into the canonical
+    :data:`~.obs.timeline.PHASES` names (exclusive seconds). The stream
+    feeds the metrics registry (``stream.batches``,
+    ``stream.plan_reuse_hits``/``misses``, ``stream.settle_dispatch_s``,
+    ``stream.plan_build_s``, the ``stream.ingest_wait_s`` and
+    ``stream.intern_wait_s`` gauges, and the driver's resident-session
+    counters and ``hbm.*`` gauges) — no-ops unless
+    :func:`~.obs.metrics.set_metrics_registry` enabled one. With a tracer
+    (:func:`~.obs.trace.set_tracer`) each batch records a span chain keyed
+    by its index. Observability on or off moves no settlement byte.
+
+    *mesh*, if given, settles every batch through ONE long-lived
+    :class:`ShardedSettlementSession` on that mesh: a topology hit
+    refreshes the probability block, a miss adopts the new plan with the
+    block re-laid out on the device (rows entering upload their host
+    values, rows leaving reach the host through the standing recipe).
+    ``resident_session=False`` builds one session per batch instead.
+    Results, store state and checkpoint files equal the flat stream's;
+    a sources-sharded mesh re-associates each market's slot sum (within
+    an ulp on the consensus). *band* (process bands) raises: ROADMAP
+    queue 1 item 9. *dtype* is the compute dtype.
+
+    *lazy_checkpoints* makes the periodic SQLite flushes snapshot the
+    applied host state without resolving deferred device results, so they
+    never wait on the device; the tail flush resolves, so the final file
+    is the eager mode's. It cannot combine with a journal.
+
+    *journal*, a :class:`~.state.journal.JournalWriter` (or a path, which
+    opens one), appends a journal epoch (tag = the settled batch index)
+    every *checkpoint_every* batches instead of a SQLite flush; SQLite is
+    written once by the tail flush when *db_path* is also given. Recovery:
+    :func:`~.state.journal.replay_journal` rebuilds the store through the
+    last complete epoch and returns its tag — resume from
+    ``batches[tag + 1:]`` with ``journal=JournalWriter(path,
+    resume=True)``. Epochs are written on a background thread that the
+    next epoch joins (*sync_checkpoints* = False: at a yield, epoch N-1 is
+    fsynced and epoch N in flight); ``sync_checkpoints=True`` writes and
+    fsyncs each epoch in the loop. Every exit joins the in-flight epoch.
+
+    *trace*, a :class:`~.state.journal.TraceWriter` (or a path), records
+    each batch's inputs — the columnar columns, outcomes, the resolved
+    settlement day and ``steps`` — for :func:`~.serve.driver.drive_trace`.
+    It needs ``columnar=True``. With ``now=None`` the wall-clock day is
+    resolved once per batch and drives both the settle and the frame.
+    """
+    if checkpoint_every < 1:
+        raise ValueError("checkpoint_every must be >= 1")
+    if band is not None and mesh is None:
+        raise ValueError("band= requires mesh=")
+    if journal is not None and lazy_checkpoints:
+        raise ValueError(
+            "journal= epochs are drained truth by contract; "
+            "lazy_checkpoints cannot combine with a journal"
+        )
+    if band is not None and (
+        isinstance(num_slots, bool)
+        or not isinstance(num_slots, (int, np.integer))
+    ):
+        raise ValueError(
+            "band mode needs a globally-agreed integer num_slots; "
+            f"{num_slots!r} derives K from per-process maxima, which "
+            "processes disagree on"
+        )
+    # Opened only after every validation above: a journal path is never
+    # touched by a call that then refuses to run.
+    from bayesian_consensus_engine_tpu_torch.state.journal import (
+        JournalWriter,
+        TraceWriter,
+    )
+
+    owns_journal = False
+    if journal is not None and not hasattr(journal, "append_epoch"):
+        journal = JournalWriter(journal)
+        owns_journal = True
+    if trace is not None and not columnar:
+        raise ValueError(
+            "trace= records the columnar payload columns verbatim; "
+            "pass columnar=True (the replay workload format)"
+        )
+    owns_trace = False
+    if trace is not None and not hasattr(trace, "append_batch"):
+        trace = TraceWriter(trace)
+        owns_trace = True
+    # The loop body — session lifecycle, checkpoint cadence, exit contract
+    # — is the serve driver's; imported here because serve imports this
+    # module.
+    from bayesian_consensus_engine_tpu_torch.serve.driver import SessionDriver
+
+    outcome_queue: collections.deque = collections.deque()
+    trace_queue: collections.deque = collections.deque()
+
+    def payload_stream():
+        for payloads, outcomes in batches:
+            outcome_queue.append(outcomes)
+            if trace is not None:
+                trace_queue.append(payloads)
+            yield payloads
+
+    timeline = active_timeline()
+    registry = metrics_registry()
+    tracer = active_tracer()
+    batches_counter = registry.counter("stream.batches")
+    reuse_hit_counter = registry.counter("stream.plan_reuse_hits")
+    reuse_miss_counter = registry.counter("stream.plan_reuse_misses")
+    dispatch_hist = registry.histogram("stream.settle_dispatch_s")
+    # Cumulative consumer seconds blocked on the prefetch thread, and
+    # cumulative seconds the builds spent interning.
+    ingest_wait_gauge = registry.gauge("stream.ingest_wait_s")
+    total_plan_wait = 0.0
+    intern_wait_gauge = registry.gauge("stream.intern_wait_s")
+    total_intern_wait = 0.0
+
+    driver = SessionDriver(
+        store,
+        steps=steps,
+        mesh=mesh,
+        dtype=dtype,
+        resident_session=resident_session,
+        journal=journal,
+        owns_journal=owns_journal,
+        db_path=db_path,
+        checkpoint_every=checkpoint_every,
+        sync_checkpoints=sync_checkpoints,
+        lazy_checkpoints=lazy_checkpoints,
+    )
+    index = -1
+    try:
+        with PlanPrefetcher(
+            store,
+            payload_stream(),
+            columnar=columnar,
+            num_slots=num_slots,
+            native=native,
+            reuse_plans=reuse_plans,
+            intern_mode=intern_mode,
+        ) as plans:
+            plan_iter = iter(plans)
+            while True:
+                phase_mark = timeline.totals() if timeline.enabled else None
+                wait_start = time.perf_counter()
+                try:
+                    with timeline.span("pack"):
+                        plan = next(plan_iter)
+                except StopIteration:
+                    break
+                plan_wait_s = time.perf_counter() - wait_start
+                total_plan_wait += plan_wait_s
+                ingest_wait_gauge.set(total_plan_wait)
+                intern_stats = getattr(plan, "intern_stats", None)
+                intern_s = intern_stats["intern_s"] if intern_stats else 0.0
+                total_intern_wait += intern_s
+                intern_wait_gauge.set(total_intern_wait)
+                index += 1
+                outcomes = outcome_queue.popleft()
+                batch_now = None if now is None else now + index
+                if trace is not None:
+                    # The frame and the settle stamp the SAME day.
+                    if batch_now is None:
+                        batch_now = _now_days()
+                    t_keys, t_sids, t_probs, t_offsets = trace_queue.popleft()
+                    with timeline.span("replay"):
+                        trace.append_batch(
+                            t_keys, t_sids, t_probs, t_offsets, outcomes,
+                            now_days=float(batch_now), steps=steps,
+                        )
+                # Read BEFORE the settle: the delta upload drops the
+                # refresh back-reference.
+                plan_reused = (
+                    getattr(plan, "_refreshed_from", None) is not None
+                )
+                batch_band = band(index) if callable(band) else band
+                # Phase spans taken inside land on batch `index`'s trace
+                # chain; closed before the yield.
+                with tracer.batch(index):
+                    if tracer.enabled:
+                        tracer.batch_event(
+                            index, "pack", dur_s=plan_wait_s,
+                            args={"markets": plan.num_markets,
+                                  "plan_reused": plan_reused},
+                        )
+                    settle_start = time.perf_counter()
+                    result = driver.dispatch(
+                        plan, outcomes, now=batch_now, band=batch_band
+                    )
+                    session_adopt = driver.last_adopt
+                    settle_dispatch_s = time.perf_counter() - settle_start
+                    batches_counter.inc()
+                    (reuse_hit_counter if plan_reused
+                     else reuse_miss_counter).inc()
+                    dispatch_hist.observe(settle_dispatch_s)
+                    # Appended BEFORE the checkpoint: len(stats) is the
+                    # settled count even when the checkpoint raises.
+                    if stats is not None:
+                        stats.append(
+                            {
+                                "batch": index,
+                                "markets": plan.num_markets,
+                                "plan_wait_s": plan_wait_s,
+                                "settle_dispatch_s": settle_dispatch_s,
+                                "checkpoint_s": None,
+                                "plan_reused": plan_reused,
+                                "session_adopt": session_adopt,
+                                "intern_s": intern_s,
+                                "interned_pairs": (
+                                    intern_stats["interned_pairs"]
+                                    if intern_stats else 0
+                                ),
+                            }
+                        )
+                    checkpoint_s = driver.checkpoint(index)
+                if checkpoint_s is not None and stats is not None:
+                    stats[-1]["checkpoint_s"] = checkpoint_s
+                if phase_mark is not None and stats is not None:
+                    stats[-1]["phases"] = PhaseTimeline.delta(
+                        phase_mark, timeline.totals()
+                    )
+                yield result
+    finally:
+        # Every exit — exhaustion, a consumer break or close, a batch
+        # error — runs the driver's exit contract (join the in-flight
+        # write, a tail epoch or flush covering every settled batch,
+        # skipped after a failed journal write), then closes an owned
+        # trace.
+        try:
+            driver.finalize()
+        finally:
+            if owns_trace:
+                trace.close()

@@ -171,7 +171,9 @@ Phases, one JSON line each:
                     ``bp_sweep`` and the two one-pass kernels also
                     ``launches_per_call``; ``settle_cycles`` also
                     ``journal_launches``, its launches in phase 16's delta
-                    step. The line is printed after phase 16.
+                    step, and ``settle_cycles`` and ``onepass_settle``
+                    ``stream_launches``, theirs in phase 17. The line is
+                    printed after phase 17.
 15. ``batch_consensus`` the consensus surface, which runs none of the four
                     kernels: the main path's 1,000,000 markets as object
                     payloads (``{"sourceId", "probability"}`` dicts) with a
@@ -229,6 +231,45 @@ Phases, one JSON line each:
                     each ``result()``'s wait), the epochs' rows and bytes,
                     and the registry's ``journal.*`` and
                     ``interchange.delta_rows`` counters.
+17. ``stream``      the streamed, resident settlement service at the main
+                    path's width: four columnar batches of the main
+                    path's markets (string source ids, as the trace
+                    records them), ``steps=20``, one day apart —
+                    B0 the main path's data, B1 its topology with the
+                    probabilities redrawn, B2 the drifting batch (as
+                    ``delta_check`` makes it), B3 B2's topology redrawn —
+                    through ``settle_stream(reuse_plans=True, columnar=
+                    True, journal=...)`` three times, each on a fresh card
+                    store: A flat (``settle_cycles``); R on the (1, 1) mesh
+                    of the card (``onepass_settle``), with a SQLite tail
+                    flush and a trace, under a recording timeline, an
+                    enabled registry and a tracer; D ``drive_trace`` of
+                    R's trace on the same mesh. Each stream's prefetch
+                    worker takes batch k only after batch k-1 was yielded
+                    (an ungated worker interns ahead of the epochs, and
+                    the journal bytes would depend on thread timing).
+                    R's ``session_adopt`` must be ``["start", "refresh",
+                    "relayout", "refresh"]``, ``plan_reused`` ``[False,
+                    True, False, True]``, ``stream.resident_fallbacks`` 0
+                    and ``stream.session_adopts`` 1; A must launch
+                    ``settle_cycles`` 4 times and R and D
+                    ``onepass_settle`` 4 times each (no other settle
+                    kernel); A's and R's stores (reliability, confidence,
+                    stamps, existence, row assignment) and R's and D's
+                    must be bit-equal, their journals byte-equal with each
+                    epoch's ``wall_unix_ts`` (and the CRC over it) masked,
+                    each batch's consensus within tolerance, and R's tail
+                    flush must write every existing row. Prints each run's
+                    seconds (and the seconds after its last yield), R's
+                    per-batch ``plan_wait_s``, ``settle_dispatch_s``,
+                    ``checkpoint_s``, ``intern_s``, ``interned_pairs`` and
+                    ``phases``, the phases after its last yield, the
+                    stream counters, ``hbm.bytes_in_use`` and
+                    ``hbm.peak_bytes``, the adopt's entering rows, and R's
+                    journal, trace and SQLite bytes. The ``kernels`` line
+                    (printed after this phase) carries the stream's
+                    launches of ``settle_cycles`` and ``onepass_settle``
+                    as ``stream_launches``.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -1106,6 +1147,246 @@ def journal_phase(smi, store, market_keys, codes, probs, offsets, outcomes,
          counters=counters,
          seconds=seconds, nvidia_smi=smi)
     return launches
+
+
+# stream: four batches of the main path's markets, one day apart.
+STREAM_NOW, STREAM_SEED = NOW + 10 * STEPS, 17
+JOURNAL_HEADER = "<QQQQQdQ"  # epoch, used_after, pair_len, dirty, iso_len,
+                             # wall_unix_ts, tag
+
+
+class GatedBatches:
+    """The stream's batches, each released to the prefetch worker only
+    once the stream has yielded the one before it (and so after that
+    batch's checkpoint). A journal epoch records the pairs interned when
+    it is snapshotted; an ungated worker interns the next batches' pairs
+    while the current one settles, so the epochs' pair tables, and with
+    them the journal bytes, would depend on thread timing."""
+
+    def __init__(self, batches):
+        import threading
+
+        self._batches = batches
+        self._released = threading.Semaphore(0)
+
+    def __iter__(self):
+        for index, batch in enumerate(self._batches):
+            if index:
+                self._released.acquire()
+            yield batch
+
+    def release(self):
+        self._released.release()
+
+
+def journal_digest(path):
+    """Each epoch's header without its ``wall_unix_ts`` (and the CRC that
+    covers it), and the sha256 of its payload: what two journals of the
+    same work must share byte for byte."""
+    import struct
+
+    header = struct.Struct(JOURNAL_HEADER)
+    epochs = []
+    with open(path, "rb") as f:
+        if f.read(8) != b"BCEJRNL1":
+            raise AssertionError(f"{path}: not a journal")
+        while raw := f.read(header.size):
+            fields = header.unpack(raw)
+            payload_len = fields[2] + 33 * fields[3] + fields[4]
+            payload = f.read(payload_len)
+            f.read(4)  # the CRC, which covers the wall clock
+            epochs.append((fields[:5] + fields[6:],
+                           hashlib.sha256(payload).hexdigest()))
+    return epochs
+
+
+def stream_phase(smi, market_keys, codes, probs, offsets, outcomes):
+    """The streamed, resident settlement service at the main path's width:
+    four batches through a flat stream (A), a resident stream with the
+    observability on (R) and a re-drive of R's trace (D), each on a fresh
+    card store; A's and R's and R's and D's stores bit-equal and journals
+    byte-equal (wall clock masked). Returns the launches of
+    ``settle_cycles`` in A and of ``onepass_settle`` in R."""
+    from bayesian_consensus_engine_tpu_torch import obs, pipeline
+    from bayesian_consensus_engine_tpu_torch.ops import (
+        onepass_kernel,
+        settle_kernel,
+    )
+    from bayesian_consensus_engine_tpu_torch.parallel.mesh import make_mesh
+    from bayesian_consensus_engine_tpu_torch.serve.driver import drive_trace
+    from bayesian_consensus_engine_tpu_torch.state import journal
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    seconds = {}
+    start = time.perf_counter()
+    rng = np.random.default_rng(STREAM_SEED)
+    table = [f"src-{i}" for i in range(SOURCES)]
+    sids = [table[c] for c in codes.tolist()]
+    drift_keys, drift_codes, drift_probs, drift_offsets = drifted_batch(
+        rng, market_keys, np.diff(offsets), codes)
+    drift_sids = [table[c] for c in drift_codes.tolist()]
+    columns = [
+        (market_keys, sids, probs, offsets),
+        (market_keys, sids, rng.random(len(probs)), offsets),
+        (drift_keys, drift_sids, drift_probs, drift_offsets),
+        (drift_keys, drift_sids, rng.random(len(drift_probs)), drift_offsets),
+    ]
+    batch_outcomes = [outcomes] + [rng.random(len(c[0])) < 0.5
+                                   for c in columns[1:]]
+    batches = list(zip(columns, batch_outcomes))
+    seconds["data"] = time.perf_counter() - start
+    work = tempfile.TemporaryDirectory()
+    mesh = make_mesh((1, 1), [torch.device("cuda")])
+
+    def host_state(store):
+        store.sync()
+        used = len(store)
+        return (store._rel[:used], store._conf[:used], store._days[:used],
+                store._exists[:used], store._pairs.ids())
+
+    def same_state(got, want, what):
+        for name, x, y in zip(("reliability", "confidence", "stamps",
+                               "existence", "rows"), got, want):
+            if (x != y) if name == "rows" else not np.array_equal(x, y):
+                raise AssertionError(f"{what}: {name} differ")
+
+    tails = {}
+
+    def run(name, **kw):
+        store = TensorReliabilityStore()
+        stats = []
+        gate = GatedBatches(batches)
+        settle_kernel.LAUNCHES = 0
+        onepass_kernel.LAUNCHES = 0
+        results = []
+        timeline = obs.active_timeline()
+        start = time.perf_counter()
+        last, mark = start, timeline.totals()
+        for result in pipeline.settle_stream(
+                store, gate, steps=STEPS, now=STREAM_NOW, columnar=True,
+                reuse_plans=True, stats=stats,
+                journal=os.path.join(work.name, f"{name}.jrnl"), **kw):
+            results.append(result.consensus)
+            gate.release()
+            last, mark = time.perf_counter(), timeline.totals()
+        end = time.perf_counter()
+        launches = (settle_kernel.LAUNCHES, onepass_kernel.LAUNCHES)
+        seconds[name] = end - start
+        # After the last yield: the exit contract (the journal join, and
+        # for R the SQLite tail flush).
+        seconds[f"{name}_tail"] = end - last
+        tails[name] = obs.PhaseTimeline.delta(mark, timeline.totals())
+        for values, (batch_columns, _o) in zip(results, batches):
+            if values.shape != (len(batch_columns[0]),) or \
+                    not np.all(np.isfinite(values)):
+                raise AssertionError(f"{name}: consensus is not finite of "
+                                     "shape (M,)")
+        return store, results, stats, launches
+
+    # A: the flat stream (settle_cycles).
+    store_a, consensus_a, stats_a, launches_a = run("A")
+    if launches_a != (4, 0):
+        raise AssertionError(f"flat stream launches (settle_cycles, "
+                             f"onepass_settle): {launches_a}, expected (4, 0)")
+    state_a = host_state(store_a)
+    del store_a
+    journal_a = journal_digest(os.path.join(work.name, "A.jrnl"))
+    os.remove(os.path.join(work.name, "A.jrnl"))
+
+    # R: the resident stream (onepass_settle) with the observability on, a
+    # SQLite tail flush and the trace sidecar.
+    registry = obs.MetricsRegistry()
+    tracer = obs.Tracer()
+    timeline = obs.PhaseTimeline()
+    # The relayout's entering rows, as the session hands them over.
+    entering = []
+    real_relayout = pipeline.relayout_slot_state
+
+    def recording_relayout(state, src, enter_pos, *args):
+        entering.append(len(enter_pos))
+        return real_relayout(state, src, enter_pos, *args)
+
+    previous = obs.set_metrics_registry(registry)
+    previous_tracer = obs.set_tracer(tracer)
+    pipeline.relayout_slot_state = recording_relayout
+    db_path = os.path.join(work.name, "R.db")
+    trace_path = os.path.join(work.name, "R.trace")
+    try:
+        with obs.recording(timeline):
+            store_r, consensus_r, stats_r, launches_r = run(
+                "R", mesh=mesh, db_path=db_path, trace=trace_path)
+    finally:
+        pipeline.relayout_slot_state = real_relayout
+        obs.set_metrics_registry(previous)
+        obs.set_tracer(previous_tracer)
+    adopts = [s["session_adopt"] for s in stats_r]
+    reused = [s["plan_reused"] for s in stats_r]
+    if adopts != ["start", "refresh", "relayout", "refresh"] or \
+            reused != [False, True, False, True]:
+        raise AssertionError(f"resident stream: session_adopt {adopts}, "
+                             f"plan_reused {reused}")
+    if launches_r != (0, 4):
+        raise AssertionError(f"resident stream launches (settle_cycles, "
+                             f"onepass_settle): {launches_r}, expected (0, 4)")
+    export = registry.export()
+    counters = {k: v for k, v in export["counters"].items()
+                if k.startswith(("stream.", "ingest.", "intern."))}
+    if counters.get("stream.resident_fallbacks", 0) != 0 or \
+            counters.get("stream.session_adopts") != 1:
+        raise AssertionError(f"resident stream counters: {counters}")
+    state_r = host_state(store_r)
+    del store_r
+    same_state(state_r, state_a, "A against R")
+    journal_r = journal_digest(os.path.join(work.name, "R.jrnl"))
+    if journal_r != journal_a:
+        raise AssertionError("A against R: the journals differ")
+    worst = 0.0
+    for index, (got, want) in enumerate(zip(consensus_r, consensus_a)):
+        worst = max(worst, check_consensus(
+            torch.from_numpy(got), torch.from_numpy(want),
+            f"A against R batch {index}"))
+    with contextlib.closing(sqlite3.connect(db_path)) as conn:
+        flushed_rows = conn.execute("SELECT COUNT(*) FROM sources").fetchone()[0]
+    if flushed_rows != int(np.count_nonzero(state_r[3])):
+        raise AssertionError(f"R's tail flush wrote {flushed_rows} rows")
+    file_bytes = {name: os.path.getsize(os.path.join(work.name, name))
+                  for name in ("R.jrnl", "R.trace", "R.db")}
+    os.remove(db_path)
+
+    # D: the trace re-driven through the resident driver.
+    trace = journal.read_trace(trace_path, strict=True)
+    onepass_kernel.LAUNCHES = 0
+    start = time.perf_counter()
+    store_d = TensorReliabilityStore()
+    drive_trace(store_d, trace, mesh=mesh,
+                journal=os.path.join(work.name, "D.jrnl"))
+    seconds["D"] = time.perf_counter() - start
+    launches_d = onepass_kernel.LAUNCHES
+    same_state(host_state(store_d), state_r, "R against D")
+    if journal_digest(os.path.join(work.name, "D.jrnl")) != journal_r:
+        raise AssertionError("R against D: the journals differ")
+    del store_d, trace
+    work.cleanup()
+
+    emit("stream", markets=len(market_keys), batches=len(batches),
+         rows=len(state_r[0]), steps=STEPS, launches={
+             "A_settle_cycles": launches_a[0], "R_onepass_settle": launches_r[1],
+             "D_onepass_settle": launches_d},
+         session_adopt=adopts, plan_reused=reused,
+         entering_rows=entering, journal_epochs=len(journal_r),
+         max_abs_consensus_err=worst,
+         per_batch={key: [s[key] for s in stats_r]
+                    for key in ("plan_wait_s", "settle_dispatch_s",
+                                "checkpoint_s", "intern_s", "interned_pairs")},
+         phases=[s["phases"] for s in stats_r], tail_phases=tails["R"],
+         counters=counters,
+         hbm={name: export["gauges"].get(name)
+              for name in ("hbm.bytes_in_use", "hbm.peak_bytes")},
+         trace_events=len(tracer.events()), file_bytes=file_bytes,
+         sqlite_rows=flushed_rows, seconds=seconds, nvidia_smi=smi)
+    return launches_a[0], launches_r[1]
 
 
 def main() -> int:
@@ -2319,6 +2600,11 @@ def main() -> int:
         smi, store, market_keys, codes, probs, offsets, outcomes, main_db,
         work.name)
     work.cleanup()
+
+    # 17. stream
+    del store
+    settle_entry["stream_launches"], onepass_entry["stream_launches"] = (
+        stream_phase(smi, market_keys, codes, probs, offsets, outcomes))
 
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
                                   partials_entry]}), flush=True)

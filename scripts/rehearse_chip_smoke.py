@@ -4,16 +4,18 @@ Usage: python scripts/rehearse_chip_smoke.py [MARKETS] [DUMP_MARKETS]
 
 Runs chip_smoke's ``native``, ``main_path``, ``host_routes`` and
 ``delta_check`` phases (7 to 10), then its ``journal`` phase (16) on the
-main path's store, on CPU stores, from the repository root. The script's
-``main()`` is cut to its import block and those phases, ``"cuda"``
-becomes ``"cpu"``, stores are built with ``device="cpu"``, each call of
-the settle kernel's wrapper is counted where the card would launch it,
+main path's store and its ``stream`` phase (17) on the main path's data,
+on CPU stores, from the repository root. The script's ``main()`` is cut
+to its import block and those phases, ``"cuda"`` becomes ``"cpu"``,
+stores are built with ``device="cpu"``, each call of the settle and
+one-pass kernels' wrappers is counted where the card would launch it,
 and MARKETS (default 5,000), DUMP_MARKETS (default 1,000) and the journal
 phase's delta (100,000 markets, at most half of MARKETS) replace the
 full-size constants. The kernels take their plain torch versions, so no
 figure printed here is a device figure: the rehearsal finds wrong paths,
-shapes and control flow before a chip call, and shows the host routes'
-and the journal tier's relative cost on the machine it runs on.
+shapes and control flow before a chip call, and shows the host routes',
+the journal tier's and the stream's relative cost on the machine it runs
+on.
 """
 
 from __future__ import annotations
@@ -38,6 +40,17 @@ def _counted_settle(*args, **kwargs):
 
 
 _pipeline.settle_cycles = _counted_settle
+from bayesian_consensus_engine_tpu_torch.ops import onepass_kernel as _onepass_kernel
+from bayesian_consensus_engine_tpu_torch.parallel import sharded as _sharded
+_plain_onepass = _sharded.onepass_settle
+
+
+def _counted_onepass(*args, **kwargs):
+    _onepass_kernel.LAUNCHES += 1
+    return _plain_onepass(*args, **kwargs)
+
+
+_sharded.onepass_settle = _counted_onepass
 """
 
 
@@ -51,6 +64,8 @@ def rehearsal_source(markets: int, dump_markets: int) -> str:
         '    smi = "rehearsal on the CPU"\n'
         "    journal_phase(smi, store, market_keys, codes, probs, offsets,\n"
         "                  outcomes, main_db, work.name)\n"
+        "    del store\n"
+        "    stream_phase(smi, market_keys, codes, probs, offsets, outcomes)\n"
     )
     head = re.sub(r"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000",
                   f"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = {markets}", head)

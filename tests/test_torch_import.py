@@ -1,13 +1,16 @@
 """The port stands alone: importing it (every module of the analytics,
 inference and mesh slices, the native host path, the consensus surface,
-the journal and its ``obs`` modules included), building and loading its
-own C extensions, computing scalar and batched consensus documents,
-settling on the CPU, settling through the resident session with analytics
-and graph inference, settling on a sources-sharded CPU mesh, and writing,
-replaying and compacting a two-epoch journal beside a background SQLite
-flush loads neither JAX nor any module of the JAX package (its ``_native``
-extensions included), and its device policy is explicit (CUDA unless the
-CPU is asked for; no silent fallback)."""
+the journal, every ``obs`` module, ``serve`` and ``utils.profiling``
+included), building and loading its own C extensions, computing scalar and
+batched consensus documents, settling on the CPU, settling through the
+resident session with analytics and graph inference, settling on a
+sources-sharded CPU mesh, writing, replaying and compacting a two-epoch
+journal beside a background SQLite flush, streaming batches through a
+resident session with a journal and a trace and re-driving the trace, and
+rendering, serving and folding the telemetry loads neither JAX nor any
+module of the JAX package (its ``_native`` extensions included), and its
+device policy is explicit (CUDA unless the CPU is asked for; no silent
+fallback)."""
 
 import os
 import pathlib
@@ -44,7 +47,12 @@ from bayesian_consensus_engine_tpu_torch.ops import consensus
 from bayesian_consensus_engine_tpu_torch import models
 from bayesian_consensus_engine_tpu_torch.state import journal, namespaced
 from bayesian_consensus_engine_tpu_torch.obs import metrics, timeline, trace
-from bayesian_consensus_engine_tpu_torch.utils import interning
+from bayesian_consensus_engine_tpu_torch.obs import (
+    export, fleet, health, ledger, slo,
+)
+from bayesian_consensus_engine_tpu_torch import obs, serve
+from bayesian_consensus_engine_tpu_torch.serve import driver
+from bayesian_consensus_engine_tpu_torch.utils import interning, profiling
 import os
 import tempfile
 import torch
@@ -124,6 +132,41 @@ assert registry.export()["counters"]["journal.epochs"] == 3
 assert "journal_fsync" in phases.counts()
 assert not trace.active_tracer().enabled
 
+batches = [((["s0", "s1", "s2"], ["a", "b", "a"],
+             [0.25 * (1 + b), 0.5, 0.75], [0, 2, 3, 3]),
+            [True, False, True]) for b in range(2)]
+stats = []
+with tempfile.TemporaryDirectory() as work:
+    stream_store = port.TensorReliabilityStore(device="cpu")
+    path = os.path.join(work, "s.jrnl")
+    results = list(port.settle_stream(
+        stream_store, batches, steps=2, now=20100.0, columnar=True,
+        mesh=mesh.make_mesh((1, 1), ["cpu"]), journal=path,
+        trace=path + ".trace", reuse_plans=True, stats=stats,
+        db_path=os.path.join(work, "s.db"),
+    ))
+    assert [s["session_adopt"] for s in stats] == ["start", "refresh"]
+    again = port.TensorReliabilityStore(device="cpu")
+    port.drive_trace(again, journal.read_trace(path + ".trace"),
+                     mesh=mesh.make_mesh((1, 1), ["cpu"]))
+    again.sync()
+    stream_store.sync()
+    assert again.list_sources() == stream_store.list_sources()
+assert profiling.device_memory_stats("cpu")["bytes_in_use"] == 0
+live = metrics.MetricsRegistry()
+live.counter("stream.batches").inc(2)
+text = export.render_prometheus(live.export())
+assert "bce_stream_batches" in text, text
+view = fleet.merge_fleet([fleet.snapshot_host(0, 1, live)],
+                         expected_hosts=[0, 1])
+assert view["hosts_absent"] == [1], view
+monitor = health.HealthMonitor(objective_goodput=0.99)
+monitor.record("met")
+assert monitor.verdict()["verdict"] == "healthy"
+tracker = slo.SloTracker(1.0)
+tracker.record_latency(0.5)
+assert slo.goodput_from_counts(tracker.snapshot()["counts"]) == 1.0
+
 PACKAGE = "bayesian_consensus_engine_tpu"
 loaded = sorted(
     name for name in sys.modules
@@ -182,6 +225,32 @@ def test_journal_recovery_without_cuda_raises_unless_cpu_asked(
     assert tag == 3 and replayed.device == torch.device("cpu")
     assert replayed.list_sources() == store.list_sources()
     assert compact_journal(path, device="cpu") == 2
+
+
+def test_stream_without_cuda_raises_unless_cpu_asked(monkeypatch):
+    """The streamed service runs on the store's device: a CUDA default
+    raises without the card, as the store does, and the device memory
+    counters take the CPU only when asked for it."""
+    from bayesian_consensus_engine_tpu_torch import settle_stream
+    from bayesian_consensus_engine_tpu_torch.parallel.mesh import make_mesh
+    from bayesian_consensus_engine_tpu_torch.utils.profiling import (
+        device_memory_stats,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    batch = ([("m", [{"sourceId": "a", "probability": 0.7}])], [True])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_memory_stats()
+    store = TensorReliabilityStore(device="cpu")
+    result, = settle_stream(store, [batch], now=20000.0,
+                            mesh=make_mesh((1, 1), ["cpu"]))
+    assert result.consensus.shape == (1,)
+    assert device_memory_stats("cpu") == {
+        "device": "cpu", "bytes_in_use": 0, "bytes_limit": None,
+        "peak_bytes_in_use": 0, "utilisation": None,
+    }
 
 
 def test_array_backend_without_cuda_raises_unless_cpu_asked(monkeypatch):

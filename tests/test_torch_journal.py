@@ -922,3 +922,164 @@ class TestRecoveryInvalidation:
         np.testing.assert_array_equal(plan_delta.slot_rows,
                                       plan_full.slot_rows)
         assert store._pairs.ids() == reference._pairs.ids()
+
+
+# -- the journal under settle_stream -------------------------------------------
+
+
+def stream_batches(num_batches=4, markets=9, seed=61):
+    rng = random.Random(seed)
+    out = []
+    for b in range(num_batches):
+        payloads = []
+        for m in range(markets):
+            payloads.append((f"jm-b{b}-{m}", [
+                {"sourceId": f"src-{rng.randrange(15)}",
+                 "probability": round(rng.random(), 6)}
+                for _ in range(rng.randint(1, 5))]))
+        out.append((payloads, [rng.random() < 0.5 for _ in range(markets)]))
+    return out
+
+
+def _db_rows(path):
+    import sqlite3
+
+    with sqlite3.connect(path) as conn:
+        return conn.execute("SELECT * FROM sources ORDER BY source_id, "
+                            "market_id").fetchall()
+
+
+class TestSettleStreamJournal:
+    """The JAX package's ``settle_stream`` journal cases, on the port."""
+
+    @staticmethod
+    def _run(batches, db=None, journal=None, **kw):
+        store = cpu_store()
+        results = list(tpipe.settle_stream(
+            store, batches, steps=2, now=21_300.0, db_path=db,
+            journal=journal, **kw))
+        return store, results
+
+    def test_journal_mode_matches_plain_stream_and_replays(self, tmp_path):
+        batches = stream_batches()
+        plain_store, plain_results = self._run(batches, db=tmp_path / "p.db")
+        store, results = self._run(batches, db=tmp_path / "s.db",
+                                   journal=tmp_path / "s.jrnl",
+                                   checkpoint_every=2)
+        for mine, ref in zip(results, plain_results):
+            np.testing.assert_array_equal(mine.consensus, ref.consensus)
+        # The interchange file holds the same rows in journal mode.
+        assert _db_rows(tmp_path / "s.db") == _db_rows(tmp_path / "p.db")
+        replayed, tag = replay(tmp_path / "s.jrnl")
+        assert tag == len(batches) - 1
+        assert store_fingerprint(replayed) == store_fingerprint(store)
+        assert store_fingerprint(store) == store_fingerprint(plain_store)
+
+    def test_journal_only_mode_needs_no_db(self, tmp_path):
+        store, _ = self._run(stream_batches(num_batches=3),
+                             journal=tmp_path / "only.jrnl")
+        replayed, tag = replay(tmp_path / "only.jrnl")
+        assert tag == 2
+        assert store_fingerprint(replayed) == store_fingerprint(store)
+
+    def test_break_recovery_resumes_from_watermark(self, tmp_path):
+        batches = stream_batches(num_batches=5)
+        full_store, _ = self._run(batches)
+        stream = tpipe.settle_stream(cpu_store(), batches, steps=2,
+                                     now=21_300.0, journal=tmp_path / "r.jrnl")
+        for i, _result in enumerate(stream):
+            if i == 1:
+                stream.close()  # GeneratorExit -> tail epoch, tag 1
+                break
+        replayed, tag = replay(tmp_path / "r.jrnl")
+        assert tag == 1
+        with pytest.raises(ValueError, match="refusing to truncate"):
+            JournalWriter(tmp_path / "r.jrnl")
+        resumed = list(tpipe.settle_stream(
+            replayed, batches[tag + 1:], steps=2, now=21_300.0 + tag + 1,
+            journal=JournalWriter(tmp_path / "r.jrnl", resume=True)))
+        assert len(resumed) == 3
+        assert store_fingerprint(replayed) == store_fingerprint(full_store)
+        again, tag2 = replay(tmp_path / "r.jrnl")
+        assert tag2 == 2  # the resumed stream's own batch indices
+        assert store_fingerprint(again) == store_fingerprint(full_store)
+
+    @pytest.mark.parametrize("shape", [(1, 1), (1, 4)])
+    def test_sharded_stream_journal_matches_flat(self, tmp_path, shape):
+        from bayesian_consensus_engine_tpu_torch.parallel.mesh import make_mesh
+
+        batches = stream_batches(num_batches=3, seed=71)
+        flat_store, flat_results = self._run(batches)
+        store, results = self._run(
+            batches, journal=tmp_path / "m.jrnl", checkpoint_every=2,
+            mesh=make_mesh(shape, ["cpu"] * (shape[0] * shape[1])))
+        for mine, ref in zip(results, flat_results):
+            if shape == (1, 1):
+                np.testing.assert_array_equal(np.asarray(mine.consensus),
+                                              ref.consensus)
+            else:  # the sources split re-associates each market's sum
+                np.testing.assert_allclose(np.asarray(mine.consensus),
+                                           ref.consensus, rtol=2e-6,
+                                           atol=1e-7)
+        replayed, tag = replay(tmp_path / "m.jrnl")
+        assert tag == 2
+        assert store_fingerprint(replayed) == store_fingerprint(store)
+
+    def test_lazy_checkpoints_rejected_with_journal(self, tmp_path):
+        with pytest.raises(ValueError, match="lazy"):
+            list(tpipe.settle_stream(cpu_store(), [],
+                                     journal=tmp_path / "x.jrnl",
+                                     lazy_checkpoints=True))
+        assert not (tmp_path / "x.jrnl").exists()
+
+    def test_settle_raise_never_claims_failed_batch(self, tmp_path):
+        batches = stream_batches(num_batches=3, seed=81)
+        bad = (batches[1][0], batches[1][1][:2])  # truncated outcomes
+        with pytest.raises(ValueError, match="outcomes"):
+            list(tpipe.settle_stream(
+                cpu_store(), [batches[0], bad, batches[2]], steps=1,
+                now=21_400.0, journal=tmp_path / "f.jrnl"))
+        _, tag = replay(tmp_path / "f.jrnl")
+        assert tag == 0
+
+    def test_stream_journal_bytes_equal_jax(self, tmp_path, monkeypatch):
+        from test_torch_stream import run_stream
+
+        batches = stream_batches(num_batches=4, seed=91)
+        port = run_stream("torch", batches, tmp_path, "port", journal=True,
+                          checkpoint_every=2)
+        ref = run_stream("jax", batches, tmp_path, "jax", journal=True,
+                         checkpoint_every=2)
+        assert port.journal.read_bytes() == ref.journal.read_bytes()
+        replayed, tag = jjournal.replay_journal(port.journal)
+        assert tag == 3
+        replayed.sync()
+        assert replayed.list_sources() == ref.store.list_sources()
+
+
+class TestAsyncEpochsUnderTheStream:
+    """The JAX package's two ``settle_stream`` cases of its async-epoch
+    class, on the port."""
+
+    def test_stream_async_journal_byte_identical_to_sync(self, tmp_path):
+        from test_torch_stream import run_stream
+
+        batches = stream_batches(num_batches=4, seed=91)
+        runs = [run_stream("torch", batches, tmp_path, name, db=False,
+                           journal=True, checkpoint_every=2,
+                           sync_checkpoints=sync)
+                for name, sync in (("async", False), ("sync", True))]
+        assert runs[0].journal.read_bytes() == runs[1].journal.read_bytes()
+
+    def test_stream_consumer_break_joins_inflight(self, tmp_path):
+        store = cpu_store()
+        stream = tpipe.settle_stream(
+            store, stream_batches(num_batches=4, seed=93), steps=2,
+            now=21_300.0, journal=tmp_path / "brk.jrnl", checkpoint_every=2)
+        for i, _result in enumerate(stream):
+            if i == 1:
+                stream.close()
+                break
+        replayed, tag = replay(tmp_path / "brk.jrnl")
+        assert tag == 1
+        assert store_fingerprint(replayed) == store_fingerprint(store)

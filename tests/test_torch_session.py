@@ -405,7 +405,7 @@ def test_float64_tiebreak_raises(entry):
 
 @pytest.mark.parametrize("kwargs, error, match", [
     (dict(mesh=object()), TypeError, "mesh takes a parallel.mesh.Mesh"),
-    (dict(band=(0, 10)), ValueError, "ROADMAP queue 1 item 11"),
+    (dict(band=(0, 10)), ValueError, "ROADMAP queue 1 item 9"),
 ], ids=["kwargs0", "kwargs1"])
 def test_meshes_and_bands_raise(kwargs, error, match):
     """A mesh must be a ``parallel.mesh.Mesh`` (meshes are served since

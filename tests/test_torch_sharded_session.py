@@ -425,7 +425,7 @@ def test_graph_on_markets_sharded_mesh_raises():
     store, plan, outcomes = _port_session((2, 2))
     graph = MarketGraph.from_edges([("m-0", "m-1", 1.0)])
     with make_session("torch", store, plan, (2, 2)) as session:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
             session.settle_with_analytics(
                 outcomes, now=NOW, analytics=AnalyticsOptions(graph=graph),
             )
@@ -443,7 +443,7 @@ def test_sorted_tiebreak_on_sources_sharded_mesh_raises():
 def test_process_band_raises():
     store, plan, _outcomes = _port_session((1, 2))
     mesh = tmesh.make_mesh((1, 2), [torch.device("cpu")] * 2)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 11"):
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
         tpipe.ShardedSettlementSession(store, plan, mesh, band=(0, 45))
 
 
