@@ -51,7 +51,20 @@ bottom → top, each module named after its JAX counterpart:
                 ``adopt``), and the streamed service (``PlanPrefetcher``,
                 ``settle_stream``)
   serve/        the stream's loop body as an API: ``SessionDriver``,
-                ``PlanCache`` and ``drive_trace`` (``driver``)
+                ``PlanCache`` and ``drive_trace`` (``driver``); the
+                request front door ``ConsensusService`` (``coalesce``:
+                micro-batch coalescing, the adaptive window, per-request
+                latency and SLO accounting) with bounded admission,
+                tenant classes and variance-aware shedding
+                (``admission``)
+  net/          the socket front door over the service: the framed wire
+                codec (``wire``), ``ConsensusServer`` (``server``) and
+                ``ConsensusClient`` (``client``)
+  cli           the command line (``python -m
+                bayesian_consensus_engine_tpu_torch.cli``, ``bce-torch``):
+                ``consensus``, ``report-outcome``, ``list-sources``,
+                ``journal-export``, ``serve``, ``stats``, ``trace``, with a
+                ``--device`` seam (``cuda`` unless ``cpu`` is asked for)
   convert       build a store from either package's records, a graph
                 from a JAX ``MarketGraph``'s fields, and a mesh session's
                 block state from global numpy arrays and back

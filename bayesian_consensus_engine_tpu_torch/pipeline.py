@@ -619,6 +619,15 @@ class SettlementResult:
             self._consensus_raw = None  # free the device buffer
         return self._consensus_np
 
+    @property
+    def vector(self) -> torch.Tensor:
+        """The consensus column as a tensor, fetching nothing: the device
+        vector until :attr:`consensus` was read, its host copy after."""
+        if self._consensus_np is not None:
+            return torch.from_numpy(self._consensus_np)
+        raw = self._consensus_raw
+        return raw.vector if isinstance(raw, _BandView) else torch.as_tensor(raw)
+
     def fence(self) -> None:
         """Block until the settlement's outputs exist on the device,
         fetching only one scalar."""
@@ -964,6 +973,11 @@ class _BandView:
 
     def __len__(self) -> int:
         return self._vector.numel()
+
+    @property
+    def vector(self) -> torch.Tensor:
+        """The device vector itself, fetching nothing."""
+        return self._vector
 
     def __getitem__(self, index: int):
         return self._vector[index]

@@ -460,9 +460,10 @@ class SessionDriver:
 
         The in-flight journal write is always joined (a background
         failure must never be dropped) and every fully settled batch
-        reaches the checkpoint file. Tail epochs and flushes cover
-        through ``settled_through`` only — a batch that RAISED mid-settle
-        is never claimed as durable. When the caller is exiting BECAUSE a
+        reaches the checkpoint file, with every pair the store has
+        interned. Tail epochs and flushes cover through
+        ``settled_through`` only — a batch that RAISED mid-settle is
+        never claimed as durable. When the caller is exiting BECAUSE a
         journal write failed, the tail epoch is skipped: retrying the
         broken journal here would raise again and replace the original
         error — the journal's durable point is simply the last epoch that
@@ -472,7 +473,24 @@ class SessionDriver:
         store, timeline = self._store, active_timeline()
         try:
             if self._journal is not None and not self._journal_write_failed:
-                if self._settled_through > self._journaled_through:
+                settled_past_epoch = (
+                    self._settled_through > self._journaled_through
+                )
+                if not settled_past_epoch and self._journal_handle is not None:
+                    # No batch settled since the last cadence, whose epoch
+                    # may still be in flight: the stream must not end
+                    # before its durability (or failure) is known.
+                    with timeline.span("journal_async_wait"):
+                        self._journal_handle.result()
+                    self.durable_through = self._journaled_through
+                # A stream's prefetch worker interns the pairs of batches
+                # ahead of the consumer; pairs interned after the last
+                # epoch's snapshot go into a tail epoch too, so replay
+                # rebuilds the store's row assignment after an early exit.
+                if settled_past_epoch or (
+                    self._settled_through >= 0
+                    and len(store) > self._journal.rows_covered
+                ):
                     # Joins any in-flight background epoch first, so the
                     # tail epoch lands after (and surfaces any failure
                     # of) the last cadence's write.
@@ -480,13 +498,6 @@ class SessionDriver:
                         self._journal, tag=self._settled_through
                     )
                     self.durable_through = self._settled_through
-                elif self._journal_handle is not None:
-                    # Nothing new to journal, but the last cadence's
-                    # epoch may still be in flight: the stream must not
-                    # end before its durability (or failure) is known.
-                    with timeline.span("journal_async_wait"):
-                        self._journal_handle.result()
-                    self.durable_through = self._journaled_through
         finally:
             tracer = active_tracer()
             if tracer.enabled and self._settled_through >= 0:

@@ -71,9 +71,11 @@ Phases, one JSON line each:
                     the inputs that settle was given, the first settle's
                     state must be bit-equal to the plain version's, and the
                     flush must write every row.
-9. ``host_routes``  a second store from the same data on the Python route
-                    (``native=False`` under ``BCE_NO_NATIVE=1``: the dict
-                    interner, the numpy grouping, the sqlite3 module)
+9. ``host_routes``  the main path's first 250,000 markets (a cut: the
+                    Python route's full-width pass took ~45 s) through the
+                    default C route and the Python route (``native=False``
+                    under ``BCE_NO_NATIVE=1``: the dict interner, the numpy
+                    grouping, the sqlite3 module), each on a fresh store
                     through the same two settles, sync and flush, timed
                     like the main path: the plans' ``slot_rows`` and the
                     consensus equal, and the two checkpoints'
@@ -171,9 +173,12 @@ Phases, one JSON line each:
                     ``bp_sweep`` and the two one-pass kernels also
                     ``launches_per_call``; ``settle_cycles`` also
                     ``journal_launches``, its launches in phase 16's delta
-                    step, and ``settle_cycles`` and ``onepass_settle``
-                    ``stream_launches``, theirs in phase 17. The line is
-                    printed after phase 17.
+                    step, ``settle_cycles`` and ``onepass_settle``
+                    ``stream_launches``, theirs in phase 17, and
+                    ``serve_launches``, theirs in phase 18 (``settle_cycles``:
+                    the two seeding settles and the CLI's serve;
+                    ``onepass_settle``: acts A and B and A's re-drive). The
+                    line is printed after phase 18.
 15. ``batch_consensus`` the consensus surface, which runs none of the four
                     kernels: the main path's 1,000,000 markets as object
                     payloads (``{"sourceId", "probability"}`` dicts) with a
@@ -218,8 +223,10 @@ Phases, one JSON line each:
                     SQLite write runs, equal to the live store (reliability,
                     confidence, stamps, existence, ISO stamps and row
                     assignment) at tag 1; the replayed store's
-                    ``flush_to_sqlite_async`` to a fresh file, whose
-                    ``SELECT *`` sha256 must equal the incremental file's.
+                    ``flush_to_sqlite_async`` to a fresh file, whose rows
+                    must equal the incremental file's, every one (equal
+                    counts, and a join on the primary key inside SQLite
+                    finds no row missing or different).
                     Then on a store of 1,037 markets settled three times,
                     journaled twice and traced three times: a torn tail
                     replays to tag 0, a resumed writer appends after it
@@ -271,6 +278,57 @@ Phases, one JSON line each:
                     launches of ``settle_cycles`` and ``onepass_settle``
                     as ``stream_launches``.
 
+18. ``serve``       the request front door at the main path's width, over
+                    a card store seeded by one flat 20-step ``settle`` of the
+                    main path's whole batch (~4M rows; one ``settle_cycles``
+                    launch). A request is one market's update and outcome:
+                    the market's main-path sources, fresh probabilities and
+                    a fair outcome (seed 23), 80% of requests on the hottest
+                    tenth of the markets. Act A: ``ConsensusService`` on the
+                    card's (1, 1) mesh (``steps=20``, a journal epoch every
+                    batch, ``max_batch=4096``, ``max_delay_s=0.005``,
+                    ``analytics=True``, ``record_batches=True``) behind a
+                    ``ConsensusServer`` on 127.0.0.1 with 4 acceptors; 16
+                    client threads of a load-generator process, started
+                    before the store is seeded, each send 4,096 requests
+                    in ``submit_pipelined`` chunks of 256 (65,536 in all),
+                    under an enabled registry and a tracer. Every answer
+                    must be a result (no refusal, ``net.wire_errors`` 0),
+                    one ``onepass_settle`` launch a batch; the batch log
+                    re-driven in lockstep through ``drive_trace`` on the
+                    same mesh and a second store seeded the same way must
+                    give a bit-equal store, a journal byte-equal with the
+                    wall clock masked, and every request's consensus bit
+                    for bit. Prints requests/s, p50/p99 of
+                    ``serve.latency_total_s``, batches and their fill,
+                    plan-cache hits and misses (consecutive topology
+                    fingerprints), session adopts, ``ingest_wait_s``, the
+                    batches' phase spans (sum and max), ``hbm.*`` and the
+                    launches. Act B, on act A's store: two classes,
+                    ``premium`` (``reject``, budget 64, sized to its 8
+                    closed-loop clients) and ``besteffort``
+                    (``shed_oldest``, budget 64), the shed ranking seeded
+                    with act A's band standard errors; 8 premium clients
+                    submit one request at a time while one best-effort
+                    client pipelines a 16,384-request burst (in chunks of
+                    256: a client that sends the whole burst before reading
+                    deadlocks against the server's answers). Premium must
+                    refuse nothing, best effort must shed or reject, no
+                    class's pending count may pass its budget, and at least
+                    one shed victim's market must have had a band (the
+                    variance-aware ranking ran); prints each class's
+                    goodput. Act C: the CLI's ``serve --port 0 --duration
+                    8 --journal ... --qos premium:1.0:8192`` in a
+                    subprocess on the default device (``cuda``; the CLI
+                    module run as ``-m`` runs it, reporting its
+                    ``settle_cycles`` launches at exit), 8,192 requests from
+                    4 clients: the summary must show ``requests ==
+                    responses == 8192``, batches, no wire error and one
+                    launch a batch; then ``journal-export`` of its journal
+                    to a fresh DB and ``list-sources --market-id`` of a
+                    served market, through the CLI's ``main()`` in this
+                    process, must exit 0 and list its sources.
+
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
 CUDA and a directory without the package.
@@ -299,6 +357,8 @@ PARITY_MARKETS = 20_000
 # The host routes' full iterdump() comparison, and the delta check's drift:
 # a tenth of the markets replaced, a twentieth of the rest redrawn.
 DUMP_MARKETS, REPLACED, REDRAWN = 50_000, 0.10, 0.05
+# The two host routes side by side, a quarter of the main path's markets.
+HOST_ROUTE_MARKETS = 250_000
 # The inference path's graph and sweep.
 EVENT_SIZE, CORRELATIONS, BP_TOL, BP_MAX_STEPS = 4, 2, 1e-5, 24
 # partials_check's K_loc, each with the band-tree depth of the kernel
@@ -325,6 +385,25 @@ def table_digest(path) -> str:
         while rows := cursor.fetchmany(1 << 16):
             digest.update(repr(rows).encode())
     return digest.hexdigest()
+
+
+def table_mismatches(path, other) -> "tuple[int, int, int]":
+    """Both checkpoints' row counts and the rows of *path* that *other*
+    lacks or holds with another value, in one join on the primary key
+    inside SQLite. With equal counts and unique keys, no mismatch means
+    the two tables hold the same rows."""
+    with contextlib.closing(sqlite3.connect(path)) as conn:
+        conn.execute("ATTACH DATABASE ? AS other", (str(other),))
+        counts = conn.execute(
+            "SELECT (SELECT COUNT(*) FROM main.sources), "
+            "(SELECT COUNT(*) FROM other.sources)").fetchone()
+        mismatched = conn.execute(
+            "SELECT COUNT(*) FROM main.sources a LEFT JOIN other.sources b "
+            "ON a.source_id = b.source_id AND a.market_id = b.market_id "
+            "WHERE b.reliability IS NOT a.reliability "
+            "OR b.confidence IS NOT a.confidence "
+            "OR b.updated_at IS NOT a.updated_at").fetchone()[0]
+    return counts[0], counts[1], mismatched
 
 
 def dump_lines(path) -> list:
@@ -1055,12 +1134,14 @@ def journal_phase(smi, store, market_keys, codes, probs, offsets, outcomes,
         if fresh_rows != len(store):
             raise AssertionError(f"replayed flush: {fresh_rows} rows of "
                                  f"{len(store)}")
+        # The two checkpoints row for row (a join in SQLite; an ordered
+        # digest of both 4M-row tables took ~30 s).
         start = time.perf_counter()
-        digests = {"incremental": table_digest(main_db),
-                   "replayed": table_digest(fresh_db)}
-        seconds["digests"] = time.perf_counter() - start
-        if digests["incremental"] != digests["replayed"]:
-            raise AssertionError(f"checkpoints differ: {digests}")
+        compared = table_mismatches(main_db, fresh_db)
+        seconds["table_compare"] = time.perf_counter() - start
+        if compared[0] != compared[1] or compared[2]:
+            raise AssertionError(f"checkpoints differ: {compared[0]} and "
+                                 f"{compared[1]} rows, {compared[2]} differ")
         del replayed
 
         # 4. A small store: a torn tail, a resume after it, compaction and
@@ -1139,7 +1220,7 @@ def journal_phase(smi, store, market_keys, codes, probs, offsets, outcomes,
          delta_bytes=delta_bytes, launches=launches,
          sqlite_incremental_rows=sqlite_rows,
          sqlite_done_after_replay=sqlite_done_after_replay,
-         replayed_rows=fresh_rows, sqlite_sha256=digests["replayed"],
+         replayed_rows=fresh_rows, sqlite_rows_compared=compared[0],
          small={"markets": JOURNAL_SMALL_MARKETS, "rows": len(small),
                 "epoch_rows": epoch_rows, "torn_tag": torn_tag,
                 "resumed_tag": again_tag, "compacted_rows": kept,
@@ -1387,6 +1468,570 @@ def stream_phase(smi, market_keys, codes, probs, offsets, outcomes):
          trace_events=len(tracer.events()), file_bytes=file_bytes,
          sqlite_rows=flushed_rows, seconds=seconds, nvidia_smi=smi)
     return launches_a[0], launches_r[1]
+
+
+# serve: the request front door at the main path's width.
+SERVE_NOW, SERVE_SEED = NOW + 40 * STEPS, 23
+# Act A: client threads, requests per client, pipelined chunk. The clients
+# run in a load-generator process of their own: as threads of this process
+# they took the event loop's share of the interpreter lock, and a 5 ms
+# window closed on ~16 requests.
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_CHUNK = 16, 4096, 256
+# Act B: premium closed-loop clients, the best-effort burst and budget.
+OVERLOAD_CLIENTS, OVERLOAD_BURST, OVERLOAD_BUDGET = 8, 16384, 64
+# Act C: the CLI's requests, its client threads and its serve duration.
+CLI_REQUESTS, CLI_CLIENTS, CLI_DURATION = 8192, 4, 8.0
+# The CLI runs on its default device unless this names one.
+CLI_DEVICE = None
+# The CLI subprocess: the package's CLI module run as ``-m`` runs it,
+# reporting the settle kernel's launches on stderr as the process exits.
+CLI_BOOT = """
+import atexit, runpy, sys
+from bayesian_consensus_engine_tpu_torch.ops import settle_kernel
+atexit.register(lambda: print("settle_cycles_launches", settle_kernel.LAUNCHES,
+                              file=sys.stderr, flush=True))
+sys.argv = ["bce-torch", *sys.argv[1:]]
+runpy.run_module("bayesian_consensus_engine_tpu_torch.cli", run_name="__main__",
+                 alter_sys=True)
+"""
+
+# Act A's load generator: started first, it imports the client while this
+# process seeds its store, then reads one JSON line (the server's port, the
+# pickled per-client request lists, where to write the answers), runs one
+# pipelining client per list on a thread of its own, writes the answers
+# (a refusal as its type and message) and prints its clients' seconds.
+LOADGEN_BOOT = """
+import concurrent.futures, json, pickle, sys, time
+from bayesian_consensus_engine_tpu_torch.net import ConsensusClient
+from bayesian_consensus_engine_tpu_torch.serve import ServeResult
+print("ready", flush=True)
+job = json.loads(sys.stdin.readline())
+with open(job["requests"], "rb") as handle:
+    lists = pickle.load(handle)
+
+def client(requests):
+    out = []
+    with ConsensusClient(port=job["port"], timeout=120.0) as conn:
+        for first in range(0, len(requests), job["chunk"]):
+            out += conn.submit_pipelined(requests[first:first + job["chunk"]])
+    return [v if isinstance(v, ServeResult) else f"{type(v).__name__}: {v}"
+            for v in out]
+
+with concurrent.futures.ThreadPoolExecutor(len(lists)) as pool:
+    began = time.perf_counter()
+    answers = list(pool.map(client, lists))
+    seconds = time.perf_counter() - began
+with open(job["answers"], "wb") as handle:
+    pickle.dump(answers, handle)
+print(json.dumps({"seconds": seconds}), flush=True)
+"""
+
+
+def serve_phase(smi, market_keys, codes, probs, offsets, outcomes):
+    """The request front door at the main path's width, over a store
+    seeded by one flat settle of the main path's batch: (A) the resident
+    service with analytics behind the socket server, 16 pipelining
+    clients, and its batch log re-driven in lockstep on a fresh seeded
+    store; (B) two tenant classes under a best-effort burst; (C) the
+    CLI's ``serve`` in a subprocess on the card, then ``journal-export``
+    and ``list-sources``. Returns the launches of ``settle_cycles`` (the
+    seeding settles and the CLI) and of ``onepass_settle`` (A, its
+    re-drive and B)."""
+    loadgen = subprocess.Popen([sys.executable, "-c", LOADGEN_BOOT],
+                               stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+    try:
+        return _serve_acts(smi, market_keys, codes, probs, offsets, outcomes,
+                           loadgen)
+    finally:
+        if loadgen.poll() is None:
+            loadgen.kill()
+            loadgen.wait(timeout=60)
+
+
+def _serve_acts(smi, market_keys, codes, probs, offsets, outcomes, loadgen):
+    """The body of :func:`serve_phase`, with act A's load generator
+    started."""
+    import asyncio
+    import concurrent.futures
+    import io
+    import pickle
+    import threading
+
+    from bayesian_consensus_engine_tpu_torch import cli, obs, pipeline
+    from bayesian_consensus_engine_tpu_torch.core.batch import (
+        SourceCodes,
+        topology_fingerprint,
+    )
+    from bayesian_consensus_engine_tpu_torch.net import (
+        ConsensusClient,
+        ConsensusServer,
+    )
+    from bayesian_consensus_engine_tpu_torch.ops import (
+        onepass_kernel,
+        settle_kernel,
+    )
+    from bayesian_consensus_engine_tpu_torch.parallel.mesh import make_mesh
+    from bayesian_consensus_engine_tpu_torch.serve import (
+        AdmissionConfig,
+        ConsensusService,
+        QosClass,
+        ServeResult,
+        drive_trace,
+    )
+    from bayesian_consensus_engine_tpu_torch.state import journal
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    seconds = {}
+    start = time.perf_counter()
+    table = [f"src-{i}" for i in range(SOURCES)]
+    counts = np.diff(offsets)
+    hot_markets = MARKETS // 10
+    rng = np.random.default_rng(SERVE_SEED)
+
+    def draw(n):
+        """*n* requests: 80% on the hottest tenth of the markets, each
+        market with its main-path sources, fresh probabilities and a fair
+        outcome."""
+        hot = rng.random(n) < 0.8
+        chosen = np.where(hot, rng.integers(0, hot_markets, n),
+                          rng.integers(0, MARKETS, n))
+        fresh = rng.random(int(counts[chosen].sum()))
+        fair = (rng.random(n) < 0.5).tolist()
+        requests, cursor = [], 0
+        for market, outcome in zip(chosen.tolist(), fair):
+            lo, hi = int(offsets[market]), int(offsets[market + 1])
+            sids = [table[c] for c in codes[lo:hi].tolist()]
+            requests.append((market_keys[market],
+                             list(zip(sids, fresh[cursor:cursor + hi - lo]
+                                      .tolist())), outcome))
+            cursor += hi - lo
+        return requests
+
+    act_a_requests = [draw(SERVE_PER_CLIENT) for _ in range(SERVE_CLIENTS)]
+    premium_requests = draw(OVERLOAD_CLIENTS * 4096)
+    burst_requests = draw(OVERLOAD_BURST)
+    cli_requests = draw(CLI_REQUESTS)
+    seconds["data"] = time.perf_counter() - start
+    work = tempfile.TemporaryDirectory()
+    mesh = make_mesh((1, 1), [torch.device("cuda")])
+    seed_launches = []
+
+    def seeded_store():
+        """A card store holding the main path's ~4M rows after one flat
+        20-step settle of the whole batch (one settle_cycles launch)."""
+        store = TensorReliabilityStore()
+        plan = pipeline.build_settlement_plan_columnar(
+            store, market_keys, SourceCodes(codes, table), probs, offsets)
+        settle_kernel.LAUNCHES = 0
+        pipeline.settle(store, plan, outcomes, steps=STEPS,
+                        now=SERVE_NOW - STEPS).fence()
+        seed_launches.append(settle_kernel.LAUNCHES)
+        if seed_launches[-1] != 1:
+            raise AssertionError(f"seeding settle: {seed_launches[-1]} "
+                                 "settle_cycles launches")
+        return store
+
+    def host_state(store):
+        store.sync()
+        used = len(store)
+        return (store._rel[:used].copy(), store._conf[:used].copy(),
+                store._days[:used].copy(), store._exists[:used].copy(),
+                store._pairs.ids())
+
+    def quantiles(registry, name):
+        hist = registry.histogram(name)
+        return {"p50": hist.quantile(0.5), "p99": hist.quantile(0.99),
+                "count": hist.snapshot()["count"]}
+
+    # -- Act A: the wire path over the resident session with analytics.
+    start = time.perf_counter()
+    store_a = seeded_store()
+    seconds["seed_a"] = time.perf_counter() - start
+    path_a = os.path.join(work.name, "A.jrnl")
+    registry = obs.MetricsRegistry()
+    tracer = obs.Tracer(log_capacity=None)
+    previous = obs.set_metrics_registry(registry)
+    previous_tracer = obs.set_tracer(tracer)
+
+    async def act_a():
+        service = ConsensusService(
+            store_a, mesh=mesh, steps=STEPS, now=SERVE_NOW, journal=path_a,
+            checkpoint_every=1, max_batch=4096, max_delay_s=0.005,
+            analytics=True, record_batches=True, band_stderr_bound=1 << 21,
+            admission=AdmissionConfig(max_pending=2 * SERVE_CLIENTS
+                                      * SERVE_CHUNK))
+        server = await ConsensusServer(service, host="127.0.0.1", port=0,
+                                       acceptors=4).start()
+        loop = asyncio.get_running_loop()
+        loadgen.stdin.write(json.dumps({
+            "port": server.port, "requests": requests_path,
+            "answers": answers_path, "chunk": SERVE_CHUNK}) + "\n")
+        loadgen.stdin.flush()
+        report = await loop.run_in_executor(None, loadgen.stdout.readline)
+        await server.close()
+        await service.close()
+        return service, report
+
+    # The requests go to the load generator in a file; it answers in one.
+    requests_path = os.path.join(work.name, "A.requests")
+    answers_path = os.path.join(work.name, "A.answers")
+    with open(requests_path, "wb") as handle:
+        pickle.dump(act_a_requests, handle)
+    start = time.perf_counter()
+    if loadgen.stdout.readline().strip() != "ready":
+        raise AssertionError(f"act A's load generator: {loadgen.stderr.read()}")
+    seconds["loadgen_ready"] = time.perf_counter() - start
+
+    onepass_kernel.LAUNCHES = 0
+    settle_kernel.LAUNCHES = 0
+    start = time.perf_counter()
+    try:
+        service_a, report = asyncio.run(act_a())
+    finally:
+        obs.set_metrics_registry(previous)
+        obs.set_tracer(previous_tracer)
+    launches_a = onepass_kernel.LAUNCHES
+    seconds["act_a"] = time.perf_counter() - start
+    if loadgen.wait(timeout=60) != 0 or not report:
+        raise AssertionError(f"act A's load generator exited "
+                             f"{loadgen.returncode}: {loadgen.stderr.read()}")
+    elapsed_a = json.loads(report)["seconds"]
+    with open(answers_path, "rb") as handle:
+        answers = pickle.load(handle)
+    os.remove(requests_path)
+    os.remove(answers_path)
+    if settle_kernel.LAUNCHES:
+        raise AssertionError(f"act A launched settle_cycles "
+                             f"{settle_kernel.LAUNCHES} times")
+    served = [value for answer in answers for value in answer]
+    refused = [value for value in served if not isinstance(value, ServeResult)]
+    export = registry.export()
+    counters = export["counters"]
+    if len(served) != SERVE_CLIENTS * SERVE_PER_CLIENT or refused or \
+            counters.get("net.wire_errors", 0) or \
+            counters.get("net.responses") != len(served):
+        raise AssertionError(f"act A: {len(served)} answers, {len(refused)} "
+                             f"refused ({refused[:3]}), counters "
+                             f"{ {k: v for k, v in counters.items() if k.startswith('net.')} }")
+    if launches_a != len(service_a.batch_log) or \
+            service_a.settled_batches != launches_a:
+        raise AssertionError(f"act A: {launches_a} onepass_settle launches for "
+                             f"{len(service_a.batch_log)} batches")
+    for value in served:
+        # A band is NaN where its read carries no weight, as the plain
+        # version and the JAX package give it.
+        if not (np.isfinite(value.consensus) and value.band_lo is not None
+                and not value.band_lo > value.band_hi):
+            raise AssertionError(f"act A: bad result {value}")
+    batch_log = service_a.batch_log
+    fingerprints = [topology_fingerprint(cols[0], cols[1], cols[3])
+                    for cols, _o in batch_log]
+    hits = sum(1 for a, b in zip(fingerprints, fingerprints[1:]) if a == b)
+    sizes = [len(cols[0]) for cols, _o in batch_log]
+    phases = {}
+    for event in tracer.events():
+        if event["scope"] == "batch" and event.get("dur_s") is not None:
+            per = phases.setdefault(event["name"], [0.0, 0.0, 0])
+            per[0] += event["dur_s"]
+            per[1] = max(per[1], event["dur_s"])
+            per[2] += 1
+    act_a_report = {
+        "requests": len(served), "seconds": elapsed_a,
+        "requests_per_s": len(served) / elapsed_a,
+        "latency_total_s": quantiles(registry, "serve.latency_total_s"),
+        "latency_dispatch_s": quantiles(registry, "serve.latency_dispatch_s"),
+        "latency_durable_s": quantiles(registry, "serve.latency_durable_s"),
+        "batches": len(batch_log), "mean_fill": float(np.mean(sizes)),
+        "max_fill": max(sizes), "plan_cache_hits": hits,
+        "plan_cache_misses": len(batch_log) - hits,
+        "session_adopts": counters.get("stream.session_adopts", 0),
+        "ingest_wait_s": service_a.ingest_wait_s,
+        "intern_wait_s": service_a.intern_wait_s,
+        "phases": {name: {"sum_s": v[0], "max_s": v[1], "count": v[2]}
+                   for name, v in sorted(phases.items())},
+        "hbm": {name: export["gauges"].get(name)
+                for name in ("hbm.bytes_in_use", "hbm.peak_bytes")},
+        "onepass_settle_launches": launches_a,
+        "trace_events": len(tracer.events()),
+    }
+    del tracer
+    band_stderr = service_a.market_band_stderr
+    start = time.perf_counter()
+    state_a = host_state(store_a)
+    seconds["host_state_a"] = time.perf_counter() - start
+
+    # The batch log re-driven in lockstep on a fresh seeded store.
+    start = time.perf_counter()
+    store_d = seeded_store()
+    trace = [journal.TraceBatch(index, tuple(keys), tuple(sids),
+                                np.asarray(batch_probs), np.asarray(batch_offsets),
+                                np.asarray(batch_outcomes), SERVE_NOW + index,
+                                STEPS)
+             for index, ((keys, sids, batch_probs, batch_offsets),
+                         batch_outcomes) in enumerate(batch_log)]
+    path_d = os.path.join(work.name, "D.jrnl")
+    onepass_kernel.LAUNCHES = 0
+    redriven = drive_trace(store_d, trace, mesh=mesh, journal=path_d,
+                           checkpoint_every=1)
+    launches_d = onepass_kernel.LAUNCHES
+    seconds["redrive"] = time.perf_counter() - start
+    start = time.perf_counter()
+    state_d = host_state(store_d)
+    seconds["host_state_d"] = time.perf_counter() - start
+    del store_d, trace
+    for name, x, y in zip(("reliability", "confidence", "stamps", "existence",
+                           "rows"), state_d, state_a):
+        if (x != y) if name == "rows" else not np.array_equal(x, y):
+            raise AssertionError(f"act A against its re-drive: {name} differ")
+    start = time.perf_counter()
+    journal_a = journal_digest(path_a)
+    if journal_digest(path_d) != journal_a:
+        raise AssertionError("act A against its re-drive: the journals differ")
+    seconds["journal_digests"] = time.perf_counter() - start
+    if launches_d != len(batch_log):
+        raise AssertionError(f"re-drive: {launches_d} launches for "
+                             f"{len(batch_log)} batches")
+    by_batch = [result.by_market() for result in redriven]
+    differ = sum(1 for value in served
+                 if by_batch[value.batch_index][value.market_id]
+                 != value.consensus)
+    if differ:
+        raise AssertionError(f"act A against its re-drive: {differ} requests' "
+                             "consensus differs")
+    act_a_report.update(journal_epochs=len(journal_a),
+                        journal_bytes=os.path.getsize(path_a),
+                        redrive_launches=launches_d, rows=len(state_a[0]))
+    emit("serve_act", act="A", phase_seconds=dict(seconds), **{
+        key: act_a_report[key] for key in (
+            "requests", "seconds", "requests_per_s", "batches",
+            "latency_total_s", "phases")})
+    del by_batch, redriven, state_d, served, answers, batch_log
+    os.remove(path_a)
+    os.remove(path_d)
+
+    # -- Act B: two tenant classes, premium closed loop under a best-effort
+    # burst, on act A's store.
+    classes = [QosClass("premium", 1.0, OVERLOAD_BUDGET),
+               QosClass("besteffort", 1.0, OVERLOAD_BUDGET,
+                        policy="shed_oldest")]
+    registry_b = obs.MetricsRegistry()
+    previous = obs.set_metrics_registry(registry_b)
+    peaks = {cls.name: 0 for cls in classes}
+    victims = {"known": 0, "unknown": 0}
+
+    async def act_b():
+        service = ConsensusService(
+            store_a, mesh=mesh, steps=STEPS, now=SERVE_NOW + 10_000,
+            max_batch=4096, max_delay_s=0.005, analytics=True, qos=classes,
+            band_stderr_bound=1 << 21)
+        # The shed ranking imported from act A's analytics, as a recovered
+        # service would; act B's own batches refresh it.
+        service.seed_band_stderr(band_stderr)
+        real_submit, real_shed = service.submit, service._shed_victim
+
+        def submit(*args, **kwargs):
+            try:
+                return real_submit(*args, **kwargs)
+            finally:
+                for name, state in service._qos_states.items():
+                    peaks[name] = max(peaks[name], state.pending)
+
+        def shed_victim(class_name=None, feed_health=True):
+            known_before = {
+                id(request): request.market_id in service._band_stderr
+                for window in service._windows for request in window.requests}
+            shed = real_shed(class_name=class_name, feed_health=feed_health)
+            if shed:
+                left = {id(request) for window in service._windows
+                        for request in window.requests}
+                for key, known in known_before.items():
+                    if key not in left:
+                        victims["known" if known else "unknown"] += 1
+            return shed
+
+        service.submit, service._shed_victim = submit, shed_victim
+        server = await ConsensusServer(service, host="127.0.0.1", port=0,
+                                       acceptors=4).start()
+        loop = asyncio.get_running_loop()
+        burst_done = threading.Event()
+
+        def premium(index):
+            out = []
+            with ConsensusClient(port=server.port, timeout=120.0) as conn:
+                for number in range(4096):
+                    request = premium_requests[index * 4096 + number]
+                    out += conn.submit_pipelined([request], qos_class="premium")
+                    if burst_done.is_set() and number >= 16:
+                        break
+            return out
+
+        def burst():
+            # Pipelined in chunks: a client that sends the whole burst
+            # before reading fills the socket buffers both ways (the
+            # server stops reading while its answers wait on a client
+            # that is still sending) and the two deadlock.
+            out = []
+            try:
+                with ConsensusClient(port=server.port, timeout=120.0) as conn:
+                    for first in range(0, len(burst_requests), SERVE_CHUNK):
+                        out += conn.submit_pipelined(
+                            burst_requests[first:first + SERVE_CHUNK],
+                            qos_class="besteffort")
+                return out
+            finally:
+                burst_done.set()
+
+        with concurrent.futures.ThreadPoolExecutor(OVERLOAD_CLIENTS + 1) as pool:
+            began = time.perf_counter()
+            premium_futures = [loop.run_in_executor(pool, premium, index)
+                               for index in range(OVERLOAD_CLIENTS)]
+            await asyncio.sleep(0.05)
+            burst_answers = await loop.run_in_executor(pool, burst)
+            premium_answers = await asyncio.gather(*premium_futures)
+            elapsed = time.perf_counter() - began
+        await server.close()
+        await service.close()
+        return service, premium_answers, burst_answers, elapsed
+
+    onepass_kernel.LAUNCHES = 0
+    try:
+        service_b, premium_answers, burst_answers, elapsed_b = asyncio.run(
+            act_b())
+    finally:
+        obs.set_metrics_registry(previous)
+    launches_b = onepass_kernel.LAUNCHES
+    premium_served = [v for answer in premium_answers for v in answer]
+    premium_refused = [v for v in premium_served
+                       if not isinstance(v, ServeResult)]
+    names = [type(v).__name__ for v in burst_answers]
+    snapshot = service_b.qos_snapshot()
+    besteffort_refused = (snapshot["besteffort"]["counts"]["shed"]
+                          + snapshot["besteffort"]["counts"]["rejected"])
+    if premium_refused or snapshot["premium"]["counts"]["rejected"] or \
+            snapshot["premium"]["counts"]["shed"]:
+        raise AssertionError(f"act B: premium refused {premium_refused[:3]}")
+    if besteffort_refused <= 0 or len(burst_answers) != OVERLOAD_BURST:
+        raise AssertionError(f"act B: best effort refused {besteffort_refused}")
+    if any(peaks[cls.name] > cls.max_pending for cls in classes):
+        raise AssertionError(f"act B: pending peaks {peaks} over the budgets")
+    if victims["known"] < 1:
+        raise AssertionError(f"act B: no shed victim had a band: {victims}")
+    if launches_b != service_b.settled_batches or launches_b < 1:
+        raise AssertionError(f"act B: {launches_b} launches for "
+                             f"{service_b.settled_batches} batches")
+    act_b_report = {
+        "seconds": elapsed_b, "premium_requests": len(premium_served),
+        "burst": len(burst_answers),
+        "burst_answers": {name: names.count(name) for name in sorted(set(names))},
+        "goodput_per_s": {
+            "premium": len(premium_served) / elapsed_b,
+            "besteffort": names.count("ServeResult") / elapsed_b},
+        "qos": snapshot, "pending_peaks": peaks, "shed_victims": victims,
+        "seeded_band_stderr_markets": len(band_stderr),
+        "batches": service_b.settled_batches, "onepass_settle_launches": launches_b,
+        "latency_total_s": quantiles(registry_b, "serve.latency_total_s"),
+    }
+    emit("serve_act", act="B", seconds=elapsed_b,
+         burst_answers=act_b_report["burst_answers"])
+    del store_a, service_a, service_b, premium_answers, burst_answers
+    del band_stderr
+
+    # -- Act C: the CLI's serve on the card, then journal-export and
+    # list-sources.
+    device_args = ["--device", CLI_DEVICE] if CLI_DEVICE else []
+    cli_journal = os.path.join(work.name, "cli.jrnl")
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLI_BOOT, *device_args, "serve", "--port", "0",
+         "--duration", str(CLI_DURATION), "--journal", cli_journal,
+         "--qos", f"premium:1.0:{CLI_REQUESTS}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        banner = json.loads(proc.stdout.readline())
+        seconds["cli_banner"] = time.perf_counter() - start
+        share = CLI_REQUESTS // CLI_CLIENTS
+
+        def cli_client(index):
+            with ConsensusClient(port=banner["port"], timeout=120.0) as conn:
+                out = []
+                for first in range(index * share, (index + 1) * share, 256):
+                    out += conn.submit_pipelined(cli_requests[first:first + 256])
+                return out
+
+        began = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(CLI_CLIENTS) as pool:
+            cli_answers = [v for answer in pool.map(cli_client,
+                                                    range(CLI_CLIENTS))
+                           for v in answer]
+        seconds["cli_requests"] = time.perf_counter() - began
+        stdout, stderr = proc.communicate(timeout=CLI_DURATION + 600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    seconds["cli_serve"] = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI serve exited {proc.returncode}: {stderr}")
+    summary = json.loads(stdout)
+    cli_launches = int(next(line.split()[1] for line in stderr.splitlines()
+                            if line.startswith("settle_cycles_launches")))
+    served_cli = summary["served"]
+    if not (served_cli["requests"] == served_cli["responses"] == CLI_REQUESTS
+            and served_cli["batches"] > 0 and served_cli["wireErrors"] == 0) \
+            or any(not isinstance(v, ServeResult) for v in cli_answers) or \
+            len(cli_answers) != CLI_REQUESTS:
+        raise AssertionError(f"CLI serve: {summary}")
+    if cli_launches != served_cli["batches"]:
+        raise AssertionError(f"CLI serve: {cli_launches} settle_cycles "
+                             f"launches for {served_cli['batches']} batches")
+    # journal-export and list-sources through the CLI's main() in this
+    # process (each subprocess would spend ~7 s importing torch).
+    def run_cli(*argv):
+        out, err = io.StringIO(), io.StringIO()
+        code = 0
+        previous_argv = sys.argv
+        sys.argv = ["bce-torch", *argv]
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                cli.main()
+        except SystemExit as exc:
+            code = exc.code if isinstance(exc.code, int) else 1
+        finally:
+            sys.argv = previous_argv
+        return code, out.getvalue(), err.getvalue()
+
+    cli_db = os.path.join(work.name, "cli.db")
+    start = time.perf_counter()
+    code, out, err = run_cli(*device_args, "--db", cli_db, "journal-export",
+                             cli_journal)
+    seconds["cli_journal_export"] = time.perf_counter() - start
+    if code != 0:
+        raise AssertionError(f"journal-export: {code} {err}")
+    export_doc = json.loads(out)
+    hot_market = cli_requests[0][0]
+    start = time.perf_counter()
+    code, out, err = run_cli("--db", cli_db, "list-sources", "--market-id",
+                             hot_market)
+    seconds["cli_list_sources"] = time.perf_counter() - start
+    listing = json.loads(out) if code == 0 else None
+    want = {sid for sid, _p in cli_requests[0][1]}
+    if listing is None or {r["sourceId"] for r in listing["sources"]} != want:
+        raise AssertionError(f"list-sources: {code} {err} {listing}")
+    work.cleanup()
+    act_c_report = {
+        "banner": banner, "summary": summary,
+        "settle_cycles_launches": cli_launches,
+        "journal_export": export_doc, "listed_sources": listing["count"],
+    }
+    emit("serve", markets=MARKETS, steps=STEPS, seed_launches=seed_launches,
+         act_a=act_a_report, act_b=act_b_report, act_c=act_c_report,
+         seconds=seconds, nvidia_smi=smi)
+    return ({"seed": sum(seed_launches), "cli": cli_launches},
+            {"A": launches_a, "A_redrive": launches_d, "B": launches_b})
 
 
 def main() -> int:
@@ -1731,9 +2376,10 @@ def main() -> int:
          intern_stats=plan.intern_stats,
          peak_device_bytes=torch.cuda.max_memory_allocated())
 
-    # 9. host_routes: a second store built from the same data on the Python
-    # route (native=False under BCE_NO_NATIVE=1: the dict interner, the
-    # numpy grouping, the sqlite3 module), through the same two settles,
+    # 9. host_routes: the first HOST_ROUTE_MARKETS markets of the same data
+    # through the default (C) route and the Python route (native=False
+    # under BCE_NO_NATIVE=1: the dict interner, the numpy grouping, the
+    # sqlite3 module), each on a fresh store through the same two settles,
     # sync and flush. The plans' rows, the consensus and the checkpoints'
     # ordered rows must be equal; then a full iterdump() comparison of the
     # two routes on a DUMP_MARKETS cut.
@@ -1748,52 +2394,67 @@ def main() -> int:
             else:
                 os.environ["BCE_NO_NATIVE"] = previous
 
-    def drive_python_route():
+    route_cut = int(offsets[HOST_ROUTE_MARKETS])
+    route_columns = (market_keys[:HOST_ROUTE_MARKETS],
+                     SourceCodes(codes[:route_cut], sources.table),
+                     probs[:route_cut], offsets[: HOST_ROUTE_MARKETS + 1])
+
+    def drive_route(route, native):
         timings = {}
         settle_kernel.LAUNCHES = 0
         start = time.perf_counter()
-        py_store = TensorReliabilityStore()
-        py_plan = pipeline.build_settlement_plan_columnar(
-            py_store, market_keys, sources, probs, offsets, native=False)
+        route_store = TensorReliabilityStore()
+        route_plan = pipeline.build_settlement_plan_columnar(
+            route_store, *route_columns, native=native)
         timings["plan"] = time.perf_counter() - start
         results = []
         for step, now in enumerate((NOW, NOW + STEPS), 1):
             start = time.perf_counter()
-            results.append(pipeline.settle(py_store, py_plan, outcomes,
-                                           steps=STEPS, now=now))
+            results.append(pipeline.settle(
+                route_store, route_plan, outcomes[:HOST_ROUTE_MARKETS],
+                steps=STEPS, now=now))
             results[-1].fence()
             timings[f"settle_{step}"] = time.perf_counter() - start
         start = time.perf_counter()
-        py_store.sync()
+        route_store.sync()
         timings["sync"] = time.perf_counter() - start
+        path = os.path.join(work.name, f"route-{route}.db")
         start = time.perf_counter()
-        written = py_store.flush_to_sqlite(py_db)
+        written = route_store.flush_to_sqlite(path)
         timings["flush"] = time.perf_counter() - start
-        return (timings, py_plan, [r.consensus for r in results], written,
-                type(py_store._pairs).__name__, settle_kernel.LAUNCHES)
+        sort_seconds = None
+        if hasattr(route_store._pairs, "sorted_rows"):
+            start = time.perf_counter()
+            route_store._pairs.sorted_rows(
+                np.arange(len(route_store), dtype=np.int32))
+            sort_seconds = time.perf_counter() - start
+        timings["flush_sort"] = sort_seconds
+        return (timings, route_plan, [r.consensus for r in results], written,
+                type(route_store._pairs).__name__, settle_kernel.LAUNCHES,
+                path)
 
-    py_db = os.path.join(work.name, "python.db")
-    (py_seconds, py_plan, py_consensus, py_flushed, py_interner,
-     py_launches) = python_route(drive_python_route)
-    if py_interner != "IdInterner" or py_launches != 2:
-        raise AssertionError(f"python route: {py_interner}, {py_launches} "
-                             "launches for 2 settles")
-    if not np.array_equal(py_plan.slot_rows, plan.slot_rows):
+    routes = {"native": drive_route("native", None),
+              "python": python_route(lambda: drive_route("python", False))}
+    interners = {name: route[4] for name, route in routes.items()}
+    route_launches = {name: route[5] for name, route in routes.items()}
+    if interners["python"] != "IdInterner" or \
+            set(route_launches.values()) != {2}:
+        raise AssertionError(f"host routes: {interners}, launches "
+                             f"{route_launches} for 2 settles each")
+    if not np.array_equal(routes["python"][1].slot_rows,
+                          routes["native"][1].slot_rows):
         raise AssertionError("the two routes' plans differ in slot_rows")
-    for got, want in zip(py_consensus, (consensus_1, consensus_2)):
+    for got, want in zip(routes["python"][2], routes["native"][2]):
         if not np.array_equal(got, want, equal_nan=True):
             raise AssertionError("the two routes' consensus differs")
-    del py_plan, py_consensus
-    digests = {"native": table_digest(main_db), "python": table_digest(py_db)}
-    if py_flushed != flushed or digests["native"] != digests["python"]:
-        raise AssertionError(f"the two routes' checkpoints differ: {flushed} "
-                             f"and {py_flushed} rows, {digests}")
-    # The C flush's key sort alone (the rest of its seconds is SQLite's).
-    sort_seconds = None
-    if hasattr(store._pairs, "sorted_rows"):
-        start = time.perf_counter()
-        store._pairs.sorted_rows(np.arange(len(store), dtype=np.int32))
-        sort_seconds = time.perf_counter() - start
+    digests = {name: table_digest(route[6]) for name, route in routes.items()}
+    route_rows = {name: route[3] for name, route in routes.items()}
+    route_seconds = {name: route[0] for name, route in routes.items()}
+    if len(set(route_rows.values())) != 1 or \
+            digests["native"] != digests["python"]:
+        raise AssertionError(f"the two routes' checkpoints differ: "
+                             f"{route_rows} rows, {digests}")
+    del routes
     cut = offsets[DUMP_MARKETS]
     dumps = {}
 
@@ -1815,14 +2476,13 @@ def main() -> int:
     dumps["python"] = python_route(lambda: dump_route("python", False))
     if dumps["native"] != dumps["python"]:
         raise AssertionError("the two routes' iterdump() differ on the cut")
-    emit("host_routes", markets=MARKETS,
-         seconds={"native": {"plan": seconds["plan"], "flush": seconds["flush"],
-                             "flush_sort": sort_seconds},
-                  "python": py_seconds},
-         interners={"native": type(store._pairs).__name__, "python": py_interner},
-         launches=py_launches, slot_rows_equal=True, sqlite_rows=flushed,
-         sqlite_sha256=digests["native"], dump_markets=DUMP_MARKETS,
-         dump_lines=len(dumps["native"]))
+    emit("host_routes", markets=HOST_ROUTE_MARKETS,
+         seconds={"main_path_native": {"plan": seconds["plan"],
+                                       "flush": seconds["flush"]},
+                  **route_seconds},
+         interners=interners, launches=route_launches, slot_rows_equal=True,
+         sqlite_rows=route_rows["native"], sqlite_sha256=digests["native"],
+         dump_markets=DUMP_MARKETS, dump_lines=len(dumps["native"]))
     del dumps
 
     # 10. delta_check: a drifting second batch bound with intern_mode="auto"
@@ -2605,6 +3265,10 @@ def main() -> int:
     del store
     settle_entry["stream_launches"], onepass_entry["stream_launches"] = (
         stream_phase(smi, market_keys, codes, probs, offsets, outcomes))
+
+    # 18. serve
+    settle_entry["serve_launches"], onepass_entry["serve_launches"] = (
+        serve_phase(smi, market_keys, codes, probs, offsets, outcomes))
 
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
                                   partials_entry]}), flush=True)

@@ -1,17 +1,20 @@
 """Rehearse chip_smoke.py's host phases on the CPU, at a small size.
 
-Usage: python scripts/rehearse_chip_smoke.py [MARKETS] [DUMP_MARKETS]
+Usage: python scripts/rehearse_chip_smoke.py [MARKETS] [DUMP_MARKETS] [DIVISOR]
 
 Runs chip_smoke's ``native``, ``main_path``, ``host_routes`` and
 ``delta_check`` phases (7 to 10), then its ``journal`` phase (16) on the
-main path's store and its ``stream`` phase (17) on the main path's data,
-on CPU stores, from the repository root. The script's ``main()`` is cut
-to its import block and those phases, ``"cuda"`` becomes ``"cpu"``,
-stores are built with ``device="cpu"``, each call of the settle and
-one-pass kernels' wrappers is counted where the card would launch it,
-and MARKETS (default 5,000), DUMP_MARKETS (default 1,000) and the journal
-phase's delta (100,000 markets, at most half of MARKETS) replace the
-full-size constants. The kernels take their plain torch versions, so no
+main path's store, its ``stream`` phase (17) and its ``serve`` phase (18)
+on the main path's data, on CPU stores, from the repository root. The
+script's ``main()`` is cut to its import block and those phases,
+``"cuda"`` becomes ``"cpu"``, stores are built with ``device="cpu"``, the
+``serve`` phase's CLI runs with ``--device cpu``, each call of the settle
+and one-pass kernels' wrappers is counted where the card would launch it
+(in the CLI's subprocess too), and MARKETS (default 5,000), DUMP_MARKETS
+(default 1,000), the host routes' cut (250,000 markets, at most MARKETS),
+the journal phase's delta (100,000 markets, at most half of MARKETS) and
+the ``serve`` phase's request counts divided by DIVISOR (default 16)
+replace the full-size constants. The kernels take their plain torch versions, so no
 figure printed here is a device figure: the rehearsal finds wrong paths,
 shapes and control flow before a chip call, and shows the host routes',
 the journal tier's and the stream's relative cost on the machine it runs
@@ -54,7 +57,22 @@ _sharded.onepass_settle = _counted_onepass
 """
 
 
-def rehearsal_source(markets: int, dump_markets: int) -> str:
+CHILD_SHIM = """
+from bayesian_consensus_engine_tpu_torch.ops import settle_kernel
+from bayesian_consensus_engine_tpu_torch import pipeline as _pipeline
+_plain_settle = _pipeline.settle_cycles
+
+
+def _counted_settle(*args, **kwargs):
+    settle_kernel.LAUNCHES += 1
+    return _plain_settle(*args, **kwargs)
+
+
+_pipeline.settle_cycles = _counted_settle
+"""
+
+
+def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
     """chip_smoke.py cut to its host phases, on the CPU."""
     source = (ROOT / "chip_smoke.py").read_text()
     head, body = source.split("def main() -> int:\n", 1)
@@ -66,6 +84,7 @@ def rehearsal_source(markets: int, dump_markets: int) -> str:
         "                  outcomes, main_db, work.name)\n"
         "    del store\n"
         "    stream_phase(smi, market_keys, codes, probs, offsets, outcomes)\n"
+        "    serve_phase(smi, market_keys, codes, probs, offsets, outcomes)\n"
     )
     head = re.sub(r"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000",
                   f"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = {markets}", head)
@@ -74,6 +93,25 @@ def rehearsal_source(markets: int, dump_markets: int) -> str:
     head = head.replace(
         "JOURNAL_MARKETS, JOURNAL_SMALL_MARKETS = 100_000",
         f"JOURNAL_MARKETS, JOURNAL_SMALL_MARKETS = {min(100_000, markets // 2)}")
+    head = head.replace("HOST_ROUTE_MARKETS = 250_000",
+                        f"HOST_ROUTE_MARKETS = {min(250_000, markets)}")
+    head = head.replace(
+        "SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_CHUNK = 16, 4096, 256",
+        f"SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_CHUNK = 16, "
+        f"{max(4096 // divisor, 16)}, 256")
+    head = head.replace(
+        "OVERLOAD_CLIENTS, OVERLOAD_BURST, OVERLOAD_BUDGET = 8, 16384, 64",
+        f"OVERLOAD_CLIENTS, OVERLOAD_BURST, OVERLOAD_BUDGET = 8, "
+        f"{max(16384 // divisor, 256)}, 64")
+    head = head.replace(
+        "CLI_REQUESTS, CLI_CLIENTS, CLI_DURATION = 8192, 4, 8.0",
+        f"CLI_REQUESTS, CLI_CLIENTS, CLI_DURATION = "
+        f"{max(8192 // divisor // 1024, 1) * 1024}, 4, 8.0")
+    head = head.replace('CLI_DEVICE = None', 'CLI_DEVICE = "cpu"')
+    head = head.replace(
+        "from bayesian_consensus_engine_tpu_torch.ops import settle_kernel\n"
+        "atexit",
+        CHILD_SHIM.strip() + "\natexit", 1)
     head = head.replace("import numpy as np\nimport torch\n",
                         "import numpy as np\nimport torch\n" + SHIM, 1)
     imports = imports.replace("if not torch.cuda.is_available():", "if False:")
@@ -86,10 +124,11 @@ def rehearsal_source(markets: int, dump_markets: int) -> str:
 def main() -> int:
     markets = int(sys.argv[1]) if len(sys.argv) > 1 else 5_000
     dump_markets = int(sys.argv[2]) if len(sys.argv) > 2 else 1_000
+    divisor = int(sys.argv[3]) if len(sys.argv) > 3 else 16
     sys.path.insert(0, str(ROOT))
     namespace = {"__name__": "chip_smoke_rehearsal",
                  "__file__": str(ROOT / "chip_smoke.py")}
-    exec(compile(rehearsal_source(markets, dump_markets),  # noqa: S102
+    exec(compile(rehearsal_source(markets, dump_markets, divisor),  # noqa: S102
                  "chip_smoke_rehearsal", "exec"), namespace)
     return namespace["main"]()
 

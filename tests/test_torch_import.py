@@ -7,11 +7,16 @@ resident session with analytics and graph inference, settling on a
 sources-sharded CPU mesh, writing, replaying and compacting a two-epoch
 journal beside a background SQLite flush, streaming batches through a
 resident session with a journal and a trace and re-driving the trace, and
-rendering, serving and folding the telemetry loads neither JAX nor any
-module of the JAX package (its ``_native`` extensions included), and its
-device policy is explicit (CUDA unless the CPU is asked for; no silent
-fallback)."""
+rendering, serving and folding the telemetry, and serving two requests
+through the request front door (the coalescing service with analytics on
+a (1, 1) CPU mesh and a journal, behind the socket server, to the
+client) loads neither JAX nor any module of the JAX package (its
+``_native`` extensions included); a static scan of every port source,
+``chip_smoke.py`` and its rehearsal script finds no import of either,
+even inside a function; and the port's device policy is explicit (CUDA
+unless the CPU is asked for; no silent fallback)."""
 
+import ast
 import os
 import pathlib
 import subprocess
@@ -53,6 +58,10 @@ from bayesian_consensus_engine_tpu_torch.obs import (
 from bayesian_consensus_engine_tpu_torch import obs, serve
 from bayesian_consensus_engine_tpu_torch.serve import driver
 from bayesian_consensus_engine_tpu_torch.utils import interning, profiling
+from bayesian_consensus_engine_tpu_torch import cli, net
+from bayesian_consensus_engine_tpu_torch.net import client, server, wire
+from bayesian_consensus_engine_tpu_torch.serve import admission, coalesce
+import asyncio
 import os
 import tempfile
 import torch
@@ -167,6 +176,33 @@ tracker = slo.SloTracker(1.0)
 tracker.record_latency(0.5)
 assert slo.goodput_from_counts(tracker.snapshot()["counts"]) == 1.0
 
+async def front_door(work):
+    service = serve.ConsensusService(
+        port.TensorReliabilityStore(device="cpu"), now=20200.0,
+        journal=os.path.join(work, "f.jrnl"), max_batch=2, max_delay_s=None,
+        mesh=mesh.make_mesh((1, 1), ["cpu"]), analytics=True,
+    )
+    srv = await net.ConsensusServer(service).start()
+
+    def call():
+        with net.ConsensusClient(port=srv.port) as conn:
+            return conn.submit_pipelined(
+                [("m1", [("a", 0.8)], True), ("m2", [("b", 0.4)], False)])
+
+    try:
+        got = await asyncio.get_running_loop().run_in_executor(None, call)
+    finally:
+        await srv.close()
+        await service.close()
+    return got
+
+
+with tempfile.TemporaryDirectory() as work:
+    served = asyncio.run(front_door(work))
+assert [r.market_id for r in served] == ["m1", "m2"], served
+assert served[0].band_lo is not None
+assert cli.build_parser().parse_args(["--device", "cpu", "serve"]).device == "cpu"
+
 PACKAGE = "bayesian_consensus_engine_tpu"
 loaded = sorted(
     name for name in sys.modules
@@ -180,6 +216,76 @@ for name in ("fastpack", "internmap"):
     assert "bayesian_consensus_engine_tpu_torch._native." + name in sys.modules
 print("PORT_STANDS_ALONE")
 """
+
+
+JAX_PACKAGE = "bayesian_consensus_engine_tpu"
+
+
+def forbidden_imports(source: str, filename: str = "<source>"):
+    """Every import in *source* — at module level or inside a function,
+    ``import``/``from`` statements and ``importlib.import_module`` /
+    ``__import__`` calls with a literal name — of ``jax`` or of the JAX
+    package (the exact-name test: a bare ``startswith`` would also match
+    the port)."""
+
+    def bad(name):
+        return (name == "jax" or name.startswith("jax.")
+                or name == JAX_PACKAGE or name.startswith(JAX_PACKAGE + "."))
+
+    found = []
+    for node in ast.walk(ast.parse(source, filename)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            func = node.func
+            called = (func.attr if isinstance(func, ast.Attribute)
+                      else getattr(func, "id", None))
+            if called in ("import_module", "__import__"):
+                names = [node.args[0].value]
+        found += [(filename, node.lineno, name) for name in names if bad(name)]
+    return found
+
+
+def port_sources():
+    return sorted((_ROOT / "bayesian_consensus_engine_tpu_torch").rglob(
+        "*.py")) + [_ROOT / "chip_smoke.py",
+                    _ROOT / "scripts" / "rehearse_chip_smoke.py"]
+
+
+def test_no_port_source_imports_jax_even_lazily():
+    """A static scan sees the imports a subprocess never loads: those
+    inside functions that did not run."""
+    sources = port_sources()
+    assert len(sources) > 60
+    found = []
+    for path in sources:
+        found += forbidden_imports(path.read_text(encoding="utf-8"),
+                                   str(path.relative_to(_ROOT)))
+    assert not found, found
+
+
+@pytest.mark.parametrize("source, flagged", [
+    ("import jax", ["jax"]),
+    ("import jax.numpy as jnp", ["jax.numpy"]),
+    ("def f():\n    from jax import lax", ["jax"]),
+    ("def f():\n    from bayesian_consensus_engine_tpu.state import journal",
+     ["bayesian_consensus_engine_tpu.state"]),
+    ("from bayesian_consensus_engine_tpu import obs",
+     ["bayesian_consensus_engine_tpu"]),
+    ("import importlib\nimportlib.import_module('bayesian_consensus_engine_tpu.cli')",
+     ["bayesian_consensus_engine_tpu.cli"]),
+    ("__import__('jax')", ["jax"]),
+    ("from bayesian_consensus_engine_tpu_torch import obs", []),
+    ("import bayesian_consensus_engine_tpu_torch.serve", []),
+    ("from . import wire\nimport jaxlike", []),
+])
+def test_import_scan_flags_exactly_the_jax_package(source, flagged):
+    assert [name for _f, _l, name in forbidden_imports(source)] == flagged
 
 
 def test_port_imports_nothing_of_jax():

@@ -23,6 +23,7 @@ import os
 import random
 import stat
 import struct
+import threading
 import time
 import zlib
 from dataclasses import astuple
@@ -1081,5 +1082,42 @@ class TestAsyncEpochsUnderTheStream:
                 stream.close()
                 break
         replayed, tag = replay(tmp_path / "brk.jrnl")
+        assert tag == 1
+        assert store_fingerprint(replayed) == store_fingerprint(store)
+
+    def test_stream_break_journals_pairs_the_prefetch_interned(
+            self, tmp_path):
+        # The prefetch worker takes batch 2 only after batch 1's epoch was
+        # snapshotted, and the break comes only after it built batch 2 (it
+        # asks for batch 3 once batch 2's plan is queued): the live store
+        # holds pairs interned after the last epoch. The exit's tail epoch
+        # must journal them, so replay equals the store.
+        batches = stream_batches(num_batches=4, seed=93)
+        checkpointed = threading.Event()
+        built_ahead = threading.Event()
+
+        def source():
+            for index, batch in enumerate(batches):
+                if index == 2:
+                    checkpointed.wait(timeout=30)
+                if index == 3:
+                    built_ahead.set()
+                yield batch
+
+        store = cpu_store()
+        stream = tpipe.settle_stream(
+            store, source(), steps=2, now=21_300.0,
+            journal=tmp_path / "pre.jrnl", checkpoint_every=2)
+        for i, _result in enumerate(stream):
+            if i == 1:
+                checkpointed.set()
+                assert built_ahead.wait(timeout=30)
+                stream.close()
+                break
+        settled = cpu_store()
+        list(tpipe.settle_stream(settled, batches[:2], steps=2,
+                                 now=21_300.0))
+        assert len(store) > len(settled)  # batch 2's pairs are interned
+        replayed, tag = replay(tmp_path / "pre.jrnl")
         assert tag == 1
         assert store_fingerprint(replayed) == store_fingerprint(store)
