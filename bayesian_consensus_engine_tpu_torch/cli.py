@@ -8,18 +8,18 @@
 global flags, subcommands, argument names and defaults, and the same
 stdout and exit codes on the same arguments. Subcommands:
 ``consensus``, ``report-outcome``, ``list-sources``, ``journal-export``,
-``serve``, ``stats`` and ``trace``; with no subcommand, legacy consensus
-on ``--input``/stdin without a DB. Output is pretty-printed JSON on
-stdout; validation errors go to stderr with exit code 1, and DB
+``serve``, ``replay``, ``stats`` and ``trace``; with no subcommand,
+legacy consensus on ``--input``/stdin without a DB. Output is
+pretty-printed JSON on stdout; validation errors go to stderr with exit code 1, and DB
 subcommand failures print ``Error: ...`` and exit 1.
 
 The port adds one global flag, ``--device`` (default ``cuda``), its
 device seam: it reaches the store ``serve`` builds
 (``TensorReliabilityStore(device=...)``), ``journal-export``'s
-``replay_journal(..., device=...)`` and the array backend's
-``compute_consensus(..., device=...)``. Without CUDA a command that
-needs a device fails with the store's message unless ``--device cpu``
-is given; nothing falls back. ``--backend`` takes ``python`` (the
+``replay_journal(..., device=...)``, the array backend's
+``compute_consensus(..., device=...)`` and ``replay``'s sweep. Without
+CUDA a command that needs a device fails with the store's message
+unless ``--device cpu`` is given; nothing falls back. ``--backend`` takes ``python`` (the
 default, the scalar path), ``torch`` (the batched array path), and the
 JAX package's ``jax`` and ``tpu``, which select the same array path.
 
@@ -33,9 +33,14 @@ interchange file; ``stats`` renders an obs run ledger (and, with
 ``--live URL``, a running telemetry exporter's snapshot); ``trace``
 converts a span log to Chrome/Perfetto trace-event JSON.
 
-``replay``, ``lint`` and ``bank`` stay in the parser, so the surface
-matches, but are not ported yet: each prints an error naming the
-ROADMAP item that brings it and exits 1.
+``replay`` re-drives a recorded journal's trace sidecar under K altered
+configs through the replay lab (``replay/``): lane 0 reproduces the
+recorded run byte for byte, and every lane advances through one
+``settle_cycles_lanes`` launch a batch on ``--device``.
+
+``lint`` and ``bank`` stay in the parser, so the surface matches, but are
+not ported yet: each prints an error naming the ROADMAP item that brings
+it and exits 1.
 """
 
 from __future__ import annotations
@@ -228,6 +233,153 @@ def _run_list_sources(args: argparse.Namespace) -> None:
     except Exception as exc:
         print(f"Error: {exc}", file=sys.stderr)
         raise SystemExit(1) from exc
+
+
+def _parse_replay_config(spec: str):
+    """``field=value[,field=value...]`` → :class:`~.replay.ReplayConfig`.
+
+    Fields are the sweep's knobs (``half_life_days``, ``decay_floor``,
+    ``base_learning_rate``, ``max_update_step``, ``band_z``,
+    ``graph_damping``, ``graph_steps``, ``graph_tol``); unnamed fields keep
+    the recorded constants.
+    """
+    from bayesian_consensus_engine_tpu_torch.replay import ReplayConfig
+
+    kwargs: dict[str, Any] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, eq, value = part.partition("=")
+        name = name.strip()
+        if not eq or name not in ReplayConfig._fields:
+            raise ValueError(
+                f"--configs takes field=value pairs over "
+                f"{', '.join(ReplayConfig._fields)}; got {part!r}"
+            )
+        kwargs[name] = int(value) if name == "graph_steps" else float(value)
+    return ReplayConfig(**kwargs)
+
+
+def _run_replay(args: argparse.Namespace) -> None:
+    """Counterfactual replay: re-drive a journal's trace under K configs.
+
+    Loads the trace sidecar of one recorded journal (or the merged trace
+    of several fleet band journals) and runs one
+    :func:`~.replay.replay_sweep` on ``--device``: every ``--configs``
+    spec is a lane beside the recorded lane 0. Prints a per-lane table
+    (markets settled, Brier mean, band width, graph Brier) with each
+    lane's Brier against the recorded lane's, or with ``--json`` the
+    machine document. The global ``--db`` exports lane 0's rebuilt state
+    as the SQLite interchange file (refused if the target exists;
+    ``--dry-run`` skips the write), and the printed lane-0 digest equals
+    the live run's store digest. ``--strict`` refuses a torn trace tail.
+    Lanes with ``graph_steps > 0`` need a market graph: Python API only.
+    """
+    try:
+        configs = [_parse_replay_config(s) for s in (args.configs or [])]
+    except ValueError as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        raise SystemExit(1) from exc
+    if any(config.graph_steps > 0 for config in configs):
+        print(
+            "Error: graph_steps > 0 needs a MarketGraph — use the "
+            "Python API (replay.replay_sweep(..., graph=...))",
+            file=sys.stderr,
+        )
+        raise SystemExit(1)
+    export_db = args.db if not args.dry_run else None
+    if (
+        export_db
+        and os.path.exists(export_db)
+        and os.path.getsize(export_db) > 0
+    ):
+        print(
+            f"Error: export target {export_db} already exists — "
+            "replay writes a fresh interchange file",
+            file=sys.stderr,
+        )
+        raise SystemExit(1)
+    try:
+        from bayesian_consensus_engine_tpu_torch.replay import (
+            RECORDED_CONFIG,
+            load_cluster_trace,
+            load_trace,
+            replay_sweep,
+        )
+
+        if len(args.journals) == 1:
+            trace = load_trace(args.journals[0], strict=args.strict)
+        else:
+            trace = load_cluster_trace(args.journals, strict=args.strict)
+        result = replay_sweep(trace, configs, db_path=export_db,
+                              device=args.device)
+    except Exception as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        raise SystemExit(1) from exc
+
+    recorded = result.lanes[0]
+
+    def delta_fields(config) -> dict[str, Any]:
+        return {
+            field: getattr(config, field)
+            for field in RECORDED_CONFIG._fields
+            if getattr(config, field) != getattr(RECORDED_CONFIG, field)
+        }
+
+    if args.json:
+        _emit(
+            {
+                "journals": list(args.journals),
+                "batches": result.batches,
+                "digest": result.digest,
+                "resultDigest": result.result_digest,
+                "exportedTo": export_db,
+                "dryRun": args.dry_run,
+                "lanes": [
+                    {
+                        "config": dict(lane.config._asdict()),
+                        "delta": delta_fields(lane.config),
+                        "marketsSettled": lane.markets_settled,
+                        "brierMean": lane.brier_mean,
+                        "bandWidthMean": lane.band_width_mean,
+                        "graphBrierMean": lane.graph_brier_mean,
+                    }
+                    for lane in result.lanes
+                ],
+            }
+        )
+        return
+
+    def num(x: float) -> str:
+        return f"{x:.4g}" if x == x else "-"  # NaN when nothing settled
+
+    print(
+        f"{', '.join(args.journals)}: {result.batches} batches, "
+        f"{len(result.lanes)} lanes, lane-0 digest {result.digest}"
+    )
+    print(
+        f"{'lane':>4} {'settled':>8} {'brier':>9} {'band_w':>9} "
+        f"{'g_brier':>9}  config"
+    )
+    for index, lane in enumerate(result.lanes):
+        delta = delta_fields(lane.config)
+        label = (
+            "recorded"
+            if not delta
+            else ",".join(f"{k}={v:g}" for k, v in sorted(delta.items()))
+        )
+        trailer = (
+            f"  brier {num(recorded.brier_mean)}->{num(lane.brier_mean)}"
+            if index else ""
+        )
+        print(
+            f"{index:>4} {lane.markets_settled:>8} "
+            f"{num(lane.brier_mean):>9} {num(lane.band_width_mean):>9} "
+            f"{num(lane.graph_brier_mean):>9}  {label}{trailer}"
+        )
+    if export_db:
+        print(f"exported lane-0 state to {export_db}")
 
 
 def _not_ported(command: str, item: int):
@@ -690,8 +842,7 @@ def build_parser() -> argparse.ArgumentParser:
     replay = sub.add_parser(
         "replay",
         help=(
-            "(not ported yet) counterfactual replay: re-drive a recorded "
-            "journal's trace "
+            "counterfactual replay: re-drive a recorded journal's trace "
             "sidecar under K altered configs through one vmapped "
             "settlement program (lane 0 = the recorded run, "
             "byte-exact)"
@@ -726,7 +877,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--json", action="store_true",
         help="machine-readable sweep document instead of the table",
     )
-    replay.set_defaults(handler=_not_ported("replay", 8))
+    replay.set_defaults(handler=_run_replay)
 
     stats = sub.add_parser(
         "stats",

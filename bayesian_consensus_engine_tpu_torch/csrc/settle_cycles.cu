@@ -69,6 +69,15 @@
 // K-sum runs in slot order. The step loop's counter is 32-bit (a 64-bit
 // instantiation takes steps beyond 2^31 - 1).
 //
+// Replay lanes. settle_cycles_lanes advances C copies of the flat state
+// (stacked (C, R), lane-major) through the same plan in one launch: the
+// grid's y index is the lane, and each lane runs exactly the tiles above
+// on its own state row with its own rates (LaneRates, settle_math.cuh),
+// read once from its row of a (C, 5) float32 params tensor. It writes each
+// lane's consensus, (C, M), and no rel_touched. Its plain version is
+// ops/settle_kernel.py::settle_cycles_lanes_reference. The main path's
+// instantiations take RecordedRates, the constants, as before.
+//
 // Bound. Device-memory bytes: per plan slot the mask is read; per real
 // slot its row index, probability and its row's exists are read, the row's
 // rel and conf only if it exists (and its stamp when steps == 1), and rel,
@@ -143,10 +152,11 @@ struct FlatState {
 // defaults), settle `steps` cycles, scatter, and return the last step's
 // read weight; `rel_out` receives the settled reliability. With steps == 0
 // the state stays and the stored reliability is returned through rel_out.
-template <typename T, typename Steps>
+template <typename T, typename Steps, typename Rates>
 __device__ __forceinline__ T settle_one(const FlatState<T>& s, int32_t row,
                                         T p, bool outcome, Steps steps,
-                                        const StepTimes<T>& times, T& rel_out) {
+                                        const StepTimes<T>& times,
+                                        const Rates& rates, T& rel_out) {
   if (steps == 0) {
     rel_out = row >= 0 ? s.rel[row] : T(kDefaultReliability);
     return T(0);
@@ -162,7 +172,8 @@ __device__ __forceinline__ T settle_one(const FlatState<T>& s, int32_t row,
     c = s.conf[row];
     if (steps == 1) d = s.days[row];  // only step 0's read needs the stamp
   }
-  const T weight = settle_slot(r, c, d, p, outcome, steps, times);
+  const T weight = settle_slot(r, c, d, p, outcome, steps, times,
+                               static_cast<T*>(nullptr), rates);
   if (row >= 0) {
     s.rel[row] = r;
     s.conf[row] = c;
@@ -182,12 +193,14 @@ __device__ __forceinline__ T consensus_of(T total_weight, T weighted_prob,
 }
 
 // The wide route: market m's K slots walked in order by one thread, its
-// last-step sums added into total_weight and weighted_prob.
-template <typename T, typename Steps>
+// last-step sums added into total_weight and weighted_prob. rel_touched is
+// written when kTouched (not by replay lanes).
+template <typename T, typename Steps, typename Rates, bool kTouched>
 __device__ __forceinline__ void walk_market(const Plan<T>& plan,
                                             const FlatState<T>& s, int64_t m,
                                             Steps steps,
                                             const StepTimes<T>& times,
+                                            const Rates& rates,
                                             T* __restrict__ rel_touched,
                                             T& total_weight, T& weighted_prob) {
   int64_t t = plan.touched_offsets[m];
@@ -198,22 +211,22 @@ __device__ __forceinline__ void walk_market(const Plan<T>& plan,
     const T p = plan.probs[idx];
     T r;
     const T weight = settle_one(s, plan.slot_rows[idx], p, outcome_m, steps,
-                                times, r);
+                                times, rates, r);
     total_weight = add_rn(total_weight, weight);
     weighted_prob = add_rn(weighted_prob, mul_rn(p, weight));
-    rel_touched[t++] = r;
+    if constexpr (kTouched) rel_touched[t++] = r;
   }
 }
 
 // The staged route of a tile whose tile_slots masked slots start at
 // rel_touched position t0, in three passes; the sums of market m (this
 // thread's) come back in total_weight and weighted_prob.
-template <typename T, typename Steps>
+template <typename T, typename Steps, typename Rates, bool kTouched>
 __device__ __forceinline__ void settle_staged(
     const Plan<T>& plan, const FlatState<T>& s, const Stage<T>& stage,
     int64_t t0, int64_t tile_slots, int64_t m, bool owns_market,
-    Steps steps, const StepTimes<T>& times, T* __restrict__ rel_touched,
-    T& total_weight, T& weighted_prob) {
+    Steps steps, const StepTimes<T>& times, const Rates& rates,
+    T* __restrict__ rel_touched, T& total_weight, T& weighted_prob) {
   const int64_t num_markets = plan.num_markets;
   // (a) stage the market's masked slots, market-major, slot-ascending.
   int first = 0;
@@ -239,8 +252,8 @@ __device__ __forceinline__ void settle_staged(
     const T p = stage.wp[j];
     T r;
     const T weight = settle_one(s, stage.row[j], p, stage.outcome[j] != 0,
-                                steps, times, r);
-    rel_touched[t0 + j] = r;
+                                steps, times, rates, r);
+    if constexpr (kTouched) rel_touched[t0 + j] = r;
     stage.w[j] = weight;
     stage.wp[j] = mul_rn(p, weight);
   }
@@ -264,16 +277,18 @@ __device__ __forceinline__ void settle_staged(
 // for only 1, ptxas gives the main path's instantiation 40 registers.
 template <typename T, typename Steps>
 constexpr int kMinBlocks = sizeof(T) == 8 ? 4 : (sizeof(Steps) == 4 ? 8 : 6);
+// The lane kernel keeps five more rates and the lane's offsets live: it
+// asks for half as many blocks (float32 64 registers, float64 128).
+template <typename T>
+constexpr int kLaneMinBlocks = sizeof(T) == 8 ? 2 : 4;
 
-// One block a tile of kThreads consecutive markets.
-template <typename T, typename Steps>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T, Steps>)
-settle_cycles_kernel(
-    Plan<T> plan, FlatState<T> s,
-    T* __restrict__ consensus,                  // (M,)
-    T* __restrict__ rel_touched,                // (num_touched,)
-    int32_t* __restrict__ routes,               // (3,) or null
-    T now0, Steps steps, int stage_slots) {
+// One tile of kThreads consecutive markets (blockIdx.x), with `rates`;
+// rel_touched is written when kTouched.
+template <typename T, typename Steps, typename Rates, bool kTouched>
+__device__ __forceinline__ void settle_tile(
+    const Plan<T>& plan, const FlatState<T>& s, T* __restrict__ consensus,
+    T* __restrict__ rel_touched, int32_t* __restrict__ routes, T now0,
+    Steps steps, int stage_slots, const Rates& rates) {
   extern __shared__ __align__(16) unsigned char stage_bytes[];
   const Stage<T> stage(stage_bytes, stage_slots);
   const StepTimes<T> times = step_times(now0, steps > 0 ? steps : Steps(1));
@@ -297,14 +312,51 @@ settle_cycles_kernel(
     // The wide route, the same for the whole block: a tile the stage
     // cannot hold.
     if (owns_market) {
-      walk_market(plan, s, m, steps, times, rel_touched, total_weight,
-                  weighted_prob);
+      walk_market<T, Steps, Rates, kTouched>(plan, s, m, steps, times, rates,
+                                             rel_touched, total_weight,
+                                             weighted_prob);
     }
   } else {
-    settle_staged(plan, s, stage, t0, tile_slots, m, owns_market, steps,
-                  times, rel_touched, total_weight, weighted_prob);
+    settle_staged<T, Steps, Rates, kTouched>(
+        plan, s, stage, t0, tile_slots, m, owns_market, steps, times, rates,
+        rel_touched, total_weight, weighted_prob);
   }
   if (owns_market) consensus[m] = consensus_of(total_weight, weighted_prob, steps);
+}
+
+// One block a tile of kThreads consecutive markets.
+template <typename T, typename Steps>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, Steps>)
+settle_cycles_kernel(
+    Plan<T> plan, FlatState<T> s,
+    T* __restrict__ consensus,                  // (M,)
+    T* __restrict__ rel_touched,                // (num_touched,)
+    int32_t* __restrict__ routes,               // (3,) or null
+    T now0, Steps steps, int stage_slots) {
+  settle_tile<T, Steps, RecordedRates<T>, true>(
+      plan, s, consensus, rel_touched, routes, now0, steps, stage_slots,
+      RecordedRates<T>());
+}
+
+// One block a (tile, lane): blockIdx.y is the lane, whose state row starts
+// lane * lane_stride into each flat field and whose rates are its row of
+// params.
+template <typename T, typename Steps>
+__global__ void __launch_bounds__(kThreads, kLaneMinBlocks<T>)
+settle_cycles_lanes_kernel(
+    Plan<T> plan, FlatState<T> s, int64_t lane_stride,
+    const float* __restrict__ params,           // (C, 5)
+    T* __restrict__ consensus,                  // (C, M)
+    int32_t* __restrict__ routes,               // (3,) or null
+    T now0, Steps steps, int stage_slots) {
+  const int64_t lane = blockIdx.y;
+  const int64_t offset = lane * lane_stride;
+  const FlatState<T> lane_state{s.rel + offset, s.conf + offset,
+                                s.days + offset, s.exists + offset};
+  const LaneRates<T> rates(params + 5 * lane);
+  settle_tile<T, Steps, LaneRates<T>, false>(
+      plan, lane_state, consensus + lane * plan.num_markets, nullptr, routes,
+      now0, steps, stage_slots, rates);
 }
 
 template <typename T, typename Steps>
@@ -319,6 +371,38 @@ int launch_steps(const Plan<T>& plan, const FlatState<T>& s, T* consensus,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename Steps>
+int launch_lanes_steps(const Plan<T>& plan, const FlatState<T>& s,
+                       int64_t lane_stride, const float* params,
+                       int64_t num_lanes, T* consensus, int32_t* routes,
+                       T now0, Steps steps, int stage_slots,
+                       cudaStream_t stream) {
+  const size_t shared = static_cast<size_t>(stage_slots) * stage_bytes_per_slot<T>();
+  const int64_t tiles = (plan.num_markets + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned int>(tiles),
+                  static_cast<unsigned int>(num_lanes));
+  settle_cycles_lanes_kernel<T, Steps><<<grid, kThreads, shared, stream>>>(
+      plan, s, lane_stride, params, consensus, routes, now0, steps,
+      stage_slots);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+Plan<T> plan_of(const void* slot_rows, const void* probs, const void* mask,
+                const void* outcome, const void* touched_offsets,
+                int64_t num_slots, int64_t num_markets) {
+  return Plan<T>{
+      static_cast<const int32_t*>(slot_rows), static_cast<const T*>(probs),
+      static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(outcome),
+      static_cast<const int64_t*>(touched_offsets), num_slots, num_markets};
+}
+
+template <typename T>
+FlatState<T> state_of(void* rel, void* conf, void* days, void* exists) {
+  return FlatState<T>{static_cast<T*>(rel), static_cast<T*>(conf),
+                      static_cast<T*>(days), static_cast<uint8_t*>(exists)};
+}
+
 template <typename T>
 int launch(const void* slot_rows, const void* probs, const void* mask,
            const void* outcome, const void* touched_offsets, void* rel,
@@ -328,12 +412,9 @@ int launch(const void* slot_rows, const void* probs, const void* mask,
            void* routes, void* stream) {
   if (num_markets == 0) return static_cast<int>(cudaGetLastError());
   const int stage_slots = stage_slots_for<T>(num_markets, num_touched);
-  const Plan<T> plan{
-      static_cast<const int32_t*>(slot_rows), static_cast<const T*>(probs),
-      static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(outcome),
-      static_cast<const int64_t*>(touched_offsets), num_slots, num_markets};
-  const FlatState<T> s{static_cast<T*>(rel), static_cast<T*>(conf),
-                       static_cast<T*>(days), static_cast<uint8_t*>(exists)};
+  const Plan<T> plan = plan_of<T>(slot_rows, probs, mask, outcome,
+                                  touched_offsets, num_slots, num_markets);
+  const FlatState<T> s = state_of<T>(rel, conf, days, exists);
   const auto cuda_stream = static_cast<cudaStream_t>(stream);
   const auto route_counts = static_cast<int32_t*>(routes);
   if (steps <= INT32_MAX) {
@@ -344,6 +425,36 @@ int launch(const void* slot_rows, const void* probs, const void* mask,
   }
   return launch_steps<T, int64_t>(
       plan, s, static_cast<T*>(consensus), static_cast<T*>(rel_touched),
+      route_counts, static_cast<T>(now0), steps, stage_slots, cuda_stream);
+}
+
+template <typename T>
+int launch_lanes(const void* slot_rows, const void* probs, const void* mask,
+                 const void* outcome, const void* touched_offsets, void* rel,
+                 void* conf, void* days, void* exists, const void* params,
+                 void* consensus, double now0, int64_t num_slots,
+                 int64_t num_markets, int64_t num_touched, int64_t num_lanes,
+                 int64_t lane_stride, int64_t steps, void* routes,
+                 void* stream) {
+  if (num_markets == 0 || num_lanes == 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (num_lanes > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int stage_slots = stage_slots_for<T>(num_markets, num_touched);
+  const Plan<T> plan = plan_of<T>(slot_rows, probs, mask, outcome,
+                                  touched_offsets, num_slots, num_markets);
+  const FlatState<T> s = state_of<T>(rel, conf, days, exists);
+  const auto lane_params = static_cast<const float*>(params);
+  const auto cuda_stream = static_cast<cudaStream_t>(stream);
+  const auto route_counts = static_cast<int32_t*>(routes);
+  if (steps <= INT32_MAX) {
+    return launch_lanes_steps<T, int32_t>(
+        plan, s, lane_stride, lane_params, num_lanes,
+        static_cast<T*>(consensus), route_counts, static_cast<T>(now0),
+        static_cast<int32_t>(steps), stage_slots, cuda_stream);
+  }
+  return launch_lanes_steps<T, int64_t>(
+      plan, s, lane_stride, lane_params, num_lanes, static_cast<T*>(consensus),
       route_counts, static_cast<T>(now0), steps, stage_slots, cuda_stream);
 }
 
@@ -371,4 +482,31 @@ extern "C" int settle_cycles_f64(
                         conf, days, exists, consensus, rel_touched, now0,
                         num_slots, num_markets, num_touched, steps, routes,
                         stream);
+}
+
+extern "C" int settle_cycles_lanes_f32(
+    const void* slot_rows, const void* probs, const void* mask,
+    const void* outcome, const void* touched_offsets, void* rel, void* conf,
+    void* days, void* exists, const void* params, void* consensus,
+    double now0, int64_t num_slots, int64_t num_markets, int64_t num_touched,
+    int64_t num_lanes, int64_t lane_stride, int64_t steps, void* routes,
+    void* stream) {
+  return launch_lanes<float>(slot_rows, probs, mask, outcome, touched_offsets,
+                             rel, conf, days, exists, params, consensus, now0,
+                             num_slots, num_markets, num_touched, num_lanes,
+                             lane_stride, steps, routes, stream);
+}
+
+extern "C" int settle_cycles_lanes_f64(
+    const void* slot_rows, const void* probs, const void* mask,
+    const void* outcome, const void* touched_offsets, void* rel, void* conf,
+    void* days, void* exists, const void* params, void* consensus,
+    double now0, int64_t num_slots, int64_t num_markets, int64_t num_touched,
+    int64_t num_lanes, int64_t lane_stride, int64_t steps, void* routes,
+    void* stream) {
+  return launch_lanes<double>(slot_rows, probs, mask, outcome,
+                              touched_offsets, rel, conf, days, exists,
+                              params, consensus, now0, num_slots, num_markets,
+                              num_touched, num_lanes, lane_stride, steps,
+                              routes, stream);
 }

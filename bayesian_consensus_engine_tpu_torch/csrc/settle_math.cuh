@@ -8,6 +8,13 @@
 // explicit FMA where the plain version has one (ops/fma.py), so the stored
 // reliability, confidence and stamp are bit-equal to the plain version's. exp2 comes from CUDA's
 // math library; the kernels are built without --use_fast_math.
+//
+// The cycle's rates come from a policy type. RecordedRates holds the module
+// constants at compile time and divides by the half-life as a reciprocal
+// multiplication, as the main path's plain version does; every kernel uses
+// it unless it says otherwise. LaneRates holds one replay lane's rates,
+// read once from its float32 row of a params tensor and widened to T, and
+// divides by the half-life (ops/cycle_math.py::CycleParams, ops/decay.py).
 
 #pragma once
 
@@ -33,6 +40,8 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 __device__ __forceinline__ float exp2_(float x) { return exp2f(x); }
 __device__ __forceinline__ double exp2_(double x) { return exp2(x); }
 
@@ -43,26 +52,61 @@ __device__ __forceinline__ T clip(T x, T lo, T hi) {
   return x > hi ? hi : x;
 }
 
+// The recorded rates, constants of the program.
+template <typename T>
+struct RecordedRates {
+  // -t / h as a multiplication by the reciprocal, as XLA and the plain
+  // version (ops/decay.py) compute it for the constant half-life.
+  __device__ __forceinline__ T decay_exponent(T elapsed) const {
+    return mul_rn(-elapsed, T(1.0 / kHalfLifeDays));
+  }
+  __device__ __forceinline__ T floor() const { return T(kDecayFloor); }
+  __device__ __forceinline__ T base_learning_rate() const { return T(kBaseLearningRate); }
+  __device__ __forceinline__ T max_update_step() const { return T(kMaxUpdateStep); }
+  __device__ __forceinline__ T growth() const { return T(kConfidenceGrowth); }
+};
+
+// One replay lane's rates: its row of a (C, 5) float32 params tensor
+// (half-life, floor, base learning rate, maximum step, confidence growth),
+// widened to T once.
+template <typename T>
+struct LaneRates {
+  T half_life, floor_, base_lr, max_step, growth_;
+
+  __device__ __forceinline__ explicit LaneRates(const float* row)
+      : half_life(T(row[0])), floor_(T(row[1])), base_lr(T(row[2])),
+        max_step(T(row[3])), growth_(T(row[4])) {}
+
+  // A true division by the lane's half-life, as the JAX package's vmapped
+  // replay step computes it and the plain version (ops/decay.py) does.
+  __device__ __forceinline__ T decay_exponent(T elapsed) const {
+    return div_rn(-elapsed, half_life);
+  }
+  __device__ __forceinline__ T floor() const { return floor_; }
+  __device__ __forceinline__ T base_learning_rate() const { return base_lr; }
+  __device__ __forceinline__ T max_update_step() const { return max_step; }
+  __device__ __forceinline__ T growth() const { return growth_; }
+};
+
 // ops/decay.py::decayed_reliability_at on a slot that is eligible
 // (exists and stamped): decay toward the floor, clamped, where time passed.
-template <typename T>
-__device__ __forceinline__ T decayed(T rel, T elapsed) {
-  const T floor_ = T(kDecayFloor);
-  // -t / h as a multiplication by the reciprocal, as XLA and the plain
-  // version (ops/decay.py) compute it.
-  const T factor = exp2_(mul_rn(-elapsed, T(1.0 / kHalfLifeDays)));
+template <typename T, typename Rates = RecordedRates<T>>
+__device__ __forceinline__ T decayed(T rel, T elapsed, const Rates& rates = Rates()) {
+  const T floor_ = rates.floor();
+  const T factor = exp2_(rates.decay_exponent(elapsed));
   const T value = add_rn(floor_, mul_rn(sub_rn(rel, floor_), factor));
   return elapsed > T(0) ? clip(value, floor_, T(1)) : rel;
 }
 
 // ops/cycle_math.py::read_phase for one slot at `now`: the decayed stored
 // reliability, or the cold-start prior for a slot whose row does not exist.
-template <typename T>
-__device__ __forceinline__ T read_reliability(bool exists, T rel, T days, T now) {
+template <typename T, typename Rates = RecordedRates<T>>
+__device__ __forceinline__ T read_reliability(bool exists, T rel, T days, T now,
+                                              const Rates& rates = Rates()) {
   if (!exists) return T(kDefaultReliability);
   T elapsed = sub_rn(now, days);
   elapsed = elapsed < T(0) ? T(0) : elapsed;
-  return days > T(0) ? decayed(rel, elapsed) : rel;
+  return days > T(0) ? decayed(rel, elapsed, rates) : rel;
 }
 
 // ops/update.py::outcome_update, reliability half.
@@ -73,9 +117,9 @@ __device__ __forceinline__ T update_rel(T rel, T delta) {
 
 // ops/update.py::outcome_update, confidence half: one fused multiply-add,
 // as XLA contracts it in the JAX package's fused settle program.
-template <typename T>
-__device__ __forceinline__ T grow_conf(T conf) {
-  const T grown = fma_rn(sub_rn(T(1), conf), T(kConfidenceGrowth), conf);
+template <typename T, typename Rates = RecordedRates<T>>
+__device__ __forceinline__ T grow_conf(T conf, const Rates& rates = Rates()) {
+  const T grown = fma_rn(sub_rn(T(1), conf), rates.growth(), conf);
   return grown > T(1) ? T(1) : grown;
 }
 
@@ -111,27 +155,29 @@ __device__ __forceinline__ StepTimes<T> step_times(T now0, int64_t steps) {
 // the last step's decayed read weight, which feeds the market's sums, and
 // `last_conf`, when given, receives the confidence that step reads (the
 // one before its update). `Steps` is the loop counter's type: int32_t
-// where the caller knows steps fits it, int64_t otherwise.
-template <typename T, typename Steps>
+// where the caller knows steps fits it, int64_t otherwise. `rates` are the
+// cycle's rates (RecordedRates unless a replay lane passes its own).
+template <typename T, typename Steps, typename Rates = RecordedRates<T>>
 __device__ __forceinline__ T settle_slot(T& rel, T& conf, T days, T prob,
                                          bool outcome, Steps steps,
                                          const StepTimes<T>& t,
-                                         T* last_conf = nullptr) {
+                                         T* last_conf = nullptr,
+                                         const Rates& rates = Rates()) {
   const bool correct = (prob >= T(0.5)) == outcome;
-  const T raw = mul_rn(T(kBaseLearningRate), correct ? T(1) : T(-1));
-  const T delta = clip(raw, -T(kMaxUpdateStep), T(kMaxUpdateStep));
+  const T raw = mul_rn(rates.base_learning_rate(), correct ? T(1) : T(-1));
+  const T delta = clip(raw, -rates.max_update_step(), rates.max_update_step());
   for (Steps s = 0; s + 1 < steps; ++s) {
     rel = update_rel(rel, delta);
-    conf = grow_conf(conf);
+    conf = grow_conf(conf, rates);
   }
   // The last step's read: against the slot's own stamp when it is step 0
   // (_cycle_math), against the scalar previous step otherwise.
   const T weight = steps == 1
-      ? read_reliability(true, rel, days, t.now0)
-      : (t.eligible_last ? decayed(rel, t.elapsed_last) : rel);
+      ? read_reliability(true, rel, days, t.now0, rates)
+      : (t.eligible_last ? decayed(rel, t.elapsed_last, rates) : rel);
   if (last_conf != nullptr) *last_conf = conf;
   rel = update_rel(rel, delta);
-  conf = grow_conf(conf);
+  conf = grow_conf(conf, rates);
   return weight;
 }
 

@@ -45,16 +45,22 @@ from bayesian_consensus_engine_tpu_torch.utils.config import (
 class CycleParams(NamedTuple):
     """The cycle's tunable scalars, defaulting to the module constants.
 
-    The JAX package threads a ``params`` struct through every function
-    here for its counterfactual replay sweep; the port runs the defaults
-    only (the constants below) until the replay slice needs more.
+    Every function here takes ``params=None`` as "the constants, exactly
+    as before": the main path's math, with the decay's division folded
+    into a reciprocal multiplication. The counterfactual replay sweep
+    (``replay/``) passes one lane's scalars instead, as 0-d tensors of the
+    working dtype; then the decay divides by the half-life, as the JAX
+    package's vmapped replay step does with its traced half-life (a
+    ``divide`` in its compiled program), and the other rates enter the
+    same operations as the constants do. ``confidence_growth`` is carried
+    but not swept (the replay lab keeps the recorded rate).
     """
 
-    half_life_days: float = DECAY_HALF_LIFE_DAYS
-    decay_floor: float = DECAY_MINIMUM
-    base_learning_rate: float = BASE_LEARNING_RATE
-    max_update_step: float = MAX_UPDATE_STEP
-    confidence_growth: float = CONFIDENCE_GROWTH_RATE
+    half_life_days: "float | torch.Tensor" = DECAY_HALF_LIFE_DAYS
+    decay_floor: "float | torch.Tensor" = DECAY_MINIMUM
+    base_learning_rate: "float | torch.Tensor" = BASE_LEARNING_RATE
+    max_update_step: "float | torch.Tensor" = MAX_UPDATE_STEP
+    confidence_growth: "float | torch.Tensor" = CONFIDENCE_GROWTH_RATE
 
 
 class MarketBlockState(NamedTuple):
@@ -78,22 +84,51 @@ class CycleResult(NamedTuple):
     total_weight: torch.Tensor  # f[M]
 
 
+def _decay_params(params: Optional[CycleParams]) -> tuple:
+    """``(half_life, floor)`` of *params*, or the constants."""
+    rates = CycleParams() if params is None else params
+    return rates.half_life_days, rates.decay_floor
+
+
+def _update(update_base, read_conf, correct, params: Optional[CycleParams]):
+    """``outcome_update`` with *params*' rates, or the constants."""
+    rates = CycleParams() if params is None else params
+    return outcome_update(
+        update_base, read_conf, correct,
+        base_lr=rates.base_learning_rate,
+        max_step=rates.max_update_step,
+        confidence_growth=rates.confidence_growth,
+    )
+
+
 def read_phase(
     state: MarketBlockState, now_days: torch.Tensor,
+    params: Optional[CycleParams] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decay-on-read with cold-start defaults; returns (read_rel, read_conf)."""
+    half_life, floor = _decay_params(params)
     if state.exists is None:
         read_rel = decayed_reliability_at(
-            state.reliability, state.updated_days, now_days, True
+            state.reliability, state.updated_days, now_days, True,
+            half_life, floor,
         )
         read_conf = state.confidence
     else:
         stored = decayed_reliability_at(
-            state.reliability, state.updated_days, now_days, state.exists
+            state.reliability, state.updated_days, now_days, state.exists,
+            half_life, floor,
         )
         read_rel = torch.where(state.exists, stored, DEFAULT_RELIABILITY)
         read_conf = torch.where(state.exists, state.confidence, DEFAULT_CONFIDENCE)
     return read_rel, read_conf
+
+
+def _slot_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over *dim* one slot at a time, in slot order from zero."""
+    total = torch.zeros_like(x.select(dim, 0))
+    for i in range(x.shape[dim]):
+        total = total + x.select(dim, i)
+    return total
 
 
 def consensus_local_sums(
@@ -102,15 +137,20 @@ def consensus_local_sums(
     read_rel: torch.Tensor,
     read_conf: torch.Tensor,
     slots_axis: int,
+    ordered: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The three masked weighted sums over the slots axis:
-    ``(total_weight, weighted_prob, weighted_conf)``."""
-    w = torch.where(mask, read_rel, 0.0)
-    total_weight = torch.sum(w, dim=slots_axis)
-    weighted_prob = torch.sum(torch.where(mask, probs, 0.0) * w, dim=slots_axis)
-    weighted_conf = torch.sum(
-        torch.where(mask, read_conf, 0.0) * w, dim=slots_axis
+    ``(total_weight, weighted_prob, weighted_conf)``. ``ordered`` adds the
+    slots in slot order (the lane kernel's order) instead of
+    ``torch.sum``'s."""
+    reduce = (
+        (lambda x: _slot_sum(x, slots_axis)) if ordered
+        else (lambda x: torch.sum(x, dim=slots_axis))
     )
+    w = torch.where(mask, read_rel, 0.0)
+    total_weight = reduce(w)
+    weighted_prob = reduce(torch.where(mask, probs, 0.0) * w)
+    weighted_conf = reduce(torch.where(mask, read_conf, 0.0) * w)
     return total_weight, weighted_prob, weighted_conf
 
 
@@ -120,11 +160,12 @@ def consensus_reduce(
     read_rel: torch.Tensor,
     read_conf: torch.Tensor,
     slots_axis: int,
+    ordered: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Masked weighted sums over the slots axis, normalised.
     Returns (consensus, confidence_out, total_weight)."""
     total_weight, weighted_prob, weighted_conf = consensus_local_sums(
-        probs, mask, read_rel, read_conf, slots_axis
+        probs, mask, read_rel, read_conf, slots_axis, ordered
     )
     consensus, confidence_out = consensus_epilogue(
         total_weight, weighted_prob, weighted_conf
@@ -167,6 +208,7 @@ def update_phase(
     read_conf: torch.Tensor,
     now_days: torch.Tensor,
     slots_axis: int = -1,
+    params: Optional[CycleParams] = None,
 ) -> MarketBlockState:
     """Outcome correctness (predicted true iff p >= 0.5) + capped update on
     the UNDECAYED stored state. A cold slot updates from the cold-start
@@ -178,7 +220,7 @@ def update_phase(
         update_base = torch.where(
             state.exists, state.reliability, DEFAULT_RELIABILITY
         )
-    updated_rel, updated_conf = outcome_update(update_base, read_conf, correct)
+    updated_rel, updated_conf = _update(update_base, read_conf, correct, params)
     return MarketBlockState(
         reliability=torch.where(mask, updated_rel, state.reliability),
         confidence=torch.where(mask, updated_conf, state.confidence),
@@ -194,15 +236,19 @@ def _cycle_math(
     state: MarketBlockState,
     now_days: torch.Tensor,   # 0-d, relative epoch-days
     slots_axis: int = -1,
+    params: Optional[CycleParams] = None,
+    ordered: bool = False,
 ) -> CycleResult:
     """The full cycle on one block; ``slots_axis=0`` is the slot-major
-    (K, M) layout the settlement plan uses."""
-    read_rel, read_conf = read_phase(state, now_days)
+    (K, M) layout the settlement plan uses. ``params`` sets the rates;
+    ``ordered`` adds the consensus slots in slot order
+    (:func:`consensus_local_sums`)."""
+    read_rel, read_conf = read_phase(state, now_days, params)
     consensus, confidence_out, total_weight = consensus_reduce(
-        probs, mask, read_rel, read_conf, slots_axis
+        probs, mask, read_rel, read_conf, slots_axis, ordered
     )
     new_state = update_phase(
-        probs, mask, outcome, state, read_conf, now_days, slots_axis
+        probs, mask, outcome, state, read_conf, now_days, slots_axis, params
     )
     return CycleResult(new_state, consensus, confidence_out, total_weight)
 
@@ -216,6 +262,8 @@ def _fast_cycle_math(
     now_days: torch.Tensor,   # 0-d: this step's day
     prev_now: torch.Tensor,   # 0-d: the previous step's day
     slots_axis: int = -1,
+    params: Optional[CycleParams] = None,
+    ordered: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One mid-loop cycle with the decay read driven by SCALAR time.
 
@@ -228,12 +276,14 @@ def _fast_cycle_math(
     Returns ``(reliability', confidence', consensus)``.
     """
     stamps = prev_now.expand(reliability.shape)
-    read_rel = decayed_reliability_at(reliability, stamps, now_days, True)
+    read_rel = decayed_reliability_at(
+        reliability, stamps, now_days, True, *_decay_params(params)
+    )
     consensus, _, _ = consensus_reduce(
-        probs, mask, read_rel, confidence, slots_axis
+        probs, mask, read_rel, confidence, slots_axis, ordered
     )
     correct = (probs >= 0.5) == outcome.unsqueeze(slots_axis)
-    new_rel, new_conf = outcome_update(reliability, confidence, correct)
+    new_rel, new_conf = _update(reliability, confidence, correct, params)
     reliability = torch.where(mask, new_rel, reliability)
     confidence = torch.where(mask, new_conf, confidence)
     return reliability, confidence, consensus

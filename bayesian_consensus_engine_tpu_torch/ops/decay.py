@@ -14,6 +14,12 @@ to the dtype: that is what XLA compiles ``-t / h`` into, what PyTorch's
 CUDA division by a scalar does, and what the kernels do, so the decay's
 argument is the same bits everywhere (PyTorch's CPU division would
 otherwise round differently).
+
+A half-life given as a tensor (a replay lane's, ``ops/cycle_math.py::
+CycleParams``) is divided by, correctly rounded: XLA folds a division
+into a reciprocal multiplication only for a constant, and the JAX
+package's replay sweep traces the half-life (its compiled step holds a
+``divide`` by it).
 """
 
 from __future__ import annotations
@@ -26,12 +32,20 @@ from bayesian_consensus_engine_tpu_torch.utils.config import (
 )
 
 
+def _decay_exponent(elapsed_days: torch.Tensor, half_life_days) -> torch.Tensor:
+    """``-t / h``: a reciprocal multiplication for a constant half-life, a
+    division by a tensor one (see the module docstring)."""
+    if isinstance(half_life_days, torch.Tensor):
+        return -elapsed_days / half_life_days
+    return -elapsed_days * (1.0 / half_life_days)
+
+
 def decay_factor(
     elapsed_days: torch.Tensor,
     half_life_days: float = DECAY_HALF_LIFE_DAYS,
 ) -> torch.Tensor:
     """Elementwise ``2^(-t/h)``, pinned to 1 for non-positive elapsed time."""
-    factor = torch.exp2(-elapsed_days * (1.0 / half_life_days))
+    factor = torch.exp2(_decay_exponent(elapsed_days, half_life_days))
     return torch.where(elapsed_days > 0, factor, 1.0)
 
 
@@ -46,9 +60,9 @@ def decayed_reliability(
     Entries with non-positive elapsed time pass through UNCLAMPED, matching
     the scalar path's early return.
     """
-    factor = torch.exp2(-elapsed_days * (1.0 / half_life_days))
+    factor = torch.exp2(_decay_exponent(elapsed_days, half_life_days))
     decayed = floor + (reliability - floor) * factor
-    clamped = torch.clamp(decayed, floor, 1.0)
+    clamped = torch.clamp_max(torch.clamp_min(decayed, floor), 1.0)
     return torch.where(elapsed_days > 0, clamped, reliability)
 
 

@@ -38,9 +38,19 @@ within a market, and ``touched_offsets[m]`` (an exclusive prefix sum of
 the per-market mask counts, built once per plan) is where market ``m``
 starts. No second pass and no grid-wide barrier are needed.
 
+Replay lanes. :func:`settle_cycles_lanes` launches the same kernel body
+over C stacked copies of the flat state in one launch, the lane on the
+grid's second axis, each lane with its own cycle rates (a (C, 5) float32
+params tensor, :data:`PARAM_FIELDS`); it writes each lane's consensus and
+no ``rel_touched``. Its plain version, :func:`settle_cycles_lanes_reference`,
+loops over the lanes with the cycle math given the lane's
+``CycleParams``, which sums each market's slots in slot order, as the
+kernel does.
+
 :func:`settle_cycles` launches the kernel for CUDA tensors and raises when
 it cannot; only CPU tensors take the plain version,
-:func:`settle_cycles_reference`. ``LAUNCHES`` counts the kernel launches.
+:func:`settle_cycles_reference`. ``LAUNCHES`` counts the kernel launches;
+``LANE_LAUNCHES`` counts :func:`settle_cycles_lanes`' own.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ import torch
 from bayesian_consensus_engine_tpu_torch.ops import cuda_build
 from bayesian_consensus_engine_tpu_torch.ops.cuda_build import check_tensor
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
+    CycleParams,
     MarketBlockState,
     _cycle_math,
     _fast_cycle_math,
@@ -67,6 +78,13 @@ from bayesian_consensus_engine_tpu_torch.utils.config import (
 
 #: Kernel launches made by :func:`settle_cycles` in this process.
 LAUNCHES = 0
+#: Kernel launches made by :func:`settle_cycles_lanes` in this process.
+LANE_LAUNCHES = 0
+
+#: The columns of a lane params tensor, in order (``CycleParams``' fields).
+PARAM_FIELDS = CycleParams._fields
+#: The most lanes one launch takes (the grid's second axis).
+MAX_LANES = 65535
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "settle_cycles.cu"
 
@@ -81,12 +99,17 @@ class SettleOutputs(NamedTuple):
 
 
 def _load():
+    flat = (
+        [ctypes.c_void_p] * 11
+        + [ctypes.c_double] + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
+    )
+    lanes = (
+        [ctypes.c_void_p] * 11
+        + [ctypes.c_double] + [ctypes.c_int64] * 6 + [ctypes.c_void_p] * 2
+    )
     return cuda_build.load(SOURCE, {
-        name: (
-            [ctypes.c_void_p] * 11
-            + [ctypes.c_double] + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
-        )
-        for name in ("settle_cycles_f32", "settle_cycles_f64")
+        "settle_cycles_f32": flat, "settle_cycles_f64": flat,
+        "settle_cycles_lanes_f32": lanes, "settle_cycles_lanes_f64": lanes,
     })
 
 
@@ -107,6 +130,7 @@ def touched_layout(slot_rows: np.ndarray, mask: np.ndarray):
 def settle_cycles_reference(
     rel, conf, days, exists, slot_rows, probs, mask, outcome,
     touched_offsets, num_touched: int, now0: float, steps: int,
+    params: Optional[CycleParams] = None, ordered: bool = False,
 ) -> SettleOutputs:
     """The plain version: ``pipeline.py::_settle_math`` in eager torch.
 
@@ -115,6 +139,9 @@ def settle_cycles_reference(
     fast_cycle_fn=_fast_cycle_math)``, scatter back and slice the sink off.
     Functional: the inputs are not modified. ``touched_offsets`` is only
     checked against ``num_touched``; the touched rows come from the block.
+    ``params`` (one replay lane's ``CycleParams`` of 0-d tensors) runs the
+    cycle math with those rates; ``ordered`` adds each consensus over the
+    slots in slot order, the lane kernel's order.
     """
     dtype = rel.dtype
 
@@ -135,11 +162,13 @@ def settle_cycles_reference(
     )
 
     def cycle_fn(probs, mask, outcome, state, now_days):
-        return _cycle_math(probs, mask, outcome, state, now_days, slots_axis=0)
+        return _cycle_math(probs, mask, outcome, state, now_days, slots_axis=0,
+                           params=params, ordered=ordered)
 
     def fast_fn(probs, mask, outcome, rel, conf, now_days, prev_now):
         return _fast_cycle_math(
-            probs, mask, outcome, rel, conf, now_days, prev_now, slots_axis=0
+            probs, mask, outcome, rel, conf, now_days, prev_now, slots_axis=0,
+            params=params, ordered=ordered,
         )
 
     loop_math = make_loop_math(cycle_fn, steps, fast_cycle_fn=fast_fn)
@@ -251,6 +280,130 @@ def settle_cycles(
     return SettleOutputs(rel, conf, days, exists, consensus, rel_touched)
 
 
+class LaneOutputs(NamedTuple):
+    reliability: torch.Tensor   # (C, R) stacked flat state after the settle
+    confidence: torch.Tensor
+    updated_days: torch.Tensor
+    exists: torch.Tensor
+    consensus: torch.Tensor     # (C, M) each lane's last step; NaN at zero weight
+
+
+def lane_params(row: torch.Tensor, dtype: torch.dtype) -> CycleParams:
+    """One lane's ``CycleParams`` from its (5,) float32 row of a params
+    tensor: 0-d tensors of *dtype* on the row's device, each value taken
+    from float32 as it is (as the JAX package's lane math widens its
+    float32 lane scalars)."""
+    return CycleParams(*(row[i].to(dtype) for i in range(len(PARAM_FIELDS))))
+
+
+def settle_cycles_lanes_reference(
+    rel, conf, days, exists, slot_rows, probs, mask, outcome,
+    touched_offsets, num_touched: int, now0: float, steps: int, params,
+) -> LaneOutputs:
+    """The plain version of :func:`settle_cycles_lanes`: for each lane,
+    :func:`settle_cycles_reference` on its state row with
+    :func:`lane_params` of its params row, its consensus added in slot
+    order as the lane kernel adds it. Functional."""
+    outputs = [
+        settle_cycles_reference(
+            rel[c], conf[c], days[c], exists[c], slot_rows, probs, mask,
+            outcome, touched_offsets, num_touched, now0, steps,
+            params=lane_params(params[c], rel.dtype), ordered=True,
+        )
+        for c in range(rel.shape[0])
+    ]
+    return LaneOutputs(*(
+        torch.stack([out[field] for out in outputs]) for field in range(5)
+    ))
+
+
+def settle_cycles_lanes(
+    rel, conf, days, exists, slot_rows, probs, mask, outcome,
+    touched_offsets, num_touched: int, now0: float, steps: int, params,
+    *, routes: Optional[torch.Tensor] = None,
+) -> LaneOutputs:
+    """Settle a plan block against C stacked copies of the flat state, each
+    lane with its own cycle rates, in one launch.
+
+    ``rel``, ``conf``, ``days`` (the working dtype) and ``exists`` (bool)
+    are (C, R) and contiguous, one lane a row; ``params`` is a (C, 5)
+    float32 tensor whose columns are :data:`PARAM_FIELDS`; the plan
+    arguments, ``now0`` and ``steps`` are :func:`settle_cycles`' and are
+    shared by every lane. Every lane's masked slots must own distinct rows
+    below R.
+
+    On CUDA tensors it launches the kernel once for all lanes, which
+    updates the stacked state IN PLACE and writes each lane's last-step
+    consensus, (C, M); ``routes`` is :func:`settle_cycles`' route report,
+    summed over the lanes. On CPU tensors it runs
+    :func:`settle_cycles_lanes_reference` and returns new state. Either
+    way the caller must use the returned state.
+    """
+    global LANE_LAUNCHES
+    if rel.device.type == "cpu":
+        return settle_cycles_lanes_reference(
+            rel, conf, days, exists, slot_rows, probs, mask, outcome,
+            touched_offsets, num_touched, now0, steps, params,
+        )
+    if rel.device.type != "cuda":
+        raise ValueError(
+            f"settle_cycles_lanes runs on cuda or cpu, not {rel.device}"
+        )
+    dtype = rel.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported state dtype {dtype}")
+    if steps < 0:
+        raise ValueError(f"steps={steps} must be >= 0")
+    if rel.dim() != 2 or slot_rows.dim() != 2:
+        raise ValueError("the state must be (C, R) and slot_rows (K, M)")
+    device = rel.device
+    num_lanes, capacity = rel.shape
+    if num_lanes > MAX_LANES:
+        raise ValueError(f"{num_lanes} lanes: one launch takes {MAX_LANES}")
+    num_slots, num_markets = slot_rows.shape
+    lanes = (num_lanes, capacity)
+    check_tensor("rel", rel, dtype, lanes, device)
+    check_tensor("conf", conf, dtype, lanes, device)
+    check_tensor("days", days, dtype, lanes, device)
+    check_tensor("exists", exists, torch.bool, lanes, device)
+    check_tensor("params", params, torch.float32,
+                 (num_lanes, len(PARAM_FIELDS)), device)
+    check_tensor("slot_rows", slot_rows, torch.int32, (num_slots, num_markets), device)
+    check_tensor("probs", probs, dtype, (num_slots, num_markets), device)
+    check_tensor("mask", mask, torch.bool, (num_slots, num_markets), device)
+    check_tensor("outcome", outcome, torch.bool, (num_markets,), device)
+    check_tensor(
+        "touched_offsets", touched_offsets, torch.int64, (num_markets + 1,),
+        device,
+    )
+    if routes is not None:
+        check_tensor("routes", routes, torch.int32, (3,), device)
+
+    consensus = torch.empty((num_lanes, num_markets), dtype=dtype, device=device)
+    if num_markets == 0 or num_lanes == 0:
+        return LaneOutputs(rel, conf, days, exists, consensus)
+
+    lib = _load()
+    fn = (lib.settle_cycles_lanes_f32 if dtype == torch.float32
+          else lib.settle_cycles_lanes_f64)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = fn(
+            slot_rows.data_ptr(), probs.data_ptr(), mask.data_ptr(),
+            outcome.data_ptr(), touched_offsets.data_ptr(), rel.data_ptr(),
+            conf.data_ptr(), days.data_ptr(), exists.data_ptr(),
+            params.data_ptr(), consensus.data_ptr(), float(now0),
+            num_slots, num_markets, int(num_touched), num_lanes, capacity,
+            int(steps), None if routes is None else routes.data_ptr(), stream,
+        )
+    if status != 0:
+        raise RuntimeError(
+            f"settle_cycles_lanes launch failed: CUDA error {status}"
+        )
+    LANE_LAUNCHES += 1
+    return LaneOutputs(rel, conf, days, exists, consensus)
+
+
 def bound_bytes(
     num_slots: int, num_markets: int, num_touched: int, num_existing: int,
     steps: int, itemsize: int,
@@ -278,3 +431,29 @@ def bound_bytes(
     state_reads = num_existing * itemsize * (3 if steps == 1 else 2)
     state_writes = num_touched * 3 * itemsize + (num_touched - num_existing)
     return mask + slots + markets + state_reads + state_writes + rel_touched
+
+
+def lanes_bound_bytes(
+    num_lanes: int, num_slots: int, num_markets: int, num_touched: int,
+    lane_existing: "list[int]", steps: int, itemsize: int,
+) -> int:
+    """Device-memory bytes one :func:`settle_cycles_lanes` launch must move:
+    each lane's state reads and writes and its consensus, as
+    :func:`bound_bytes` counts them for one settle (``lane_existing[c]``
+    masked slots of lane c whose row exists), without ``rel_touched``;
+    the shared plan (mask, row indices, probabilities, outcomes, offsets)
+    once, and the (C, 5) float32 params."""
+    plan = (
+        num_slots * num_markets  # the mask
+        + num_touched * (4 + itemsize)  # row index, probability
+        + num_markets * (1 + 8)  # outcome, offset
+    )
+    total = plan + num_lanes * 5 * 4
+    for existing in lane_existing:
+        total += num_markets * itemsize  # the lane's consensus
+        if steps == 0:
+            continue
+        total += num_touched  # each slot's row exists byte
+        total += existing * itemsize * (3 if steps == 1 else 2)
+        total += num_touched * 3 * itemsize + (num_touched - existing)
+    return total

@@ -24,6 +24,15 @@ in agent order 0 … A−1, one agent at a time, which is also the order the
 CUDA one-pass kernel (``csrc/onepass_settle.cu``) adds them in. XLA's CPU
 reduction runs in that order for widths up to 16; beyond that its order
 differs, and so do the last bits of a group density.
+
+:func:`batched_tiebreak` is the JAX package's sort-based grouping
+(``ops/tiebreak.py::batched_tiebreak``): per (M, A) row it sorts the
+quantised keys, reads each group off its contiguous segment and runs the
+same hierarchy as masked reductions. The JAX package computes it in XLA,
+not in Pallas, so these eager ops are its port on the CPU and the card.
+Its running group-weight sums and its confidence sums add left to right
+(XLA CPU's order up to 16 agents; its ``cumsum`` blocks wider rows), and
+its sort is stable, as ``jnp.argsort`` is.
 """
 
 from __future__ import annotations
@@ -40,7 +49,9 @@ from bayesian_consensus_engine_tpu_torch.parallel.collectives import psum
 #: package): the memory-diet default of the fused resident program.
 DEFAULT_CHUNK_AGENTS = 1024
 
-#: Empty top-2 slot key; a real key never reaches it (|p·10^6| ≪ 2^31).
+#: Empty top-2 slot key, and the sorted path's key of an invalid agent
+#: (it sorts last and is never a candidate); a real key never reaches it
+#: (|p·10^6| ≪ 2^31).
 _SENTINEL = 2**31 - 1
 #: Key of an invalid agent, distinct from the sentinel.
 _INVALID_KEY = -(2**31)
@@ -296,3 +307,151 @@ def _ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     for i in range(x.shape[dim]):
         total = total + x.select(dim, i)
     return total
+
+
+def _running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum over the last dim, left to right."""
+    out = torch.empty_like(x)
+    total = torch.zeros_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        total = total + x[..., i]
+        out[..., i] = total
+    return out
+
+
+class BatchTieBreakResult(NamedTuple):
+    """Per-market outputs of :func:`batched_tiebreak`; the fields of
+    :class:`RingTieBreakResult`.
+
+    ``resolved_by``: 0 unanimous, 1 weight_density, 2
+    prediction_value_smallest. A row with no valid agent reports
+    ``prediction = NaN`` and zeroed stats (the ring path reports ±inf).
+    ``prediction`` is always the winning key rescaled, a one-agent row
+    included.
+    """
+
+    prediction: torch.Tensor           # f32[M] winning (rounded) prediction
+    weight_density: torch.Tensor       # f32[M]
+    max_reliability: torch.Tensor      # f32[M]
+    resolved_by: torch.Tensor          # i32[M]
+    num_groups: torch.Tensor           # i32[M]
+    confidence_variance: torch.Tensor  # f32[M] population variance
+
+
+def batched_tiebreak(pred, weight, conf, rel, valid, precision: int = 6
+                     ) -> BatchTieBreakResult:
+    """Resolve every market row's conflict in one batched pass.
+
+    ``pred``, ``weight``, ``conf``, ``rel`` and ``valid`` (bool) are
+    (M, A) blocks, agents last. Computed in float32, as the JAX package
+    computes it under ``jax.jit`` (``build_batched_tiebreak``).
+    """
+    f32 = torch.float32
+    neg = -torch.inf
+    device = pred.device
+    num_agents = pred.shape[-1]
+    scale = 10.0**precision
+    keys = torch.round(pred.to(f32) * scale).to(torch.int32)
+    keys = torch.where(valid, keys, _SENTINEL)
+
+    # jnp.argsort is stable; the order inside a group moves the running
+    # sums below, so torch's must be too.
+    order = torch.argsort(keys, dim=-1, stable=True)
+    sk = torch.gather(keys, -1, order)
+    sw = torch.gather(weight.to(f32), -1, order)
+    sr = torch.gather(rel.to(f32), -1, order)
+    sv = sk != _SENTINEL
+
+    edge = torch.ones_like(sk[..., :1], dtype=torch.bool)
+    boundary = sk[..., 1:] != sk[..., :-1]
+    starts = torch.cat([edge, boundary], dim=-1)
+    ends = torch.cat([boundary, edge], dim=-1)
+    idx = torch.arange(num_agents, dtype=torch.int64, device=device)
+    start_idx = torch.cummax(torch.where(starts, idx, 0), dim=-1).values
+    end_idx = torch.flip(torch.cummin(
+        torch.flip(torch.where(ends, idx, num_agents - 1), [-1]), dim=-1
+    ).values, [-1])
+
+    # Group weight totals as differences of a running sum in XLA CPU's
+    # cumsum order (torch.cumsum adds in another one), and the group's
+    # maximum reliability as a running maximum that restarts at each group
+    # (exact in any order).
+    cw = _running_sum(torch.where(sv, sw, 0.0))
+    run_max = torch.empty_like(sr)
+    best = torch.full_like(sr[..., 0], neg)
+    r_valid = torch.where(sv, sr, neg)
+    for i in range(num_agents):
+        best = torch.where(starts[..., i], r_valid[..., i],
+                           torch.maximum(best, r_valid[..., i]))
+        run_max[..., i] = best
+    base = torch.where(
+        start_idx > 0,
+        torch.gather(cw, -1, torch.clamp_min(start_idx - 1, 0)),
+        0.0,
+    )
+    total_w = torch.gather(cw, -1, end_idx) - base
+    count = (end_idx - start_idx + 1).to(f32)
+    density = total_w / count
+    group_max_rel = torch.gather(run_max, -1, end_idx)
+
+    # One candidate lane per real group; the hierarchy as masked
+    # reductions: max density, then max reliability, then smallest key.
+    cand = starts & sv
+    d_c = torch.where(cand, density, neg)
+    best_d = torch.amax(d_c, dim=-1, keepdim=True)
+    tier1 = cand & (d_c == best_d)
+    r_c = torch.where(tier1, group_max_rel, neg)
+    best_r = torch.amax(r_c, dim=-1, keepdim=True)
+    tier2 = tier1 & (r_c == best_r)
+    k_c = torch.where(tier2, sk, _SENTINEL)
+    best_k = torch.amin(k_c, dim=-1, keepdim=True)
+
+    # The runner-up: the winner's group masked out, the same hierarchy.
+    others = cand & (sk != best_k)
+    any_other = torch.any(others, dim=-1)
+    d_o = torch.where(others, density, neg)
+    ru_d = torch.amax(d_o, dim=-1, keepdim=True)
+    r_o = torch.where(others & (d_o == ru_d), group_max_rel, neg)
+    ru_r = torch.amax(r_o, dim=-1, keepdim=True)
+
+    full_tie = ((best_d == ru_d) & (best_r == ru_r))[..., 0]
+    resolved_by = torch.where(
+        ~any_other, 0, torch.where(full_tie, 2, 1)
+    ).to(torch.int32)
+
+    # Population confidence variance over the valid agents, both sums in
+    # agent order.
+    conff = conf.to(f32)
+    agents_axis = conff.dim() - 1
+    n = torch.sum(valid, dim=-1)
+    nf = torch.clamp_min(n, 1).to(f32)
+    mean = _ordered_sum(torch.where(valid, conff, 0.0), agents_axis) / nf
+    variance = _ordered_sum(
+        torch.where(valid, (conff - mean[..., None]) ** 2, 0.0), agents_axis
+    ) / nf
+
+    empty = n == 0
+    # XLA turns the division by the constant scale into a multiplication
+    # by its float32 reciprocal; so does the port.
+    recip = torch.tensor(np.float32(1.0) / np.float32(scale), device=device)
+    return BatchTieBreakResult(
+        prediction=torch.where(empty, torch.nan, best_k[..., 0].to(f32) * recip),
+        weight_density=torch.where(empty, 0.0, best_d[..., 0]),
+        max_reliability=torch.where(empty, 0.0, best_r[..., 0]),
+        resolved_by=torch.where(empty, 0, resolved_by).to(torch.int32),
+        num_groups=torch.where(
+            empty, 0, torch.sum(cand, dim=-1)
+        ).to(torch.int32),
+        confidence_variance=variance,
+    )
+
+
+def build_batched_tiebreak(precision: int = 6):
+    """:func:`batched_tiebreak` at a fixed *precision*:
+    ``fn(pred, weight, conf, rel, valid)``. The JAX package jit-compiles
+    it; the port has no compile step, so this is a closure."""
+
+    def tiebreak(pred, weight, conf, rel, valid):
+        return batched_tiebreak(pred, weight, conf, rel, valid, precision)
+
+    return tiebreak

@@ -34,13 +34,18 @@ def outcome_update(
     max_step=MAX_UPDATE_STEP,
     confidence_growth=CONFIDENCE_GROWTH_RATE,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Elementwise update for every entry; returns (reliability', confidence')."""
+    """Elementwise update for every entry; returns (reliability', confidence').
+
+    The three rates are floats or 0-d tensors (a replay lane's
+    ``CycleParams``), whose values the working dtype takes as they are."""
     direction = torch.where(correct, 1.0, -1.0).to(reliability.dtype)
     delta = torch.clamp(base_lr * direction, -max_step, max_step)
     new_rel = torch.clamp(reliability + delta, 0.0, 1.0)
     # c + (1 − c)·g as one fused multiply-add: XLA contracts it so in the
     # JAX package's fused settle program, and the kernels do the same.
-    growth = torch.full_like(confidence, confidence_growth)
+    growth = torch.as_tensor(
+        confidence_growth, dtype=confidence.dtype, device=confidence.device
+    ).expand(confidence.shape)
     new_conf = torch.clamp_max(fma(confidence, 1.0 - confidence, growth), 1.0)
     return new_rel, new_conf
 

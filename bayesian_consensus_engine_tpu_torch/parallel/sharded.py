@@ -18,7 +18,10 @@ outcome vectors, and returns the state as such a grid and every
 per-market output whole, on the mesh's first device. Per markets shard:
 
 * one sources shard: one launch of the one-pass kernel
-  (``ops/onepass_kernel.py``);
+  (``ops/onepass_kernel.py``); with the sorted tie-break, one launch of
+  the partials kernel instead, whose read views feed
+  ``ops/tiebreak.py::batched_tiebreak`` (eager, as the JAX package runs
+  it in XLA), its consensus sums and band roots the one-shard merge;
 * more: one launch of the partials kernel (``ops/partials_kernel.py``) per
   sources shard, then the merge in eager PyTorch on the markets shard's
   first device, as the JAX package's ``onepass_partials_math`` runs it:
@@ -48,20 +51,32 @@ import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.bp_kernel import bp_sweep
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
+    CycleParams,
     MarketBlockState,
     consensus_merge,
+    read_phase,
 )
+from bayesian_consensus_engine_tpu_torch.ops.fma import fma
 from bayesian_consensus_engine_tpu_torch.ops.onepass_kernel import onepass_settle
 from bayesian_consensus_engine_tpu_torch.ops.partials_kernel import onepass_partials
 from bayesian_consensus_engine_tpu_torch.ops.propagate import (
     PropagatedBeliefs,
     propagated_stderr,
 )
-from bayesian_consensus_engine_tpu_torch.ops.tiebreak import ring_tiebreak_math
+from bayesian_consensus_engine_tpu_torch.ops.settle_kernel import (
+    lane_params,
+    settle_cycles_lanes,
+)
+from bayesian_consensus_engine_tpu_torch.ops.tiebreak import (
+    RingTieBreakResult,
+    batched_tiebreak,
+    ring_tiebreak_math,
+)
 from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
     Z_95,
     band_epilogue,
     band_merge,
+    band_sums,
 )
 from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
     MARKETS_AXIS,
@@ -112,9 +127,11 @@ def build_cycle_analytics_loop(
     refused, as there. The port has one route per stage: on CUDA every
     accepted ``kernel`` runs the one-pass kernel (the partials kernel on a
     sources-sharded mesh) and every accepted ``sweep_kernel`` the
-    ``bp_sweep`` kernel. ``tiebreak_kind="sorted"`` is refused on a
-    sources-sharded mesh, as there, and not ported yet elsewhere; a graph
-    on a mesh with more than one markets shard is not ported yet.
+    ``bp_sweep`` kernel. ``tiebreak_kind="sorted"`` (refused on a
+    sources-sharded mesh, as there) runs the partials kernel on the one
+    sources shard and :func:`~.ops.tiebreak.batched_tiebreak` over its
+    read views; empty rows take its NaN/0 convention. A graph on a mesh
+    with more than one markets shard is not ported yet.
     """
     if not isinstance(mesh, Mesh):
         mesh = make_mesh((1, 1), [mesh])
@@ -181,12 +198,7 @@ def build_cycle_analytics_loop(
             "ring tie-break + bands in one sweep; disabling a stage (or "
             "tiebreak_kind='sorted') needs the stage-selective XLA program"
         )
-    if with_tiebreak and tiebreak_kind == "sorted":
-        raise NotImplementedError(
-            "tiebreak_kind='sorted' (the sort-based grouping kernel, "
-            "ops/tiebreak.py::batched_tiebreak) is not ported yet: "
-            "ROADMAP queue 1 item 7"
-        )
+    sorted_tiebreak = with_tiebreak and tiebreak_kind == "sorted"
     if with_graph and n_market_shards > 1:
         raise NotImplementedError(
             f"a graph sweep on a mesh with {n_market_shards} markets shards "
@@ -225,6 +237,29 @@ def build_cycle_analytics_loop(
             chunk_slots=chunk_slots,
         )
         return out.state, out.consensus, out.tiebreak, out.band_sums, out.band_count
+
+    def sorted_settle(probs, mask, outcome, state, now0, steps):
+        """The sorted tie-break's route on one sources shard: one partials
+        launch (the pre-update views, the band roots and the consensus
+        sums), the one-shard merge, and :func:`batched_tiebreak` over the
+        views, agents last. Same tuple as :func:`onepass`."""
+        part = onepass_partials(
+            probs, mask, outcome, state, now0, steps, with_views=True,
+            with_bands=with_bands, chunk_slots=chunk_slots,
+        )
+        device = probs.device
+        if steps == 0:
+            consensus = torch.zeros(
+                probs.shape[1], dtype=probs.dtype, device=device
+            )
+        else:
+            consensus = consensus_merge([part.consensus_sums], device)
+        tiebreak = RingTieBreakResult(*batched_tiebreak(
+            probs.T, part.read_rel.T, part.read_conf.T, part.read_rel.T,
+            mask.T, precision,
+        ))
+        return (part.state, consensus, tiebreak, part.band_sums,
+                part.band_count)
 
     def partials_merge(probs, mask, outcome, state, now0, steps, merge_device):
         """A markets shard's sources shards: one partials launch each, then
@@ -294,7 +329,8 @@ def build_cycle_analytics_loop(
         new_state, per_market = [], []
         for i in range(n_market_shards):
             if n_sources == 1:
-                shard_state, *outputs = onepass(
+                shard_state, *outputs = (sorted_settle if sorted_tiebreak
+                                         else onepass)(
                     probs[i][0], mask[i][0], outcome[i][0], state[i][0],
                     now0, steps,
                 )
@@ -402,6 +438,190 @@ def init_block_state(num_markets: int, num_slots: int, dtype=torch.float32,
         updated_days=torch.zeros(shape, dtype=dtype, device=device),
         exists=torch.zeros(shape, dtype=torch.bool, device=device),
     )
+
+
+def _lane_damped_relax(
+    values, neighbor_idx, neighbor_w, damping, lane_steps, max_steps: int,
+    lane_tol=None,
+):
+    """One replay lane's damped graph relaxation with its own λ, depth and
+    residual tolerance (0-d tensors; ``lane_tol`` may be ``None``).
+
+    The JAX package's traced twin of the damped sweep, in eager torch (it
+    is XLA there, not Pallas): ``max_steps`` iterations of gather → masked
+    neighbour mean (NaN neighbours and ``-1`` padding excluded) → damped
+    blend, rows without an edge and non-finite rows untouched; iterations
+    past ``lane_steps`` are frozen, and with ``lane_tol > 0`` so is every
+    iteration after the previous one's ``max |Δvalue|`` fell to the
+    tolerance (a frozen iteration's residual reads 0, so a converged lane
+    stays converged). Every lane runs ``max_steps`` iterations.
+    """
+    f32 = torch.float32
+    values = values.to(f32)
+    if max_steps <= 0:
+        return values
+    weights = torch.where(neighbor_idx >= 0, neighbor_w.to(f32), 0.0)
+    lam = damping.to(f32)
+    keep = 1.0 - lam
+    tol = None if lane_tol is None else lane_tol.to(f32)
+    gather_idx = torch.clamp_min(neighbor_idx, 0).long()
+    v = values
+    residual = torch.tensor(torch.inf, dtype=f32, device=values.device)
+    for i in range(max_steps):
+        nb = v[gather_idx]
+        ok = (neighbor_idx >= 0) & torch.isfinite(nb)
+        w = torch.where(ok, weights, 0.0)
+        wsum = torch.sum(w, dim=-1)
+        wval = torch.sum(w * torch.where(ok, nb, 0.0), dim=-1)
+        mixes = (wsum > 0) & torch.isfinite(v) & (i < lane_steps)
+        if tol is not None:
+            mixes = mixes & ((tol <= 0) | (residual > tol))
+        blended = keep * v + lam * (wval / torch.where(wsum > 0, wsum, 1.0))
+        new_v = torch.where(mixes, blended, v)
+        residual = torch.amax(torch.where(mixes, torch.abs(new_v - v), 0.0))
+        v = new_v
+    return v
+
+
+#: Replay-sweep steps, keyed ``(steps, max_graph_steps)``, shared by every
+#: sweep of the process (the JAX package caches its compiled programs so).
+_REPLAY_SWEEP_CACHE: dict = {}
+
+
+def build_replay_sweep_step(steps: int, max_graph_steps: int = 0):
+    """The C-lane counterfactual settlement step of ``replay/``.
+
+    ``step(state, metrics, params, band_z, graph, slot_rows, probs, mask,
+    outcome, now0, neighbors, *, touched=None) -> (state', metrics')``
+    advances C alternate-history copies of the flat store state through
+    one recorded batch:
+
+    * ``state`` is a ``(rel, conf, days, exists)`` tuple of (C, R)
+      stacked flat columns, advanced IN PLACE on the card (the returned
+      tuple must be used: on the CPU it holds new tensors);
+    * ``metrics`` is the (C, 4) float32 running accumulator
+      ``[n_settled, brier_sum, band_width_sum, graph_brier_sum]``;
+    * ``params`` is a ``CycleParams`` of (C,) lane tensors, ``band_z`` a
+      (C,) tensor, ``graph`` either ``()`` (built with
+      ``max_graph_steps=0``) or a ``(damping, steps, tol)`` triple of (C,)
+      lane tensors, ``neighbors`` either ``()`` or the aligned
+      ``(neighbor_idx, neighbor_w)`` blocks;
+    * ``slot_rows``, ``probs``, ``mask`` (the plan's (K, M) block),
+      ``outcome`` (M,) and ``now0`` (the batch's day relative to the
+      lanes' epoch, already rounded to the state's dtype) are shared by
+      every lane; ``touched`` optionally passes the plan's
+      ``(touched_offsets, num_touched)``, else they come from the mask.
+
+    Per batch: each lane's band-width metric from the pre-update decayed
+    read at ``now0`` with the lane's rates (``read_phase``, the band
+    tree's ``band_sums``, then the stderr as XLA CPU computes the JAX
+    package's: the variance's ``E[p²] − μ²`` one fused multiply-add, the
+    root correctly rounded; scaled by the lane's ``2·z``), read before the
+    state moves; then ONE ``settle_cycles_lanes`` launch for every lane
+    (on the CPU its plain version); then, on the lanes' consensus, the
+    Brier sum over the markets that settled with weight and, with a
+    graph, the lane's damped relaxation and its Brier (else the plain
+    Brier again). Every sum over markets is one ``torch.sum`` per lane
+    row, whose order on the card is fixed by the shape, and the kernel
+    adds no float atomically, so a sweep is a pure function of (trace,
+    configs).
+    """
+    key = (int(steps), int(max_graph_steps))
+    cached = _REPLAY_SWEEP_CACHE.get(key)
+    if cached is not None:
+        return cached
+    steps, max_graph_steps = key
+    has_graph = max_graph_steps > 0
+    f32 = torch.float32
+
+    def band_width(rel, conf, days, exists, params_row, z, slot_rows, probs,
+                   mask, now):
+        """One lane's Σ 2·z·stderr over the markets, read at ``now``."""
+        rows = slot_rows.long()
+
+        def gather(flat, fill):
+            sink = torch.full((1,), fill, dtype=flat.dtype, device=flat.device)
+            return torch.cat([flat, sink])[rows]
+
+        block = MarketBlockState(
+            reliability=gather(rel, DEFAULT_RELIABILITY),
+            confidence=gather(conf, DEFAULT_CONFIDENCE),
+            updated_days=gather(days, 0.0),
+            exists=gather(exists, False),
+        )
+        read_rel, _ = read_phase(block, now, lane_params(params_row, rel.dtype))
+        sums, _count = band_sums(probs, mask, read_rel, agents_last=False)
+        sw, swp, swp2, sw2 = sums[0], sums[1], sums[2], sums[3]
+        has_weight = sw != 0
+        safe_w = torch.where(has_weight, sw, 1.0)
+        mean = torch.where(has_weight, swp / safe_w, 0.0)
+        ex2 = torch.where(has_weight, swp2 / safe_w, 0.0)
+        variance = torch.clamp_min(fma(ex2, -mean, mean), 0.0)
+        positive = sw2 > 0
+        n_eff = torch.where(
+            positive, (sw * sw) / torch.where(positive, sw2, 1.0), 0.0
+        )
+        ratio = variance / torch.clamp_min(n_eff, 1e-30)
+        stderr = torch.where(n_eff > 0, torch.sqrt(ratio.double()).to(f32), 0.0)
+        return torch.sum(2.0 * z.to(f32) * stderr)
+
+    def step(state, metrics, params, band_z, graph, slot_rows, probs, mask,
+             outcome, now0, neighbors, *, touched=None):
+        rel, conf, days, exists = state
+        num_lanes = rel.shape[0]
+        device = rel.device
+        if not isinstance(params, CycleParams):
+            params = CycleParams(*params)
+        params_t = torch.stack(
+            [torch.as_tensor(field, device=device).to(f32) for field in params],
+            dim=1,
+        ).contiguous()
+        now0 = float(now0)
+        now = torch.tensor(now0, dtype=rel.dtype, device=device)
+        widths = torch.stack([
+            band_width(rel[c], conf[c], days[c], exists[c], params_t[c],
+                       band_z[c], slot_rows, probs, mask, now)
+            for c in range(num_lanes)
+        ])
+        if touched is None:
+            offsets = torch.zeros(mask.shape[1] + 1, dtype=torch.int64,
+                                  device=device)
+            offsets[1:] = torch.cumsum(mask.sum(0), 0)
+            touched = (offsets, int(offsets[-1]))
+        rel, conf, days, exists, consensus = settle_cycles_lanes(
+            rel, conf, days, exists, slot_rows, probs, mask, outcome,
+            touched[0], touched[1], now0, steps, params_t,
+        )
+        settled = torch.isfinite(consensus)
+        outcome_f = outcome.to(f32)
+        cons = torch.where(settled, consensus.to(f32), 0.0)
+        brier = torch.sum(
+            torch.where(settled, (cons - outcome_f) ** 2, 0.0), dim=1
+        )
+        if has_graph:
+            damping, lane_steps, lane_tol = graph
+            neighbor_idx, neighbor_w = neighbors
+            graph_brier = torch.stack([
+                torch.sum(torch.where(
+                    settled[c],
+                    (torch.where(settled[c], _lane_damped_relax(
+                        consensus[c], neighbor_idx, neighbor_w, damping[c],
+                        lane_steps[c], max_graph_steps, lane_tol[c],
+                    ), 0.0) - outcome_f) ** 2,
+                    0.0,
+                ))
+                for c in range(num_lanes)
+            ])
+        else:
+            # No relaxation: the graph Brier is the plain Brier.
+            graph_brier = brier
+        delta = torch.stack([
+            torch.sum(settled, dim=1).to(f32), brier, widths, graph_brier,
+        ], dim=1)
+        return (rel, conf, days, exists), metrics + delta.to(metrics.dtype)
+
+    _REPLAY_SWEEP_CACHE[key] = step
+    return step
 
 
 def relayout_slot_state(

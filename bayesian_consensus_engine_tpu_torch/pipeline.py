@@ -1271,7 +1271,10 @@ class ShardedSettlementSession:
         bytes — and the consensus are exactly :meth:`settle`'s: analytics
         only reads. *analytics* defaults to ``AnalyticsOptions()``;
         ``tiebreak=False`` drops the tie-break (``None`` in its slot);
-        ``tiebreak="sorted"`` raises ``NotImplementedError``. ``graph`` is
+        ``tiebreak="sorted"`` runs the sort-based grouping
+        (``ops/tiebreak.py::batched_tiebreak``: NaN/0 on an empty row)
+        over the partials kernel's read views, on a mesh with one sources
+        shard (a sources-sharded mesh refuses it). ``graph`` is
         an :class:`~.analytics.graph.MarketGraph`; ``blocks`` (an
         :class:`~.infer.blocks.MarketBlocks`) alone become the graph, and
         with or without a graph project the propagated output on the

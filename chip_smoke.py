@@ -6,13 +6,14 @@ and check them.
 Phases, one JSON line each:
 
 1. ``device``       the card (``nvidia-smi`` name and power limit).
-2. ``build``        compile the four kernels from the package's ``.cu``
-                    sources, one ``nvcc`` each, started together; fail if
-                    ptxas reports a spill in any of the four kernels, or a
-                    stack frame in any instantiation but the two wide
-                    stack-tree ones (``onepass_settle`` and
-                    ``onepass_partials`` beyond 64 slots), or if the log
-                    lacks an entry function of any of them.
+2. ``build``        compile the four kernel sources from the package's
+                    ``.cu`` files, one ``nvcc`` each, started together; fail
+                    if ptxas reports a spill in any kernel, or a stack frame
+                    in any instantiation but the two wide stack-tree ones
+                    (``onepass_settle`` and ``onepass_partials`` beyond 64
+                    slots), or if the log lacks an entry function of any of
+                    them (``settle_cycles.cu`` also holds the replay lanes'
+                    ``settle_cycles_lanes`` kernel).
 3. ``kernel_check`` ``settle_cycles`` against its plain torch version on
                     the card, float32 and float64, K in {1, 5, 15, 16, 40,
                     65, 200}, a ragged M, steps in {0, 1, 2, 20}, with pads,
@@ -177,8 +178,12 @@ Phases, one JSON line each:
                     ``stream_launches``, theirs in phase 17, and
                     ``serve_launches``, theirs in phase 18 (``settle_cycles``:
                     the two seeding settles and the CLI's serve;
-                    ``onepass_settle``: acts A and B and A's re-drive). The
-                    line is printed after phase 18.
+                    ``onepass_settle``: acts A and B and A's re-drive);
+                    ``onepass_partials`` also ``analytics_rest_launches``,
+                    its launches in phase 19, and ``settle_cycles``
+                    ``replay_launches``, lane 0's in phase 20. A fifth entry,
+                    ``settle_cycles_lanes``, comes from phase 20. The line is
+                    printed after phase 20.
 15. ``batch_consensus`` the consensus surface, which runs none of the four
                     kernels: the main path's 1,000,000 markets as object
                     payloads (``{"sourceId", "probability"}`` dicts) with a
@@ -246,12 +251,14 @@ Phases, one JSON line each:
                     probabilities redrawn, B2 the drifting batch (as
                     ``delta_check`` makes it), B3 B2's topology redrawn —
                     through ``settle_stream(reuse_plans=True, columnar=
-                    True, journal=...)`` three times, each on a fresh card
+                    True, journal=...)`` twice, each on a fresh card
                     store: A flat (``settle_cycles``); R on the (1, 1) mesh
                     of the card (``onepass_settle``), with a SQLite tail
                     flush and a trace, under a recording timeline, an
-                    enabled registry and a tracer; D ``drive_trace`` of
-                    R's trace on the same mesh. Each stream's prefetch
+                    enabled registry and a tracer. R's trace and its
+                    store's ``store_digest`` go to phase 20, whose lane 0
+                    re-drives the trace (this phase's own ``drive_trace``
+                    re-drive, D, was cut for time). Each stream's prefetch
                     worker takes batch k only after batch k-1 was yielded
                     (an ungated worker interns ahead of the epochs, and
                     the journal bytes would depend on thread timing).
@@ -259,11 +266,11 @@ Phases, one JSON line each:
                     "relayout", "refresh"]``, ``plan_reused`` ``[False,
                     True, False, True]``, ``stream.resident_fallbacks`` 0
                     and ``stream.session_adopts`` 1; A must launch
-                    ``settle_cycles`` 4 times and R and D
-                    ``onepass_settle`` 4 times each (no other settle
-                    kernel); A's and R's stores (reliability, confidence,
-                    stamps, existence, row assignment) and R's and D's
-                    must be bit-equal, their journals byte-equal with each
+                    ``settle_cycles`` 4 times and R ``onepass_settle`` 4
+                    times (no other settle kernel); A's and R's stores
+                    (reliability, confidence, stamps, existence, row
+                    assignment) must be bit-equal, their journals
+                    byte-equal with each
                     epoch's ``wall_unix_ts`` (and the CRC over it) masked,
                     each batch's consensus within tolerance, and R's tail
                     flush must write every existing row. Prints each run's
@@ -328,6 +335,47 @@ Phases, one JSON line each:
                     to a fresh DB and ``list-sources --market-id`` of a
                     served market, through the CLI's ``main()`` in this
                     process, must exit 0 and list its sources.
+19. ``analytics_rest`` the main path's data on two fresh card stores,
+                    each through a session on the card's (1, 1) mesh: two
+                    20-step ``settle_with_analytics`` calls (the second's
+                    reads decay 10 days), one with the ring tie-break
+                    (``onepass_settle``), one with ``tiebreak="sorted"``
+                    (one ``onepass_partials`` launch a call, its read views
+                    through the eager ``batched_tiebreak``). The sorted
+                    session's state must be bit-equal to the ring
+                    session's after each call (its consensus within
+                    tolerance; whether bit-equal is printed); the card's
+                    sorted tie-break bit-equal to its plain run on the CPU
+                    on the same views; and, before the ring session's
+                    second call, ``build_band_program`` on the session's
+                    block, state and read day (one zero-step partials
+                    launch) must leave the state bit-equal and give the
+                    bands that call returns, bit for bit. Prints the
+                    launches, the sorted tie-break's eager stage time and
+                    the band program's (CUDA events over a window,
+                    ``paced_by`` as in phase 14) and host seconds.
+20. ``replay``      ``replay_sweep`` over phase 17's trace (four 1M-market
+                    batches, 20 steps) with 16 configs, the JAX bench's
+                    grid (``bench.py:4310-4318``): one ``settle_cycles``
+                    (lane 0's flat re-drive) and one ``settle_cycles_lanes``
+                    launch a batch; lane 0's ``store_digest`` must equal
+                    R's; every lane settles the same markets, the lanes'
+                    metrics are finite and their band widths move with z;
+                    a second sweep with ``rebuild=False`` gives the same
+                    lane metrics and lane-state bytes; ``replay_single`` of
+                    an altered lane equals its sweep lane (settled markets,
+                    sums within rel 1e-6). ``settle_cycles_lanes`` on the
+                    last batch's 16 lanes at their full 1M markets must be
+                    bit-equal to its plain version (state and consensus;
+                    ``max_abs_err`` is the measured largest difference),
+                    then is timed at the same shape in place
+                    (every masked row exists after a warm-up launch: the
+                    steady state) with its plain version and byte bound,
+                    and lane 0 alone through the same launch
+                    (``one_lane_ms``).
+                    Prints per batch the host seconds of the plan, lane 0's
+                    dispatch, the lane launch and the whole step, each
+                    closed by a synchronise, and each lane's means.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -1283,18 +1331,18 @@ def journal_digest(path):
 
 def stream_phase(smi, market_keys, codes, probs, offsets, outcomes):
     """The streamed, resident settlement service at the main path's width:
-    four batches through a flat stream (A), a resident stream with the
-    observability on (R) and a re-drive of R's trace (D), each on a fresh
-    card store; A's and R's and R's and D's stores bit-equal and journals
-    byte-equal (wall clock masked). Returns the launches of
-    ``settle_cycles`` in A and of ``onepass_settle`` in R."""
+    four batches through a flat stream (A) and a resident stream with the
+    observability on (R), each on a fresh card store; A's and R's stores
+    bit-equal and journals byte-equal (wall clock masked). Returns the
+    launches of ``settle_cycles`` in A and of ``onepass_settle`` in R, R's
+    trace and R's store digest (the replay phase re-drives the trace)."""
     from bayesian_consensus_engine_tpu_torch import obs, pipeline
+    from bayesian_consensus_engine_tpu_torch.cluster.recover import store_digest
     from bayesian_consensus_engine_tpu_torch.ops import (
         onepass_kernel,
         settle_kernel,
     )
     from bayesian_consensus_engine_tpu_torch.parallel.mesh import make_mesh
-    from bayesian_consensus_engine_tpu_torch.serve.driver import drive_trace
     from bayesian_consensus_engine_tpu_torch.state import journal
     from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
         TensorReliabilityStore,
@@ -1418,6 +1466,9 @@ def stream_phase(smi, market_keys, codes, probs, offsets, outcomes):
             counters.get("stream.session_adopts") != 1:
         raise AssertionError(f"resident stream counters: {counters}")
     state_r = host_state(store_r)
+    start = time.perf_counter()
+    digest_r = store_digest(store_r)
+    seconds["R_digest"] = time.perf_counter() - start
     del store_r
     same_state(state_r, state_a, "A against R")
     journal_r = journal_digest(os.path.join(work.name, "R.jrnl"))
@@ -1436,25 +1487,15 @@ def stream_phase(smi, market_keys, codes, probs, offsets, outcomes):
                   for name in ("R.jrnl", "R.trace", "R.db")}
     os.remove(db_path)
 
-    # D: the trace re-driven through the resident driver.
+    # R's trace, for the replay phase (20): its lane 0 re-drives it and
+    # must rebuild R's store (the re-drive this phase made through
+    # drive_trace until the replay lab was ported).
     trace = journal.read_trace(trace_path, strict=True)
-    onepass_kernel.LAUNCHES = 0
-    start = time.perf_counter()
-    store_d = TensorReliabilityStore()
-    drive_trace(store_d, trace, mesh=mesh,
-                journal=os.path.join(work.name, "D.jrnl"))
-    seconds["D"] = time.perf_counter() - start
-    launches_d = onepass_kernel.LAUNCHES
-    same_state(host_state(store_d), state_r, "R against D")
-    if journal_digest(os.path.join(work.name, "D.jrnl")) != journal_r:
-        raise AssertionError("R against D: the journals differ")
-    del store_d, trace
     work.cleanup()
 
     emit("stream", markets=len(market_keys), batches=len(batches),
          rows=len(state_r[0]), steps=STEPS, launches={
-             "A_settle_cycles": launches_a[0], "R_onepass_settle": launches_r[1],
-             "D_onepass_settle": launches_d},
+             "A_settle_cycles": launches_a[0], "R_onepass_settle": launches_r[1]},
          session_adopt=adopts, plan_reused=reused,
          entering_rows=entering, journal_epochs=len(journal_r),
          max_abs_consensus_err=worst,
@@ -1466,8 +1507,9 @@ def stream_phase(smi, market_keys, codes, probs, offsets, outcomes):
          hbm={name: export["gauges"].get(name)
               for name in ("hbm.bytes_in_use", "hbm.peak_bytes")},
          trace_events=len(tracer.events()), file_bytes=file_bytes,
-         sqlite_rows=flushed_rows, seconds=seconds, nvidia_smi=smi)
-    return launches_a[0], launches_r[1]
+         sqlite_rows=flushed_rows, store_digest=digest_r, seconds=seconds,
+         nvidia_smi=smi)
+    return launches_a[0], launches_r[1], trace, digest_r
 
 
 # serve: the request front door at the main path's width.
@@ -2034,6 +2076,362 @@ def _serve_acts(smi, market_keys, codes, probs, offsets, outcomes, loadgen):
             {"A": launches_a, "A_redrive": launches_d, "B": launches_b})
 
 
+# analytics_rest: the sorted tie-break and the standalone band program.
+REST_NOW = NOW + 60 * STEPS
+
+
+def analytics_rest_phase(smi, market_keys, codes, probs, offsets, outcomes):
+    """The sorted tie-break and the standalone band program at the main
+    path's width on the card's (1, 1) mesh. Returns the partials kernel's
+    launches (two sorted calls, two band programs)."""
+    from bayesian_consensus_engine_tpu_torch import pipeline
+    from bayesian_consensus_engine_tpu_torch.analytics import (
+        AnalyticsOptions,
+        build_band_program,
+    )
+    from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
+    from bayesian_consensus_engine_tpu_torch.ops import (
+        onepass_kernel,
+        partials_kernel,
+        settle_kernel,
+    )
+    from bayesian_consensus_engine_tpu_torch.ops import tiebreak as tiebreak_ops
+    from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
+        MarketBlockState,
+    )
+    from bayesian_consensus_engine_tpu_torch.parallel import sharded
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    seconds = {}
+    sources = SourceCodes(codes, [f"src-{i}" for i in range(SOURCES)])
+    # The sorted route hands its read views to batched_tiebreak: kept to
+    # hold the card's tie-break against its plain run on the CPU.
+    views = []
+    real_tiebreak = sharded.batched_tiebreak
+
+    def capturing(*args):
+        out = real_tiebreak(*args)
+        views.append((args, out))
+        return out
+
+    times = (REST_NOW, REST_NOW + STEPS + 9)  # the second call's reads decay
+    runs = {}
+    band_checks = []
+    for kind, option in (("ring", True), ("sorted", "sorted")):
+        start = time.perf_counter()
+        store = TensorReliabilityStore()
+        plan = pipeline.build_settlement_plan_columnar(
+            store, market_keys, sources, probs, offsets)
+        seconds[f"{kind}_plan"] = time.perf_counter() - start
+        onepass_kernel.LAUNCHES = 0
+        partials_kernel.LAUNCHES = 0
+        settle_kernel.LAUNCHES = 0
+        sharded.batched_tiebreak = capturing
+        outputs, states = [], []
+        try:
+            session = pipeline.ShardedSettlementSession(store, plan)
+            for call, now in enumerate(times, 1):
+                if kind == "ring" and call == 2:
+                    # The standalone band program on the block this call
+                    # reads, with the state as it is: then the call itself.
+                    (shard,), = session._state
+                    program_args = (session._probs_g, session._mask_g,
+                                    session._state, session._now0(now))
+                    before = [x.clone() for x in shard]
+                    program = build_band_program(session._mesh)
+                    start = time.perf_counter()
+                    program_bands = program(*program_args)
+                    torch.cuda.synchronize()
+                    seconds["band_program"] = time.perf_counter() - start
+                    for got, want in zip(shard, before):
+                        check_equal(got, want, "the band program's state")
+                start = time.perf_counter()
+                result, tiebreak, bands, _ = session.settle_with_analytics(
+                    outcomes, steps=STEPS, now=now,
+                    analytics=AnalyticsOptions(tiebreak=option))
+                result.fence()
+                seconds[f"{kind}_call_{call}"] = time.perf_counter() - start
+                outputs.append((result.consensus, tiebreak, bands))
+                (shard,), = session._state
+                states.append([x.clone() for x in shard])
+                if kind == "ring" and call == 2:
+                    for name, values in zip(bands._fields, bands):
+                        check_bits(getattr(program_bands, name),
+                                   torch.from_numpy(np.asarray(values)),
+                                   f"band program {name} vs the session's")
+                    band_checks.append(len(bands._fields))
+            session.close()
+        finally:
+            sharded.batched_tiebreak = real_tiebreak
+        launches = (onepass_kernel.LAUNCHES, partials_kernel.LAUNCHES,
+                    settle_kernel.LAUNCHES)
+        expected = (2, 1, 0) if kind == "ring" else (0, 2, 0)
+        if launches != expected:
+            raise AssertionError(f"{kind} session launches (onepass, partials, "
+                                 f"settle): {launches}, expected {expected}")
+        runs[kind] = (outputs, states, launches)
+        del store, plan, session
+    if len(views) != 2 or not band_checks:
+        raise AssertionError("the sorted route did not reach batched_tiebreak")
+    # The sorted session's state bit-equal to the ring session's, call by
+    # call; the consensus too (both kernels sum a market's slots in order).
+    consensus_bit_equal = True
+    worst = 0.0
+    for call, (ring_state, sorted_state) in enumerate(
+            zip(runs["ring"][1], runs["sorted"][1]), 1):
+        for name, got, want in zip(STATE_NAMES, sorted_state, ring_state):
+            check_equal(got, want, f"sorted vs ring state call {call} {name}")
+        ring_c, sorted_c = runs["ring"][0][call - 1][0], runs["sorted"][0][call - 1][0]
+        consensus_bit_equal &= bool(np.array_equal(ring_c, sorted_c,
+                                                   equal_nan=True))
+        worst = max(worst, check_consensus(torch.from_numpy(sorted_c),
+                                           torch.from_numpy(ring_c),
+                                           f"sorted vs ring consensus {call}"))
+    # The card's sorted tie-break against its plain run on the CPU, on the
+    # same views, call by call.
+    for call, (args, out) in enumerate(views, 1):
+        start = time.perf_counter()
+        want = tiebreak_ops.batched_tiebreak(
+            *(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
+        seconds[f"cpu_tiebreak_{call}"] = time.perf_counter() - start
+        for name, got, ref in zip(want._fields, out, want):
+            check_bits(got, ref, f"sorted tie-break call {call} {name} vs CPU")
+        if int((out.num_groups == 0).sum()) and not bool(
+                torch.isnan(out.prediction[out.num_groups == 0]).all()):
+            raise AssertionError("an empty market's sorted prediction is not NaN")
+    sorted_tiebreak = runs["sorted"][0][1][1]
+    resolved = np.bincount(np.asarray(sorted_tiebreak.resolved_by), minlength=3)
+    # Times of the sorted tie-break's eager stage and of the band program.
+    args, _out = views[1]
+    tiebreak_ms, tiebreak_paced_by = time_window(
+        lambda a: tiebreak_ops.batched_tiebreak(*a), lambda: args,
+        warmup=1, runs=5)
+    band_ms, band_paced_by = time_window(
+        lambda a: program(*a), lambda: program_args, warmup=2, runs=11)
+    emit("analytics_rest", markets=MARKETS, steps=STEPS, calls=len(times),
+         launches={kind: dict(zip(("onepass_settle", "onepass_partials",
+                                   "settle_cycles"), runs[kind][2]))
+                   for kind in runs},
+         state_bit_equal=True, consensus_bit_equal=consensus_bit_equal,
+         max_abs_consensus_err=worst, tiebreak_vs_cpu="bit-equal",
+         resolved_by_counts=resolved.tolist(),
+         band_program_vs_session="bit-equal", band_program_state="unchanged",
+         sorted_tiebreak_ms=tiebreak_ms,
+         sorted_tiebreak_paced_by=tiebreak_paced_by,
+         band_program_ms=band_ms, band_program_paced_by=band_paced_by,
+         seconds=seconds, nvidia_smi=smi)
+    return runs["sorted"][2][1] + runs["ring"][2][1]
+
+
+STATE_NAMES = ("reliability", "confidence", "updated_days", "exists")
+# replay: the sweep's lanes, as the JAX bench's grid walks its four knobs
+# (bench.py:4310-4318): 16 configs, lane 0 the recorded one.
+REPLAY_CONFIGS = 16
+
+
+def replay_configs(replay):
+    return [replay.RECORDED_CONFIG] + [
+        replay.ReplayConfig(
+            half_life_days=15.0 + 5.0 * (i % 4),
+            base_learning_rate=0.04 + 0.02 * (i % 3),
+            max_update_step=0.06 + 0.03 * (i % 3),
+            band_z=1.25 + 0.25 * (i % 4),
+        )
+        for i in range(REPLAY_CONFIGS - 1)
+    ]
+
+
+def replay_phase(smi, trace, live_digest, ptxas):
+    """``replay_sweep`` over the stream phase's trace with 16 configs; the
+    lane kernel's check and timing. Returns the kernels-line entry of
+    ``settle_cycles_lanes`` and the settle kernel's launches (lane 0)."""
+    from bayesian_consensus_engine_tpu_torch import replay
+    from bayesian_consensus_engine_tpu_torch.ops import settle_kernel
+    from bayesian_consensus_engine_tpu_torch.parallel import sharded
+    from bayesian_consensus_engine_tpu_torch.serve import driver
+
+    configs = replay_configs(replay)
+    steps = int(trace[0].steps)
+    seconds = {}
+    per_batch = {"plan": [], "lane0": [], "lane_launch": [], "step": []}
+    # Host seconds a batch: the plan (stage + bind), lane 0's dispatch and
+    # checkpoint, the lanes' launch and the whole step (band widths,
+    # launch, metrics), each closed by a synchronise.
+    real_plan_for = driver.PlanCache.plan_for
+    real_dispatch = driver.SessionDriver.dispatch
+    real_lanes = sharded.settle_cycles_lanes
+    captured = []
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            per_batch[key].append(time.perf_counter() - start)
+            return out
+        return wrapper
+
+    def capturing_lanes(*args, **kwargs):
+        if len(captured) == 0 and len(per_batch["lane_launch"]) == len(trace) - 1:
+            # The last batch's inputs, before the launch moves them.
+            captured.append([a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args])
+        return timed("lane_launch", real_lanes)(*args, **kwargs)
+
+    step = sharded.build_replay_sweep_step(steps, 0)
+    sharded._REPLAY_SWEEP_CACHE[(steps, 0)] = timed("step", step)
+    driver.PlanCache.plan_for = timed("plan", real_plan_for)
+    driver.SessionDriver.dispatch = timed("lane0", real_dispatch)
+    sharded.settle_cycles_lanes = capturing_lanes
+    try:
+        settle_kernel.LAUNCHES = 0
+        settle_kernel.LANE_LAUNCHES = 0
+        start = time.perf_counter()
+        first = replay.replay_sweep(trace, configs, device="cuda")
+        seconds["sweep"] = time.perf_counter() - start
+        launches = (settle_kernel.LAUNCHES, settle_kernel.LANE_LAUNCHES)
+    finally:
+        sharded._REPLAY_SWEEP_CACHE[(steps, 0)] = step
+        driver.PlanCache.plan_for = real_plan_for
+        driver.SessionDriver.dispatch = real_dispatch
+        sharded.settle_cycles_lanes = real_lanes
+    if launches != (len(trace), len(trace)):
+        raise AssertionError(f"replay launches (settle_cycles, "
+                             f"settle_cycles_lanes): {launches}, expected one "
+                             "each a batch")
+    if first.digest != live_digest:
+        raise AssertionError("lane 0's rebuild differs from the live stream's "
+                             "store")
+    settled = [lane.markets_settled for lane in first.lanes]
+    if len(set(settled)) != 1 or settled[0] <= 0:
+        raise AssertionError(f"lanes settled {settled} markets")
+    metrics = np.float64([[lane.brier_sum, lane.band_width_sum,
+                           lane.graph_brier_sum] for lane in first.lanes])
+    if not np.all(np.isfinite(metrics)) or len(np.unique(metrics[:, 1])) < 4:
+        raise AssertionError("lane metrics not finite, or the lanes' band "
+                             "widths did not move with their z")
+    reliability = first.lane_state[0]
+    if np.array_equal(reliability[0], reliability[1]):
+        raise AssertionError("an altered lane did not diverge")
+    first_lanes, first_state = first.lanes, first.lane_state
+    lane0_digest, result_digest = first.digest, first.result_digest
+    del first, reliability  # the lane-0 store with it
+
+    start = time.perf_counter()
+    second = replay.replay_sweep(trace, configs, rebuild=False,
+                                 device="cuda")
+    seconds["sweep_again"] = time.perf_counter() - start
+    if second.lanes != first_lanes or any(
+            a.tobytes() != b.tobytes()
+            for a, b in zip(second.lane_state, first_state)):
+        raise AssertionError("a second sweep gave other lane metrics or state")
+    del second, first_state
+    altered = configs[5]
+    start = time.perf_counter()
+    alone = replay.replay_single(trace, altered, device="cuda")
+    seconds["single"] = time.perf_counter() - start
+    lane = dict(zip(configs, first_lanes))[altered]
+    if alone.markets_settled != lane.markets_settled or not (
+            np.isclose(alone.brier_sum, lane.brier_sum, rtol=1e-6, atol=0)
+            and np.isclose(alone.band_width_sum, lane.band_width_sum,
+                           rtol=1e-6, atol=0)):
+        raise AssertionError(f"replay_single {alone} vs the sweep's {lane}")
+
+    # The lane kernel against its plain version on the last batch's lanes,
+    # at the main path's shapes (its staging and routes are those of the
+    # timed launches below): the plain version is functional, the kernel
+    # runs on clones, and every output must be bit-equal.
+    (rel, conf, days, exists, slot_rows, probs_d, mask_d, outcome_d, offsets_d,
+     num_touched, now0, lane_steps, params) = captured[0]
+    full_args = captured[0]
+    start = time.perf_counter()
+    want = settle_kernel.settle_cycles_lanes_reference(*full_args)
+    got = settle_kernel.settle_cycles_lanes(
+        *[a.clone() if isinstance(a, torch.Tensor) else a for a in full_args])
+    torch.cuda.synchronize()
+    lanes_err = 0.0
+    for name, x, y in zip(STATE_NAMES + ("consensus",), got, want):
+        check_bits(x, y, f"settle_cycles_lanes {name} vs its plain version")
+        if y.is_floating_point():
+            finite = ~torch.isnan(y)
+            lanes_err = max(lanes_err, float(
+                (x[finite] - y[finite]).abs().max()) if finite.any() else 0.0)
+    del want, got
+    seconds["lane_check"] = time.perf_counter() - start
+    # Its time at the full shape, launched in place on the captured lanes
+    # after a warm-up launch: every masked row then exists, the steady
+    # state the byte bound counts.
+    settle_kernel.settle_cycles_lanes(*full_args)
+    lanes_ms = time_cuda(lambda a: settle_kernel.settle_cycles_lanes(*a),
+                         lambda: full_args, warmup=2, runs=21)
+    plain_ms, plain_paced_by = time_window(
+        lambda a: settle_kernel.settle_cycles_lanes_reference(*a),
+        lambda: full_args, warmup=1, runs=3)
+    # Lane 0 alone through the same launch: the time of one lane, against
+    # which the 16-lane launch's time per lane reads.
+    one_lane = [*(x[:1] for x in full_args[:4]), *full_args[4:12],
+                full_args[12][:1]]
+    one_lane_ms = time_cuda(lambda a: settle_kernel.settle_cycles_lanes(*a),
+                            lambda: one_lane, warmup=2, runs=21)
+    rows_d = slot_rows[mask_d].long()
+    lane_existing = [int(full_args[3][c][rows_d].sum())
+                     for c in range(len(configs))]
+    bound = settle_kernel.lanes_bound_bytes(
+        len(configs), int(slot_rows.shape[0]), int(slot_rows.shape[1]),
+        int(num_touched), lane_existing, lane_steps, 4)
+    routes = torch.zeros(3, dtype=torch.int32, device="cuda")
+    settle_kernel.settle_cycles_lanes(*full_args, routes=routes)
+    staged, wide, stage_slots = routes.tolist()
+    emit("replay", batches=len(trace), lanes=len(configs), steps=steps,
+         rows=int(rel.shape[1]), markets_settled=settled[0],
+         launches={"settle_cycles": launches[0],
+                   "settle_cycles_lanes": launches[1]},
+         lane0_digest=lane0_digest, result_digest=result_digest,
+         run_twice="equal", single_vs_sweep="equal",
+         lane_reports=[{"config": dict(lane.config._asdict()),
+                 "brier_mean": lane.brier_mean,
+                 "band_width_mean": lane.band_width_mean}
+                for lane in first_lanes],
+         per_batch_seconds=per_batch, seconds=seconds,
+         check_markets=int(slot_rows.shape[1]), nvidia_smi=smi)
+    entry = {
+        "name": "settle_cycles_lanes",
+        "route": "cuda",
+        "source": "bayesian_consensus_engine_tpu_torch/csrc/settle_cycles.cu",
+        "replaces": "bayesian_consensus_engine_tpu/ops/pallas_cycle.py:95",
+        "launches": launches[1],
+        "max_abs_err": lanes_err,
+        "ms": lanes_ms,
+        "kernel_ms": lanes_ms,
+        "plain_ms": plain_ms,
+        "plain_paced_by": plain_paced_by,
+        "bound_ms": bound / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "bound_bytes": bound,
+        "library_ms": None,
+        "lanes": len(configs),
+        "one_lane_ms": one_lane_ms,
+        "one_lane_bound_ms": settle_kernel.lanes_bound_bytes(
+            1, int(slot_rows.shape[0]), int(slot_rows.shape[1]),
+            int(num_touched), lane_existing[:1], lane_steps, 4,
+        ) / HBM_BYTES_PER_S * 1e3,
+        "markets": int(slot_rows.shape[1]),
+        "stage_slots": stage_slots,
+        "tiles": staged + wide,
+        "wide_tiles": wide,
+        # ptxas' figures of the lane instantiations with a 32-bit step
+        # counter, float32 and float64.
+        "ptxas": {dt: next((figures for name, figures
+                            in ptxas["settle_cycles.cu"].items()
+                            if f"settle_cycles_lanes_kernelI{code}iE" in name),
+                           None)
+                  for dt, code in (("float32", "f"), ("float64", "d"))},
+    }
+    return entry, launches[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2089,7 +2487,8 @@ def main() -> int:
         "bp_sweep.cu": [f"bp_sweep_kernelILb{lane}E" for lane in (0, 1)],
         "onepass_settle.cu": [f"onepass_settle_kernelI{t}Li{d}E"
                               for t in "fd" for d in depths],
-        "settle_cycles.cu": [f"settle_cycles_kernelI{t}{n}E"
+        "settle_cycles.cu": [f"settle_cycles{lanes}_kernelI{t}{n}E"
+                             for lanes in ("", "_lanes")
                              for t in "fd" for n in "il"],
         "onepass_partials.cu": [f"onepass_partials_kernelI{t}Li{d}E"
                                 for t in "fd" for d in depths],
@@ -3263,15 +3662,25 @@ def main() -> int:
 
     # 17. stream
     del store
-    settle_entry["stream_launches"], onepass_entry["stream_launches"] = (
-        stream_phase(smi, market_keys, codes, probs, offsets, outcomes))
+    (settle_entry["stream_launches"], onepass_entry["stream_launches"],
+     stream_trace, stream_digest) = stream_phase(
+        smi, market_keys, codes, probs, offsets, outcomes)
 
     # 18. serve
     settle_entry["serve_launches"], onepass_entry["serve_launches"] = (
         serve_phase(smi, market_keys, codes, probs, offsets, outcomes))
 
+    # 19. analytics_rest
+    partials_entry["analytics_rest_launches"] = analytics_rest_phase(
+        smi, market_keys, codes, probs, offsets, outcomes)
+
+    # 20. replay
+    lanes_entry, settle_entry["replay_launches"] = replay_phase(
+        smi, stream_trace, stream_digest, ptxas)
+    del stream_trace
+
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
-                                  partials_entry]}), flush=True)
+                                  partials_entry, lanes_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

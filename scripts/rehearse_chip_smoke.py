@@ -4,13 +4,16 @@ Usage: python scripts/rehearse_chip_smoke.py [MARKETS] [DUMP_MARKETS] [DIVISOR]
 
 Runs chip_smoke's ``native``, ``main_path``, ``host_routes`` and
 ``delta_check`` phases (7 to 10), then its ``journal`` phase (16) on the
-main path's store, its ``stream`` phase (17) and its ``serve`` phase (18)
-on the main path's data, on CPU stores, from the repository root. The
+main path's store, its ``stream`` (17), ``serve`` (18) and
+``analytics_rest`` (19) phases on the main path's data and its ``replay``
+phase (20) on the stream's trace, on CPU stores, from the repository
+root. The
 script's ``main()`` is cut to its import block and those phases,
 ``"cuda"`` becomes ``"cpu"``, stores are built with ``device="cpu"``, the
-``serve`` phase's CLI runs with ``--device cpu``, each call of the settle
-and one-pass kernels' wrappers is counted where the card would launch it
-(in the CLI's subprocess too), and MARKETS (default 5,000), DUMP_MARKETS
+``serve`` phase's CLI runs with ``--device cpu``, each call of the
+settle, lane, one-pass and partials kernels' wrappers is counted where
+the card would launch it (in the CLI's subprocess too), the timed windows
+run on the host clock, and MARKETS (default 5,000), DUMP_MARKETS
 (default 1,000), the host routes' cut (250,000 markets, at most MARKETS),
 the journal phase's delta (100,000 markets, at most half of MARKETS) and
 the ``serve`` phase's request counts divided by DIVISOR (default 16)
@@ -54,6 +57,46 @@ def _counted_onepass(*args, **kwargs):
 
 
 _sharded.onepass_settle = _counted_onepass
+from bayesian_consensus_engine_tpu_torch.analytics import bands as _bands
+from bayesian_consensus_engine_tpu_torch.ops import partials_kernel as _partials_kernel
+_plain_partials = _sharded.onepass_partials
+
+
+def _counted_partials(*args, **kwargs):
+    _partials_kernel.LAUNCHES += 1
+    return _plain_partials(*args, **kwargs)
+
+
+_sharded.onepass_partials = _counted_partials
+_bands.onepass_partials = _counted_partials
+_plain_lanes = _sharded.settle_cycles_lanes
+
+
+def _counted_lanes(*args, **kwargs):
+    _settle_kernel.LANE_LAUNCHES += 1
+    return _plain_lanes(*args, **kwargs)
+
+
+_sharded.settle_cycles_lanes = _counted_lanes
+"""
+
+# CUDA events and the device's sleep do not exist on the CPU: the
+# rehearsal times its windows on the host clock.
+HOST_TIMING = """
+
+def time_window(fn, prepare, warmup, runs):
+    for _ in range(warmup):
+        fn(prepare())
+    inputs = [prepare() for _ in range(runs)]
+    start = time.perf_counter()
+    for args in inputs:
+        fn(args)
+    return (time.perf_counter() - start) * 1e3 / runs, "host"
+
+
+def time_cuda(fn, prepare, warmup, runs):
+    return time_window(fn, prepare, warmup, runs)[0]
+
 """
 
 
@@ -83,8 +126,13 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
         "    journal_phase(smi, store, market_keys, codes, probs, offsets,\n"
         "                  outcomes, main_db, work.name)\n"
         "    del store\n"
-        "    stream_phase(smi, market_keys, codes, probs, offsets, outcomes)\n"
+        "    *_launches, trace, digest = stream_phase(\n"
+        "        smi, market_keys, codes, probs, offsets, outcomes)\n"
         "    serve_phase(smi, market_keys, codes, probs, offsets, outcomes)\n"
+        "    analytics_rest_phase(smi, market_keys, codes, probs, offsets,\n"
+        "                         outcomes)\n"
+        "    print(json.dumps(replay_phase(\n"
+        "        smi, trace, digest, {'settle_cycles.cu': {}})[0]))\n"
     )
     head = re.sub(r"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000",
                   f"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = {markets}", head)
@@ -115,8 +163,8 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
     head = head.replace("import numpy as np\nimport torch\n",
                         "import numpy as np\nimport torch\n" + SHIM, 1)
     imports = imports.replace("if not torch.cuda.is_available():", "if False:")
-    text = (head + "def main() -> int:\n" + imports + phases + journal
-            + "    return 0\n")
+    text = (head + HOST_TIMING + "def main() -> int:\n" + imports + phases
+            + journal + "    return 0\n")
     return text.replace('"cuda"', '"cpu"').replace(
         "TensorReliabilityStore()", 'TensorReliabilityStore(device="cpu")')
 

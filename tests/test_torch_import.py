@@ -6,15 +6,19 @@ batched consensus documents, settling on the CPU, settling through the
 resident session with analytics and graph inference, settling on a
 sources-sharded CPU mesh, writing, replaying and compacting a two-epoch
 journal beside a background SQLite flush, streaming batches through a
-resident session with a journal and a trace and re-driving the trace, and
+resident session with a journal and a trace, re-driving the trace and
+replaying it under an altered config (the replay lab, its lane kernel's
+plain version and the store digest), the sorted tie-break and the
+standalone band program, and
 rendering, serving and folding the telemetry, and serving two requests
 through the request front door (the coalescing service with analytics on
 a (1, 1) CPU mesh and a journal, behind the socket server, to the
 client) loads neither JAX nor any module of the JAX package (its
 ``_native`` extensions included); a static scan of every port source,
-``chip_smoke.py`` and its rehearsal script finds no import of either,
-even inside a function; and the port's device policy is explicit (CUDA
-unless the CPU is asked for; no silent fallback)."""
+``chip_smoke.py`` and its rehearsal script (``replay/`` and the
+``cluster/`` copy among them) finds no import of either, even inside a
+function; and the port's device policy is explicit (CUDA unless the CPU
+is asked for; no silent fallback)."""
 
 import ast
 import os
@@ -61,6 +65,9 @@ from bayesian_consensus_engine_tpu_torch.utils import interning, profiling
 from bayesian_consensus_engine_tpu_torch import cli, net
 from bayesian_consensus_engine_tpu_torch.net import client, server, wire
 from bayesian_consensus_engine_tpu_torch.serve import admission, coalesce
+from bayesian_consensus_engine_tpu_torch import cluster, replay
+from bayesian_consensus_engine_tpu_torch.cluster import recover
+from bayesian_consensus_engine_tpu_torch.replay import lab
 import asyncio
 import os
 import tempfile
@@ -161,6 +168,20 @@ with tempfile.TemporaryDirectory() as work:
     again.sync()
     stream_store.sync()
     assert again.list_sources() == stream_store.list_sources()
+    swept = replay.replay_sweep(
+        replay.load_trace(path), [replay.ReplayConfig(half_life_days=12.0)],
+        device="cpu")
+    assert swept.digest == recover.store_digest(stream_store)
+    assert [lane.markets_settled for lane in swept.lanes] == [4, 4]
+with port.ShardedSettlementSession(store, plan) as session:
+    _, tb, bands_out, _ = session.settle_with_analytics(
+        [True, False], steps=2, now=20020.0,
+        analytics=port.AnalyticsOptions(tiebreak="sorted"),
+    )
+    program = bands.build_band_program(session._mesh)
+    again_bands = program(session._probs_g, session._mask_g, session._state,
+                          session._now0(20021.0))
+assert len(tb.prediction) == 2 and len(again_bands.lo) == 2
 assert profiling.device_memory_stats("cpu")["bytes_in_use"] == 0
 live = metrics.MetricsRegistry()
 live.counter("stream.batches").inc(2)
@@ -286,6 +307,23 @@ def test_no_port_source_imports_jax_even_lazily():
 ])
 def test_import_scan_flags_exactly_the_jax_package(source, flagged):
     assert [name for _f, _l, name in forbidden_imports(source)] == flagged
+
+
+@pytest.mark.parametrize("package", ["replay", "cluster"])
+def test_replay_and_cluster_copies_are_scanned(package):
+    """The replay lab and the ``cluster/`` copy it reads are in the static
+    scan and import nothing of JAX; the exact-name test tells their JAX
+    package twins from them."""
+    sources = [path for path in port_sources()
+               if path.parent.name == package
+               and path.parent.parent.name == "bayesian_consensus_engine_tpu_torch"]
+    assert {path.name for path in sources} >= {"__init__.py"} and len(sources) == 2
+    for path in sources:
+        assert not forbidden_imports(path.read_text(encoding="utf-8"))
+    twin = f"bayesian_consensus_engine_tpu.{package}"
+    assert [name for _f, _l, name in forbidden_imports(
+        f"def f():\n    from {twin} import x\n"
+        f"from bayesian_consensus_engine_tpu_torch.{package} import y")] == [twin]
 
 
 def test_port_imports_nothing_of_jax():

@@ -359,16 +359,22 @@ def test_standing_gather_pins_no_budget():
     ("tiebreak", "sorted"),
 ])
 def test_unported_options_raise(field, value):
-    """``tiebreak="sorted"`` is not ported yet; ``graph``, ``inference``
-    and ``blocks`` are (``tests/test_torch_inference_session.py``) and
-    refuse a value of the wrong type."""
+    """``graph``, ``inference`` and ``blocks`` are ported
+    (``tests/test_torch_inference_session.py``) and refuse a value of the
+    wrong type. ``tiebreak="sorted"`` is ported too
+    (``tests/test_torch_tiebreak_batch.py``) and now runs: one-agent and
+    empty markets take its NaN/0 convention."""
     store, plan, outcomes = _port_session()
-    error, match = (
-        (NotImplementedError, "ROADMAP queue 1 item") if field == "tiebreak"
-        else (TypeError, f"analytics.{field} takes")
-    )
     with tpipe.ShardedSettlementSession(store, plan) as session:
-        with pytest.raises(error, match=match):
+        if field == "tiebreak":
+            _result, tiebreak, _bands, _ = session.settle_with_analytics(
+                outcomes, now=NOW, analytics=AnalyticsOptions(**{field: value}),
+            )
+            empty = np.asarray(tiebreak.num_groups) == 0
+            assert empty.any()
+            assert np.isnan(np.asarray(tiebreak.prediction)[empty]).all()
+            return
+        with pytest.raises(TypeError, match=f"analytics.{field} takes"):
             session.settle_with_analytics(
                 outcomes, now=NOW, analytics=AnalyticsOptions(**{field: value}),
             )
