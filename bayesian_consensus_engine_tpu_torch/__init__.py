@@ -15,8 +15,9 @@ bottom → top, each module named after its JAX counterpart:
                 ``csrc/onepass_settle.cu``, ``bp_kernel`` +
                 ``csrc/bp_sweep.cu``, ``partials_kernel`` +
                 ``csrc/onepass_partials.cu``, all built by ``cuda_build``),
-                and the batched consensus sums as ordered segment sums
-                (``consensus``)
+                the batched consensus sums as ordered segment sums
+                (``consensus``), and the in-process collectives over a
+                mesh axis (``collectives``)
   core/         input validation (``validate``), the scalar consensus
                 engine (``engine``), and host packing plus the batched
                 array engine (``batch``: payloads → ordered pair arrays →
@@ -37,14 +38,17 @@ bottom → top, each module named after its JAX counterpart:
   models/       markets, the market store and cross-market aggregator
                 (``market``), and the deterministic tie-breaker
                 (``tiebreak``)
-  parallel/     the (markets, sources) mesh (``mesh``), in-process
-                collectives (``collectives``), this process's band
-                (``distributed``), and the fused settle + analytics loop
-                over a resident block on one card or a mesh (``sharded``)
+  parallel/     the (markets, sources) mesh (``mesh``), this process's
+                band (``distributed``), the fused settle + analytics loop
+                over a resident block on one card or a mesh (``sharded``),
+                the ring-reduced loop, ``reshard`` and the standalone ring
+                tie-break (``ring``), and the counter-compact loop
+                (``compact``)
   analytics/    the options bag of the analytics entry (``bands``) and
                 the market graph (``graph``)
   infer/        graph inference: ``InferenceOptions``,
-                ``propagate_beliefs`` and combinatorial ``MarketBlocks``
+                ``propagate_beliefs``, the banded halo sweep
+                (``partition``) and combinatorial ``MarketBlocks``
   pipeline      plan → settle → deferred absorb → SQLite checkpoint, the
                 resident session on one card or a mesh
                 (``ShardedSettlementSession``, with ``refresh`` and

@@ -18,7 +18,7 @@ K-deep sum, carries a stated tolerance.
 The JAX package's ``axis_name`` (a psum over a sharded sources axis)
 becomes :func:`consensus_merge`: each sources shard's raw local sums
 (:func:`_sums_cycle_math`, computed by the partials kernel) are summed over
-the shards (``parallel/collectives.psum``) and normalised once.
+the shards (``ops/collectives.psum``) and normalised once.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.decay import decayed_reliability_at
 from bayesian_consensus_engine_tpu_torch.ops.update import outcome_update
-from bayesian_consensus_engine_tpu_torch.parallel.collectives import psum
+from bayesian_consensus_engine_tpu_torch.ops.collectives import psum
 from bayesian_consensus_engine_tpu_torch.utils.config import (
     BASE_LEARNING_RATE,
     CONFIDENCE_GROWTH_RATE,

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.fma import fma
-from bayesian_consensus_engine_tpu_torch.parallel.collectives import psum
+from bayesian_consensus_engine_tpu_torch.ops.collectives import psum
 
 #: The recorded default chunk width (``ops/tiebreak.py`` of the JAX
 #: package): the memory-diet default of the fused resident program.
@@ -150,7 +150,7 @@ def ring_tiebreak_math(
     member of a group sees the same bits wherever it lies. Each shard
     folds its agents into a top two; the shards' top twos are merged in
     mesh order, and ``Σ 1/count``, the valid count and the two confidence
-    sums are summed across shards (``parallel/collectives.psum``). Every
+    sums are summed across shards (``ops/collectives.psum``). Every
     shard would compute the same result; it is returned on *device*
     (default: the first shard's).
     """

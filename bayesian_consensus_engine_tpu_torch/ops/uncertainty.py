@@ -33,7 +33,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.fma import fma
-from bayesian_consensus_engine_tpu_torch.parallel.collectives import (
+from bayesian_consensus_engine_tpu_torch.ops.collectives import (
     all_gather,
     psum,
 )

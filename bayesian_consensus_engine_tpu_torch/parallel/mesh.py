@@ -7,7 +7,7 @@ The mesh has two logical axes:
     columns of the slot-major (K, M) block, with no communication;
   * ``sources`` — splits each market's K slots: the per-market sums
     (consensus, band moments, tie-break groups) are merged across the
-    shards of this axis (``parallel/collectives.py``).
+    shards of this axis (``ops/collectives.py``).
 
 A :class:`Mesh` is a (markets, sources) grid of ``torch.device``. A device
 may appear more than once, so one card can hold a (1, 4) mesh: each shard
@@ -156,3 +156,39 @@ def shard_market_vector(vector, mesh: Mesh) -> tuple:
         )
         for i, row in enumerate(mesh.devices)
     )
+
+
+def shard_block(array, mesh: Mesh, dtype=None) -> tuple:
+    """Cut a global market-major (M, K) array (numpy, or a tensor on any
+    device) into the mesh's per-shard tensors, ``P(markets, sources)`` as
+    the JAX package's ``shard_block`` places it: ``blocks[i][j]`` holds
+    market rows ``i·M/Mk … (i+1)·M/Mk`` and slot columns ``j·K/S …
+    (j+1)·K/S`` on ``mesh.devices[i][j]``, as a contiguous copy (of
+    *dtype*, if given). M and K must divide evenly."""
+    if not isinstance(array, torch.Tensor):
+        array = torch.as_tensor(np.asarray(array))
+    num_markets, num_slots = array.shape
+    m_size, s_size = mesh.shape[MARKETS_AXIS], mesh.shape[SOURCES_AXIS]
+    if num_markets % m_size or num_slots % s_size:
+        raise ValueError(
+            f"a ({num_markets}, {num_slots}) block does not divide over a "
+            f"({m_size}, {s_size}) mesh — pad it first"
+        )
+    m_loc, k_loc = num_markets // m_size, num_slots // s_size
+    return tuple(
+        tuple(
+            array[i * m_loc:(i + 1) * m_loc, j * k_loc:(j + 1) * k_loc]
+            .to(device=mesh.devices[i][j], dtype=dtype)
+            .clone(memory_format=torch.contiguous_format)
+            for j in range(s_size)
+        )
+        for i in range(m_size)
+    )
+
+
+def unshard_block(blocks, device=None) -> torch.Tensor:
+    """The global market-major (M, K) tensor of a grid of per-shard blocks
+    cut by :func:`shard_block`, on *device* (default: shard (0, 0)'s)."""
+    return unshard_slot_block(
+        tuple(tuple(block.T for block in row) for row in blocks), device
+    ).T.contiguous()

@@ -38,10 +38,18 @@ others with the partials kernel's zero-step mode (views, band roots and
 count written, the state left alone); the loop writes the zero consensus.
 
 With a graph, the sweep runs ``bp_sweep`` (``ops/bp_kernel.py``) once on
-the merged consensus, on a mesh with one markets shard. A mesh with
-several markets shards needs the reference's all-gather of the
-seeds and blocks and its banded sweep, which are not ported yet. On the
-CPU every kernel's plain version runs.
+the merged consensus. With several markets shards that is the JAX
+package's kernel route (``kernel_sweep``): the shards' consensus, band
+variances and aligned neighbour blocks are gathered in mesh order onto
+the mesh's first device (the consensus as every per-market output is;
+the blocks already live there, over the padded global markets axis they
+index), one sweep runs over the whole axis, and its means and stderrs are
+returned whole beside the other per-market outputs. The reference runs
+that sweep redundantly on every shard and slices each shard's rows back
+out; every copy computes the same bits, so one launch a call is enough,
+and ``iters_run`` and ``residual`` are the whole axis's, as its replicated
+audit pair is (the XLA route's residual is a ``pmax`` over the shards). On
+the CPU every kernel's plain version runs.
 """
 
 from __future__ import annotations
@@ -130,8 +138,9 @@ def build_cycle_analytics_loop(
     ``bp_sweep`` kernel. ``tiebreak_kind="sorted"`` (refused on a
     sources-sharded mesh, as there) runs the partials kernel on the one
     sources shard and :func:`~.ops.tiebreak.batched_tiebreak` over its
-    read views; empty rows take its NaN/0 convention. A graph on a mesh
-    with more than one markets shard is not ported yet.
+    read views; empty rows take its NaN/0 convention. On a mesh with
+    several markets shards the sweep runs once over the gathered axis
+    (module docstring).
     """
     if not isinstance(mesh, Mesh):
         mesh = make_mesh((1, 1), [mesh])
@@ -199,13 +208,6 @@ def build_cycle_analytics_loop(
             "tiebreak_kind='sorted') needs the stage-selective XLA program"
         )
     sorted_tiebreak = with_tiebreak and tiebreak_kind == "sorted"
-    if with_graph and n_market_shards > 1:
-        raise NotImplementedError(
-            f"a graph sweep on a mesh with {n_market_shards} markets shards "
-            "(the all-gather of the seeds and neighbour blocks, and "
-            "infer/partition.py's banded sweep) is not ported yet: ROADMAP "
-            "queue 1 item 9; use a mesh with one markets shard"
-        )
 
     def sweep(consensus, bands, neighbor_idx, neighbor_w):
         # The point lane is the reference's damped_sweep_math, which reads

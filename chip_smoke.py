@@ -181,9 +181,11 @@ Phases, one JSON line each:
                     ``onepass_settle``: acts A and B and A's re-drive);
                     ``onepass_partials`` also ``analytics_rest_launches``,
                     its launches in phase 19, and ``settle_cycles``
-                    ``replay_launches``, lane 0's in phase 20. A fifth entry,
-                    ``settle_cycles_lanes``, comes from phase 20. The line is
-                    printed after phase 20.
+                    ``replay_launches``, lane 0's in phase 20, and
+                    ``bp_sweep`` ``shards_launches``, its launches on phase
+                    21's markets-sharded sessions and banded sweeps. A fifth
+                    entry, ``settle_cycles_lanes``, comes from phase 20. The
+                    line is printed after phase 21.
 15. ``batch_consensus`` the consensus surface, which runs none of the four
                     kernels: the main path's 1,000,000 markets as object
                     payloads (``{"sourceId", "probability"}`` dicts) with a
@@ -196,7 +198,7 @@ Phases, one JSON line each:
                     float32 and float64: all four outputs bit-equal card
                     against CPU, each ordered sum's rounds equal to its
                     longest segment. ``compute_batch_consensus`` on the card
-                    at float64 over the first 250,000 markets (a cut: its
+                    at float64 over the first 100,000 markets (a cut: its
                     host formatting of 1M documents alone takes tens of
                     seconds): every document equal to the one formatted from
                     the 1M-market pass, and 2,000 sampled ones within
@@ -297,8 +299,8 @@ Phases, one JSON line each:
                     ``analytics=True``, ``record_batches=True``) behind a
                     ``ConsensusServer`` on 127.0.0.1 with 4 acceptors; 16
                     client threads of a load-generator process, started
-                    before the store is seeded, each send 4,096 requests
-                    in ``submit_pipelined`` chunks of 256 (65,536 in all),
+                    before the store is seeded, each send 1,024 requests
+                    in ``submit_pipelined`` chunks of 256 (16,384 in all),
                     under an enabled registry and a tracer. Every answer
                     must be a result (no refusal, ``net.wire_errors`` 0),
                     one ``onepass_settle`` launch a batch; the batch log
@@ -317,7 +319,7 @@ Phases, one JSON line each:
                     (``shed_oldest``, budget 64), the shed ranking seeded
                     with act A's band standard errors; 8 premium clients
                     submit one request at a time while one best-effort
-                    client pipelines a 16,384-request burst (in chunks of
+                    client pipelines an 8,192-request burst (in chunks of
                     256: a client that sends the whole burst before reading
                     deadlocks against the server's answers). Premium must
                     refuse nothing, best effort must shed or reject, no
@@ -376,6 +378,54 @@ Phases, one JSON line each:
                     Prints per batch the host seconds of the plan, lane 0's
                     dispatch, the lane launch and the whole step, each
                     closed by a synchronise, and each lane's means.
+
+21. ``shards``     the one-process multi-shard tier on the card. (a) The
+                    main path's batch on three fresh card stores, with phase
+                    12's graph (``InferenceOptions(tol=1e-5, max_steps=
+                    24)``, no block projection), through the one-card
+                    session and sessions on ``make_mesh((4, 1), [cuda] *
+                    4)`` and ``(2, 2)``: two chained 20-step
+                    ``settle_with_analytics`` calls each; ``bp_sweep``'s
+                    launch count must rise by exactly one a call, each
+                    call's sweep must be bit-equal to one whole-axis launch
+                    on its seeds and blocks and the session's means and
+                    stderrs to that launch's; the (4, 1) session's seeds,
+                    means and stderrs must be the one-card session's, bit
+                    for bit (whether the (2, 2) session's seeds are is
+                    printed). Then, on fresh 20,000-market stores with the
+                    graph and its blocks, the one-card session and sessions
+                    on (2, 1), (4, 1) and (2, 2) must leave byte-equal
+                    SQLite files. (b) The one-card session's second sweep
+                    (seeds and aligned blocks at 1M markets) through
+                    ``infer/partition.py``: ``partition_csr`` into 4 and 16
+                    contiguous bands and ``banded_bp_sweep``, whose means,
+                    variances, ``iters_run`` and residual must be bit-equal
+                    to the whole-axis launch's and whose launches must be
+                    bands x iterations; prints ``cross_edges``, the halo
+                    rows, the host seconds of the partition and of the
+                    sweep, and the kernel ms (each band's one-step launch
+                    timed in a queued window, summed over the iterations).
+                    (c) The JAX bench's large-K shape (``bench.py:133-135``:
+                    16,384 markets x 10,000 slots, 50 steps, data made on
+                    the card from the seed, cold state, day 1): the port's
+                    flat cycle loop (``build_cycle_loop``, the one-pass
+                    kernel), its plain cycle math, and the ring loop on
+                    (1, 1) and (1, 4) meshes; every state bit-equal to the
+                    kernel loop's, the ring consensus within rtol 2e-6,
+                    atol 1e-6 of the plain loop's (the sums' order differs;
+                    its distance from the kernel's, which adds the slots in
+                    order, is printed). (d) The compact loop at the same
+                    shape: its decoded state within rtol 1e-6, atol 1e-6 of
+                    the flat loop's (stamps and existence bit-equal), its
+                    consensus within that of the plain loop's,
+                    ``advance_counters`` equal to its counters, and the
+                    loop on uint16 probabilities bit-equal to the loop on
+                    their decode; then one timed compact run at the
+                    north-star band (``bench.py:137-145``: 125,056 x
+                    10,000, 40 steps) and the float32 state through the
+                    flat loop there. Prints cycles per second for every
+                    loop and the peak device bytes above the inputs of the
+                    compact and float32 runs.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -798,7 +848,7 @@ SAMPLE_MARKETS, SWEEP_MARKETS, ABSENT, EMPTY_ENTRY = 2_000, 10_000, 0.10, 0.05
 # compute_batch_consensus runs over the first DOCUMENT_MARKETS of the
 # MARKETS markets (the card-against-CPU check runs over all of them): its
 # host formatting of a million documents alone would take tens of seconds.
-DOCUMENT_MARKETS = 250_000
+DOCUMENT_MARKETS = 100_000
 # The JAX package's tolerances of the batched path against the scalar one:
 # float64 sums (tests/test_batch_parity.py), and the store sweeps, whose
 # decay-on-read is taken at slightly different instants.
@@ -1518,9 +1568,9 @@ SERVE_NOW, SERVE_SEED = NOW + 40 * STEPS, 23
 # run in a load-generator process of their own: as threads of this process
 # they took the event loop's share of the interpreter lock, and a 5 ms
 # window closed on ~16 requests.
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_CHUNK = 16, 4096, 256
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_CHUNK = 16, 1024, 256
 # Act B: premium closed-loop clients, the best-effort burst and budget.
-OVERLOAD_CLIENTS, OVERLOAD_BURST, OVERLOAD_BUDGET = 8, 16384, 64
+OVERLOAD_CLIENTS, OVERLOAD_BURST, OVERLOAD_BUDGET = 8, 8192, 64
 # Act C: the CLI's requests, its client threads and its serve duration.
 CLI_REQUESTS, CLI_CLIENTS, CLI_DURATION = 8192, 4, 8.0
 # The CLI runs on its default device unless this names one.
@@ -2430,6 +2480,423 @@ def replay_phase(smi, trace, live_digest, ptxas):
                   for dt, code in (("float32", "f"), ("float64", "d"))},
     }
     return entry, launches[0]
+
+
+# Phase 21: the one-process multi-shard tier. The inference path's graph on
+# markets-sharded meshes of the card, the banded halo sweep, and the JAX
+# bench's large-K shape (bench.py:133-135) and north-star band
+# (bench.py:137-145) through the ring and counter-compact loops.
+SHARDS_NOW = NOW + 80 * STEPS
+SHARD_MESHES = ((4, 1), (2, 2))
+PARITY_MESHES = (None, (2, 1), (4, 1), (2, 2))
+BAND_SPLITS = (4, 16)
+LARGE_K_MARKETS, LARGE_K_SLOTS, LARGE_K_STEPS = 16_384, 10_000, 50
+NORTH_STAR_MARKETS, NORTH_STAR_SLOTS, NORTH_STAR_STEPS = 125_056, 10_000, 40
+# The ring consensus against the flat loop's: the reference's own bound
+# (tests/test_ring.py). Decoded compact state against the float32 loop's:
+# its compact pin (tests/test_compact.py).
+RING_BOUND = dict(rtol=2e-6, atol=1e-6)
+COMPACT_BOUND = dict(rtol=1e-6, atol=1e-6)
+
+
+def timed_run(fn):
+    """``(result, seconds)`` of ``fn()`` between two synchronises."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def device_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """:func:`check_bits` on the tensors' device, for blocks too large to
+    copy to the host: float bits compared through an integer view, a NaN
+    as a NaN."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: dtype or shape differs")
+    if not want.dtype.is_floating_point:
+        same = bool(torch.equal(got, want))
+    else:
+        view = {torch.float32: torch.int32, torch.float64: torch.int64}[want.dtype]
+        nan = torch.isnan(want)
+        same = bool(torch.equal(torch.isnan(got), nan)) and bool(
+            ((got.view(view) == want.view(view)) | nan).all())
+    if not same:
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def device_close(got, want, bound, what) -> float:
+    """Within *bound* on the tensors' device, NaNs in the same places;
+    returns the largest difference."""
+    nan = torch.isnan(want)
+    if not bool(torch.equal(torch.isnan(got), nan)):
+        raise AssertionError(f"{what}: NaNs differ")
+    if not bool(torch.isclose(got, want, equal_nan=True, **bound).all()):
+        raise AssertionError(f"{what}: outside {bound}")
+    return float(torch.where(nan, 0.0, (got.double() - want.double()).abs()).max())
+
+
+def shards_phase(smi, market_keys, codes, probs, offsets, outcomes, graph):
+    """Phase 21. Returns ``bp_sweep``'s launches on the markets-sharded
+    sessions and the banded sweeps."""
+    from bayesian_consensus_engine_tpu_torch import infer, pipeline
+    from bayesian_consensus_engine_tpu_torch.analytics import AnalyticsOptions
+    from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
+    from bayesian_consensus_engine_tpu_torch.infer import partition
+    from bayesian_consensus_engine_tpu_torch.ops import bp_kernel
+    from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
+        MarketBlockState,
+        _cycle_math,
+        _fast_cycle_math,
+        make_loop_math,
+    )
+    from bayesian_consensus_engine_tpu_torch.parallel import compact, ring
+    from bayesian_consensus_engine_tpu_torch.parallel import mesh as mesh_module
+    from bayesian_consensus_engine_tpu_torch.parallel import sharded
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    seconds, report = {}, {}
+    sources = SourceCodes(codes, [f"src-{i}" for i in range(SOURCES)])
+    card = torch.device("cuda")
+    options = AnalyticsOptions(graph=graph, inference=infer.InferenceOptions(
+        tol=BP_TOL, max_steps=BP_MAX_STEPS))
+
+    # a. The graph on markets-sharded meshes: the one-card session, then
+    # (4, 1) and (2, 2), each on a fresh store of the main path's batch.
+    part = time.perf_counter()
+    captured = []
+    real_bp = sharded.bp_sweep
+
+    def capturing(means, variances, neighbor_idx, neighbor_w, **sweep):
+        seeds = (means.clone(), None if variances is None else variances.clone(),
+                 neighbor_idx, neighbor_w)
+        out = real_bp(means, variances, neighbor_idx, neighbor_w, **sweep)
+        captured.append((seeds, sweep, tuple(
+            None if x is None else x.clone() for x in out)))
+        return out
+
+    runs, session_launches = {}, {}
+    for shape in (None, *SHARD_MESHES):
+        name = "1x1" if shape is None else f"{shape[0]}x{shape[1]}"
+        start = time.perf_counter()
+        store = TensorReliabilityStore()
+        plan = pipeline.build_settlement_plan_columnar(
+            store, market_keys, sources, probs, offsets)
+        seconds[f"{name}_plan"] = time.perf_counter() - start
+        mesh = None if shape is None else mesh_module.make_mesh(
+            shape, [card] * (shape[0] * shape[1]))
+        captured.clear()
+        counts, outputs = [], []
+        sharded.bp_sweep = capturing
+        try:
+            bp_kernel.LAUNCHES = 0
+            with pipeline.ShardedSettlementSession(store, plan, mesh) as session:
+                for call, now in enumerate((SHARDS_NOW, SHARDS_NOW + STEPS), 1):
+                    start = time.perf_counter()
+                    result, _tb, _bands, propagated = session.settle_with_analytics(
+                        outcomes, steps=STEPS, now=now, analytics=options)
+                    result.fence()
+                    seconds[f"{name}_call_{call}"] = time.perf_counter() - start
+                    counts.append(bp_kernel.LAUNCHES)
+                    outputs.append((np.asarray(result.consensus),
+                                    np.asarray(propagated.mean),
+                                    np.asarray(propagated.stderr),
+                                    int(propagated.iters_run)))
+        finally:
+            sharded.bp_sweep = real_bp
+        per_call = bp_kernel.launches_per_call(BP_MAX_STEPS)
+        if counts != [per_call, 2 * per_call] or len(captured) != 2:
+            raise AssertionError(f"{name}: bp_sweep launches after each call "
+                                 f"{counts}, expected {[per_call, 2 * per_call]}")
+        session_launches[name] = counts[-1]
+        # Each call's sweep against one whole-axis launch on its seeds, and
+        # the session's means and stderrs against that launch's.
+        for call, ((seeds, sweep, got), out) in enumerate(
+                zip(captured, outputs), 1):
+            want = bp_kernel.bp_sweep(*seeds, **sweep)
+            compare_sweep(got, want, f"{name} call {call} sweep")
+            live = len(market_keys)
+            check_bits(torch.from_numpy(out[1]), want[0][:live].cpu(),
+                       f"{name} call {call} means")
+            check_bits(torch.from_numpy(out[2]),
+                       torch.sqrt(want[1][:live].double()).float().cpu(),
+                       f"{name} call {call} stderrs")
+        runs[name] = (list(captured), outputs)
+        del store, plan, session
+    one_card = runs["1x1"]
+    seeds_equal = {}
+    for name in runs:
+        if name == "1x1":
+            continue
+        equal = []
+        for (seeds, _s, got), (seeds_1, _s1, got_1), out, out_1 in zip(
+                runs[name][0], one_card[0], runs[name][1], one_card[1]):
+            same = all(torch.equal(a, b) for a, b in zip(seeds[:2], seeds_1[:2]))
+            equal.append(same)
+            if same:
+                compare_sweep(got, got_1, f"{name} vs one card")
+                for a, b, field in zip(out[1:3], out_1[1:3], ("means", "stderrs")):
+                    check_bits(torch.from_numpy(a), torch.from_numpy(b),
+                               f"{name} {field} vs one card")
+        seeds_equal[name] = equal
+        if name == "4x1" and torch.cuda.is_available() and not all(equal):
+            # Each markets shard runs the one-card kernel on its columns,
+            # one thread a market. (The CPU's plain version is not held to
+            # this: its vectorised exp2 rounds by position in a shard.)
+            raise AssertionError("4x1: the sweep's seeds differ from the "
+                                 "one-card session's")
+    report["sessions"] = dict(launches=session_launches, seeds_equal=seeds_equal,
+                              iters_run={k: [o[3] for o in v[1]]
+                                         for k, v in runs.items()})
+
+    seconds["a_sessions"] = time.perf_counter() - part
+    part = time.perf_counter()
+    # The graph on and off the markets shards leaves the same SQLite bytes.
+    small_keys = market_keys[:PARITY_MARKETS]
+    cut = int(offsets[PARITY_MARKETS])
+    small_blocks, small_edges = inference_graph(small_keys, SEED + 2, infer)
+    small_options = AnalyticsOptions(
+        graph=small_blocks.to_graph(extra_edges=small_edges), blocks=small_blocks,
+        inference=infer.InferenceOptions(tol=BP_TOL, max_steps=BP_MAX_STEPS))
+    dumps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for shape in PARITY_MESHES:
+            small = TensorReliabilityStore()
+            small_plan = pipeline.build_settlement_plan_columnar(
+                small, small_keys, SourceCodes(codes[:cut], sources.table),
+                probs[:cut], offsets[: PARITY_MARKETS + 1])
+            small_mesh = None if shape is None else mesh_module.make_mesh(
+                shape, [card] * (shape[0] * shape[1]))
+            with pipeline.ShardedSettlementSession(small, small_plan,
+                                                   small_mesh) as s:
+                for now in (NOW, NOW + STEPS):
+                    s.settle_with_analytics(
+                        outcomes[:PARITY_MARKETS], steps=STEPS, now=now,
+                        analytics=small_options)
+            path = os.path.join(tmp, f"{shape}.db")
+            small.flush_to_sqlite(path)
+            with open(path, "rb") as handle:
+                dumps[str(shape)] = handle.read()
+    if len(set(dumps.values())) != 1:
+        raise AssertionError(f"SQLite bytes differ across meshes: {list(dumps)}")
+
+    seconds["a_parity"] = time.perf_counter() - part
+    part = time.perf_counter()
+    # b. The banded halo sweep on the one-card session's second sweep: its
+    # seeds and aligned blocks split into contiguous bands.
+    (means, variances, idx, weights), sweep, whole = one_card[0][1]
+    start = time.perf_counter()
+    idx_host, weights_host = idx.cpu().numpy(), weights.cpu().numpy()
+    seconds["blocks_to_host"] = time.perf_counter() - start
+    banded_report, banded_launches = {}, 0
+    for count in BAND_SPLITS:
+        cuts = np.linspace(0, idx_host.shape[0], count + 1).astype(np.int64)
+        start = time.perf_counter()
+        banded = partition.partition_csr(idx_host, weights_host,
+                                         list(zip(cuts[:-1], cuts[1:])))
+        partition_s = time.perf_counter() - start
+        # Each band step's operands in the first iteration, kept to time
+        # its launch afterwards in a window the host cannot pace.
+        steps_seen = []
+        real_step = partition.bp_sweep
+
+        def keeping(*args, **kwargs):
+            if len(steps_seen) < count:
+                steps_seen.append((tuple(None if x is None else x.clone()
+                                         for x in args), kwargs))
+            return real_step(*args, **kwargs)
+
+        partition.bp_sweep = keeping
+        try:
+            bp_kernel.LAUNCHES = 0
+            got, sweep_s = timed_run(lambda: partition.banded_bp_sweep(
+                means, variances, banded, damping=sweep["damping"],
+                max_steps=sweep["max_steps"], tol=sweep["tol"]))
+            launches = bp_kernel.LAUNCHES
+        finally:
+            partition.bp_sweep = real_step
+        iters = int(whole[2])
+        if launches != count * iters:
+            raise AssertionError(f"{count} bands: {launches} launches, expected "
+                                 f"{count} x {iters}")
+        compare_sweep(got, whole, f"{count} bands vs the whole-axis sweep")
+        # The device time of an iteration's launches: each band's step
+        # timed alone (CUDA events over a queued window), summed.
+        launch_ms = [
+            time_cuda(lambda a, kw=kw: bp_kernel.bp_sweep(*a, **kw),
+                      lambda a=a: a, warmup=2, runs=21)
+            for a, kw in steps_seen
+        ]
+        kernel_ms = iters * sum(launch_ms)
+        banded_launches += launches
+        banded_report[str(count)] = dict(
+            cross_edges=banded.cross_edges, launches=launches, iters_run=iters,
+            partition_seconds=partition_s, sweep_seconds=sweep_s,
+            kernel_ms=kernel_ms, launch_ms=launch_ms,
+            halo_rows=int(sum(block.halo.size for block in banded.blocks)))
+        del banded, got
+    report["banded"] = banded_report
+    del runs, one_card, captured, idx_host, weights_host
+
+    seconds["b_banded"] = time.perf_counter() - part
+    part = time.perf_counter()
+    # c. The ring loop at the large-K shape, data made on the card from the
+    # seed, against the flat loops on the same inputs: the port's flat
+    # cycle loop (the one-pass kernel) and its plain cycle math.
+    gen = torch.Generator(device=card).manual_seed(SEED)
+    m_k, k_k, steps_k = LARGE_K_MARKETS, LARGE_K_SLOTS, LARGE_K_STEPS
+    probs_k = torch.rand((m_k, k_k), generator=gen, device=card)
+    mask_k = torch.rand((m_k, k_k), generator=gen, device=card) < 0.9
+    outcome_k = torch.rand(m_k, generator=gen, device=card) < 0.5
+    tp, tm = probs_k.T.contiguous(), mask_k.T.contiguous()
+    now0 = torch.tensor(1.0, device=card)
+
+    def cold_state(shape):
+        return MarketBlockState(
+            torch.full(shape, 0.5, device=card), torch.full(shape, 0.25, device=card),
+            torch.zeros(shape, device=card),
+            torch.zeros(shape, dtype=torch.bool, device=card))
+
+    rates = {}
+    flat = sharded.build_cycle_loop(card)
+    # Each loop's state is made before its clock starts.
+    state = cold_state((k_k, m_k))
+    (flat_grid, flat_consensus), flat_s = timed_run(lambda: flat(
+        ((tp,),), ((tm,),), ((outcome_k,),), ((state,),), 1.0, steps_k))
+    rates["flat_loop"] = steps_k / flat_s
+    flat_state = flat_grid[0][0]
+    plain = make_loop_math(
+        lambda *a: _cycle_math(*a, slots_axis=0), steps_k,
+        fast_cycle_fn=lambda *a: _fast_cycle_math(*a, slots_axis=0))
+    state = cold_state((k_k, m_k))
+    (plain_state, plain_consensus), plain_s = timed_run(lambda: plain(
+        tp, tm, outcome_k, state, now0))
+    rates["plain_flat_loop"] = steps_k / plain_s
+    for field, a, b in zip(MarketBlockState._fields, plain_state, flat_state):
+        device_bits(a, b, f"large-K plain flat loop {field} vs the kernel's")
+    ring_err = {}
+    for shape in ((1, 1), (1, 4)):
+        name = f"ring_{shape[0]}x{shape[1]}"
+        mesh = mesh_module.make_mesh(shape, [card] * shape[1])
+        state = cold_state((m_k, k_k))
+        grid = tuple(
+            tuple(MarketBlockState(*blocks) for blocks in zip(*fields))
+            for fields in zip(*(mesh_module.shard_block(f, mesh) for f in state)))
+        args = (mesh_module.shard_block(probs_k, mesh),
+                mesh_module.shard_block(mask_k, mesh),
+                mesh_module.shard_market_vector(outcome_k.cpu().numpy(), mesh))
+        loop = ring.build_ring_cycle_loop(mesh)
+        (ring_grid, ring_consensus), ring_s = timed_run(
+            lambda: loop(*args, grid, 1.0, steps_k))
+        rates[name] = steps_k / ring_s
+        for f, field in enumerate(MarketBlockState._fields):
+            got = mesh_module.unshard_block(
+                tuple(tuple(shard[f] for shard in row) for row in ring_grid))
+            device_bits(got.T.contiguous(), flat_state[f],
+                        f"{name} {field} vs the flat loop")
+        ring_err[name] = dict(
+            vs_plain=device_close(ring_consensus, plain_consensus, RING_BOUND,
+                                  f"{name} consensus"),
+            vs_kernel_max_abs=float((ring_consensus - flat_consensus)
+                                    .abs().nan_to_num(0.0).max()))
+        del ring_grid, ring_consensus, grid, args
+    report["ring"] = dict(consensus_err=ring_err)
+
+    seconds["c_ring"] = time.perf_counter() - part
+    part = time.perf_counter()
+    # d. The compact loop at the same shape, slot-major, against the flat
+    # loop's state; its closed form; uint16 probabilities against their
+    # decode.
+    loop = compact.build_compact_cycle_loop()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state0 = compact.init_compact_state(m_k, k_k, device=card)
+    (c_state, c_consensus), compact_s = timed_run(
+        lambda: loop(tp, tm, outcome_k, state0, 1.0, steps_k))
+    rates["compact_loop"] = steps_k / compact_s
+    compact_peak = torch.cuda.max_memory_allocated() - base
+    decoded = compact.compact_to_block(c_state)
+    compact_err = {}
+    for field in ("reliability", "confidence"):
+        compact_err[field] = device_close(
+            getattr(decoded, field), getattr(flat_state, field), COMPACT_BOUND,
+            f"compact {field} vs the flat loop")
+    for field in ("updated_days", "exists"):
+        device_bits(getattr(decoded, field), getattr(flat_state, field),
+                    f"compact {field} vs the flat loop")
+    compact_err["consensus_vs_plain"] = device_close(
+        c_consensus, plain_consensus, COMPACT_BOUND, "compact consensus")
+    correct = (tp >= 0.5) == outcome_k.unsqueeze(0)
+    closed = compact.advance_counters(state0, tm, correct, steps_k, 1.0)
+    for field, a, b in zip(compact.CompactBlockState._fields, closed, c_state):
+        device_bits(a, b, f"advance_counters {field} vs the loop")
+    del correct, closed, decoded
+    encoded = compact.encode_probs_u16(tp)
+    (u_state, u_consensus), u16_s = timed_run(
+        lambda: loop(encoded, tm, outcome_k, state0, 1.0, steps_k))
+    rates["compact_u16_probs"] = steps_k / u16_s
+    d_state, d_consensus = loop(compact._decode_probs(encoded), tm, outcome_k,
+                                state0, 1.0, steps_k)
+    device_bits(u_consensus, d_consensus, "u16 consensus vs decoded f32")
+    for field, a, b in zip(compact.CompactBlockState._fields, u_state, d_state):
+        device_bits(a, b, f"u16 {field} vs decoded f32")
+    report["large_k"] = dict(
+        markets=m_k, slots=k_k, steps=steps_k,
+        cycles_per_second=rates, compact_err=compact_err,
+        compact_peak_bytes=compact_peak,
+        compact_state_bytes=sum(x.numel() * x.element_size() for x in state0),
+        f32_state_bytes=sum(x.numel() * x.element_size() for x in flat_state))
+    del (probs_k, mask_k, tp, tm, flat_grid, flat_state, flat_consensus,
+         plain_state, plain_consensus, c_state, c_consensus, state0, encoded,
+         u_state, u_consensus, d_state, d_consensus)
+
+    seconds["d_compact"] = time.perf_counter() - part
+    part = time.perf_counter()
+    # The north-star band: one timed compact run, then the float32 state
+    # through the flat loop, each with its peak device bytes.
+    m_n, k_n, steps_n = NORTH_STAR_MARKETS, NORTH_STAR_SLOTS, NORTH_STAR_STEPS
+    probs_n = torch.rand((k_n, m_n), generator=gen, device=card)
+    mask_n = torch.rand((k_n, m_n), generator=gen, device=card) < 0.9
+    outcome_n = torch.rand(m_n, generator=gen, device=card) < 0.5
+    north = {}
+    for kind in ("compact", "f32"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if kind == "compact":
+            state = compact.init_compact_state(m_n, k_n, device=card)
+            (out_state, out), run_s = timed_run(
+                lambda: loop(probs_n, mask_n, outcome_n, state, 1.0, steps_n))
+        else:
+            state = cold_state((k_n, m_n))
+            (out_grid, out), run_s = timed_run(lambda: flat(
+                ((probs_n,),), ((mask_n,),), ((outcome_n,),), ((state,),),
+                1.0, steps_n))
+            out_state = out_grid[0][0]
+        settled = int(torch.isfinite(out).sum())
+        if settled == 0 or out.shape != (m_n,):
+            raise AssertionError(f"north star {kind}: no market settled")
+        north[kind] = dict(
+            seconds=run_s, cycles_per_second=steps_n / run_s,
+            peak_bytes=torch.cuda.max_memory_allocated() - base,
+            state_bytes=sum(x.numel() * x.element_size() for x in state),
+            settled_markets=settled)
+        del state, out_state, out
+    report["north_star"] = dict(markets=m_n, slots=k_n, steps=steps_n,
+                                input_bytes=probs_n.numel() * 4 + mask_n.numel(),
+                                **north)
+    del probs_n, mask_n, outcome_n
+    seconds["d_north_star"] = time.perf_counter() - part
+    shards_launches = sum(
+        v for k, v in session_launches.items() if k != "1x1") + banded_launches
+    emit("shards", markets=len(market_keys), steps=STEPS, meshes=[
+        list(shape) for shape in SHARD_MESHES], band_splits=list(BAND_SPLITS),
+         shards_launches=shards_launches, parity_meshes=list(dumps),
+         parity_sqlite_bytes=len(dumps["None"]), seconds=seconds,
+         nvidia_smi=smi, **report)
+    return shards_launches
 
 
 def main() -> int:
@@ -3678,6 +4145,10 @@ def main() -> int:
     lanes_entry, settle_entry["replay_launches"] = replay_phase(
         smi, stream_trace, stream_digest, ptxas)
     del stream_trace
+
+    # 21. shards
+    bp_entry["shards_launches"] = shards_phase(
+        smi, market_keys, codes, probs, offsets, outcomes, graph)
 
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
                                   partials_entry, lanes_entry]}), flush=True)

@@ -5,16 +5,18 @@ Usage: python scripts/rehearse_chip_smoke.py [MARKETS] [DUMP_MARKETS] [DIVISOR]
 Runs chip_smoke's ``native``, ``main_path``, ``host_routes`` and
 ``delta_check`` phases (7 to 10), then its ``journal`` phase (16) on the
 main path's store, its ``stream`` (17), ``serve`` (18) and
-``analytics_rest`` (19) phases on the main path's data and its ``replay``
-phase (20) on the stream's trace, on CPU stores, from the repository
-root. The
+``analytics_rest`` (19) phases on the main path's data, its ``replay``
+phase (20) on the stream's trace and its ``shards`` phase (21) on the
+main path's data and graph, on CPU stores, from the repository root. The
 script's ``main()`` is cut to its import block and those phases,
 ``"cuda"`` becomes ``"cpu"``, stores are built with ``device="cpu"``, the
 ``serve`` phase's CLI runs with ``--device cpu``, each call of the
-settle, lane, one-pass and partials kernels' wrappers is counted where
-the card would launch it (in the CLI's subprocess too), the timed windows
-run on the host clock, and MARKETS (default 5,000), DUMP_MARKETS
-(default 1,000), the host routes' cut (250,000 markets, at most MARKETS),
+settle, lane, one-pass, partials and sweep kernels' wrappers is counted
+where the card would launch it (in the CLI's subprocess too), the timed
+windows run on the host clock, and MARKETS (default 5,000), DUMP_MARKETS
+(default 1,000), the parity stores' 20,000 markets (at most MARKETS), the
+ring and compact loops' shapes (512 x 400 slots, 6 steps; 1,024 x 300,
+4 steps), the host routes' cut (250,000 markets, at most MARKETS),
 the journal phase's delta (100,000 markets, at most half of MARKETS) and
 the ``serve`` phase's request counts divided by DIVISOR (default 16)
 replace the full-size constants. The kernels take their plain torch versions, so no
@@ -78,6 +80,20 @@ def _counted_lanes(*args, **kwargs):
 
 
 _sharded.settle_cycles_lanes = _counted_lanes
+from bayesian_consensus_engine_tpu_torch.infer import partition as _partition
+from bayesian_consensus_engine_tpu_torch.ops import bp_kernel as _bp_kernel
+_plain_bp = _bp_kernel.bp_sweep
+
+
+def _counted_bp(*args, **kwargs):
+    _bp_kernel.LAUNCHES += _bp_kernel.launches_per_call(kwargs["max_steps"])
+    return _plain_bp(*args, **kwargs)
+
+
+_sharded.bp_sweep = _counted_bp
+_partition.bp_sweep = _counted_bp
+torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+torch.cuda.memory_allocated = lambda *a, **k: 0
 """
 
 # CUDA events and the device's sleep do not exist on the CPU: the
@@ -133,6 +149,9 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
         "                         outcomes)\n"
         "    print(json.dumps(replay_phase(\n"
         "        smi, trace, digest, {'settle_cycles.cu': {}})[0]))\n"
+        "    blocks, edges = inference_graph(market_keys, SEED + 1, infer)\n"
+        "    shards_phase(smi, market_keys, codes, probs, offsets, outcomes,\n"
+        "                 blocks.to_graph(extra_edges=edges))\n"
     )
     head = re.sub(r"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000",
                   f"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = {markets}", head)
@@ -141,16 +160,25 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
     head = head.replace(
         "JOURNAL_MARKETS, JOURNAL_SMALL_MARKETS = 100_000",
         f"JOURNAL_MARKETS, JOURNAL_SMALL_MARKETS = {min(100_000, markets // 2)}")
+    head = head.replace("PARITY_MARKETS = 20_000",
+                        f"PARITY_MARKETS = {min(20_000, markets)}")
+    head = head.replace(
+        "LARGE_K_MARKETS, LARGE_K_SLOTS, LARGE_K_STEPS = 16_384, 10_000, 50",
+        "LARGE_K_MARKETS, LARGE_K_SLOTS, LARGE_K_STEPS = 512, 400, 6")
+    head = head.replace(
+        "NORTH_STAR_MARKETS, NORTH_STAR_SLOTS, NORTH_STAR_STEPS = "
+        "125_056, 10_000, 40",
+        "NORTH_STAR_MARKETS, NORTH_STAR_SLOTS, NORTH_STAR_STEPS = 1024, 300, 4")
     head = head.replace("HOST_ROUTE_MARKETS = 250_000",
                         f"HOST_ROUTE_MARKETS = {min(250_000, markets)}")
     head = head.replace(
-        "SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_CHUNK = 16, 4096, 256",
+        "SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_CHUNK = 16, 1024, 256",
         f"SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_CHUNK = 16, "
-        f"{max(4096 // divisor, 16)}, 256")
+        f"{max(1024 // divisor, 16)}, 256")
     head = head.replace(
-        "OVERLOAD_CLIENTS, OVERLOAD_BURST, OVERLOAD_BUDGET = 8, 16384, 64",
+        "OVERLOAD_CLIENTS, OVERLOAD_BURST, OVERLOAD_BUDGET = 8, 8192, 64",
         f"OVERLOAD_CLIENTS, OVERLOAD_BURST, OVERLOAD_BUDGET = 8, "
-        f"{max(16384 // divisor, 256)}, 64")
+        f"{max(8192 // divisor, 256)}, 64")
     head = head.replace(
         "CLI_REQUESTS, CLI_CLIENTS, CLI_DURATION = 8192, 4, 8.0",
         f"CLI_REQUESTS, CLI_CLIENTS, CLI_DURATION = "

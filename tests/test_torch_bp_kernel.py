@@ -18,8 +18,13 @@ adaptive depth, the tolerance reached after 1, 5 or all of the sweeps;
 zero variances and a row whose mix is NaN), and at 300,000 rows (more
 than one wave of the persistent grid) on every lane, with early exits
 after 1 and 6 sweeps and at fixed depth 24: mean, variance, ``iters_run``
-and ``residual`` bit-equal (a NaN compares as NaN), one launch a call.
-They skip where there is no card.
+and ``residual`` bit-equal (a NaN compares as NaN), one launch a call;
+the banded sweep's step (``infer/partition.py``: one launch, ``max_steps=1``
+and no tolerance, over a band's own rows and its halo, whose neighbour
+rows are ``-1``) at D = 5 with the halo rows last and first, on every
+lane; and ``banded_bp_sweep`` over four uneven bands bit-equal to one
+whole-axis launch, one launch a band an iteration. They skip where there
+is no card.
 """
 
 import numpy as np
@@ -323,3 +328,73 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         bp_kernel.bp_sweep(means.double(), variances, idx, weights)
     with pytest.raises(ValueError, match="contiguous"):
         bp_kernel.bp_sweep(means, variances, idx, weights.t().contiguous().t())
+
+
+def band_step_case(seed, halo_at, rows=700, halo=300, degree=5):
+    """One band step's operands, as ``infer/partition.py`` lays them out:
+    the vector of a band's own rows and its halo, neighbour rows indexing
+    into it, and ``-1`` rows for the halo (they never mix). *halo_at*
+    puts the halo rows last (the layout ``banded_bp_sweep`` uses) or
+    first in the index space."""
+    means, variances, idx, weights = bp_case(seed, rows + halo, degree)
+    own = np.arange(halo, rows + halo) if halo_at == "first" else np.arange(rows)
+    halo_rows = np.setdiff1d(np.arange(rows + halo), own)
+    idx[halo_rows] = -1
+    return means, variances, idx, weights, own, halo_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+@pytest.mark.parametrize("halo_at", ["last", "first"])
+def test_cuda_band_step_matches_plain_version(cuda_device, halo_at, lane):
+    """The banded sweep's step: one ``bp_sweep`` launch with
+    ``max_steps=1`` and no tolerance over ``[own ; halo]`` (D = 5). The
+    halo rows keep their values, the residual is the own rows' ``max
+    |Δmean|``, and every bit equals the plain version's."""
+    moments, keep_fma = LANES[lane]
+    *case, own, halo_rows = band_step_case(31, halo_at)
+    args = case_tensors(case, moments, cuda_device)
+    sweep = dict(damping=0.35, max_steps=1, tol=None, keep_fma=keep_fma)
+    want = bp_kernel.bp_sweep_reference(*args, **sweep)
+    launches = bp_kernel.LAUNCHES
+    got = bp_kernel.bp_sweep(*args, **sweep)
+    torch.cuda.synchronize()
+    assert bp_kernel.LAUNCHES == launches + 1
+    assert int(got[2]) == 1
+    for field, a, b in zip(("mean", "var", "residual"),
+                           (got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        if b is None:
+            assert a is None
+        else:
+            assert_bits(a, b, f"{halo_at} {lane} {field}")
+    halo = torch.as_tensor(halo_rows, device=cuda_device)
+    assert_bits(got[0][halo], args[0][halo], "halo means moved")
+    delta = (got[0] - args[0]).abs()[torch.as_tensor(own, device=cuda_device)]
+    finite = delta[~torch.isnan(delta)]
+    assert float(got[3]) == float(finite.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop", ["fixed_12", "after_5"])
+def test_cuda_banded_sweep_equals_the_whole_axis_sweep(cuda_device, stop):
+    """``infer/partition.banded_bp_sweep`` on the card: bit-equal to one
+    whole-axis ``bp_sweep`` launch, one launch a band an iteration."""
+    from bayesian_consensus_engine_tpu_torch.infer import partition
+
+    means, variances, idx, weights = bp_case(41, 5000, 5)
+    bands = [(0, 1200), (1200, 1201), (1201, 3900), (3900, 5000)]
+    banded = partition.partition_csr(idx, weights, bands)
+    assert banded.cross_edges > 0
+    args = case_tensors((means, variances, idx, weights), True, cuda_device)
+    tol = None if stop == "fixed_12" else mid_tol(args, None, depth=5)
+    sweep = dict(damping=0.3, max_steps=12, tol=tol)
+    want = bp_kernel.bp_sweep(*args, **sweep)
+    launches = bp_kernel.LAUNCHES
+    got = partition.banded_bp_sweep(args[0], args[1], banded, **sweep)
+    torch.cuda.synchronize()
+    iters = int(want[2])
+    assert int(got[2]) == iters == (12 if tol is None else 5)
+    assert bp_kernel.LAUNCHES == launches + len(bands) * iters
+    for field, a, b in zip(("mean", "var", "residual"),
+                           (got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        assert_bits(a, b, f"{stop} {field}")

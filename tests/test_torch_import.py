@@ -44,12 +44,13 @@ from bayesian_consensus_engine_tpu_torch import infer
 from bayesian_consensus_engine_tpu_torch.analytics import bands, graph
 from bayesian_consensus_engine_tpu_torch.infer import blocks as infer_blocks, bp
 from bayesian_consensus_engine_tpu_torch.ops import (
-    bp_kernel, cuda_build, fma, onepass_kernel, partials_kernel, propagate,
-    tiebreak, uncertainty,
+    bp_kernel, collectives, cuda_build, fma, onepass_kernel, partials_kernel,
+    propagate, tiebreak, uncertainty,
 )
 from bayesian_consensus_engine_tpu_torch.parallel import (
-    collectives, distributed, mesh, sharded,
+    compact, distributed, mesh, ring, sharded,
 )
+from bayesian_consensus_engine_tpu_torch.infer import partition
 from bayesian_consensus_engine_tpu_torch.core import batch, engine, validate
 from bayesian_consensus_engine_tpu_torch.native import build
 from bayesian_consensus_engine_tpu_torch.ops import consensus
@@ -334,6 +335,64 @@ def test_port_imports_nothing_of_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "PORT_STANDS_ALONE" in proc.stdout
+
+
+_OPS_PROBE = """
+import importlib
+import pkgutil
+import sys
+import types
+
+PORT = "bayesian_consensus_engine_tpu_torch"
+root = {root!r}
+sys.path.insert(0, root)
+# The package without its __init__, which imports every layer: only what
+# the ops modules import themselves gets loaded.
+package = types.ModuleType(PORT)
+package.__path__ = [root + "/" + PORT]
+sys.modules[PORT] = package
+names = [info.name for info in pkgutil.iter_modules([root + "/" + PORT + "/ops"])]
+for name in names:
+    importlib.import_module(PORT + ".ops." + name)
+assert len(names) >= 14, names
+LAYER = PORT + ".parallel"
+loaded = sorted(name for name in sys.modules
+                if name == LAYER or name.startswith(LAYER + "."))
+assert not loaded, loaded
+print("OPS_BELOW_PARALLEL")
+"""
+
+
+def test_ops_layer_imports_nothing_of_parallel():
+    """No module under ``ops/`` imports ``parallel/`` (the collectives
+    live in ``ops/collectives.py``): in a subprocess that loads every ops
+    module and nothing the package's ``__init__`` would, no
+    ``parallel`` module is loaded (the exact-name test), and a static scan
+    finds no such import, lazy ones included."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _OPS_PROBE.format(root=str(_ROOT))],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "OPS_BELOW_PARALLEL" in proc.stdout
+    layer = "bayesian_consensus_engine_tpu_torch.parallel"
+    found = []
+    for path in sorted((_ROOT / "bayesian_consensus_engine_tpu_torch" / "ops")
+                       .glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [("." * node.level) + (node.module or "")]
+            else:
+                continue
+            found += [(path.name, name) for name in names
+                      if name == layer or name.startswith(layer + ".")
+                      or name.lstrip(".").split(".")[0] == "parallel"
+                      and name.startswith(".")]
+    assert not found, found
+    assert not (_ROOT / "bayesian_consensus_engine_tpu_torch" / "parallel"
+                / "collectives.py").exists()
 
 
 def test_store_without_cuda_raises_unless_cpu_asked(monkeypatch):

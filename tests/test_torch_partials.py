@@ -30,7 +30,7 @@ from bayesian_consensus_engine_tpu.ops.cycle_math import (
 from bayesian_consensus_engine_tpu.ops.pallas_settle import build_onepass_partials
 from bayesian_consensus_engine_tpu_torch.ops import partials_kernel
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
-from bayesian_consensus_engine_tpu_torch.parallel import collectives
+from bayesian_consensus_engine_tpu_torch.ops import collectives
 
 try:
     from jax import shard_map

@@ -28,7 +28,7 @@ analytics pair alone under ``kernel="pallas"``. After each scenario:
   within rtol=1e-5, atol=1e-3.
 
 Also here: float64 with the tie-break off, the zero-step rule, a graph on a
-(1, S) mesh, the JAX session's block state carried into a port session
+(1, S) mesh and on a (2, 2) mesh, the JAX session's block state carried into a port session
 (``convert.sharded_block_from_numpy``), the refusals, and
 ``pad_markets``/``init_block_state``.
 Probabilities lie on a 1/8 grid, so many markets hold tied groups whose
@@ -422,13 +422,37 @@ def _port_session(shape):
 
 
 def test_graph_on_markets_sharded_mesh_raises():
-    store, plan, outcomes = _port_session((2, 2))
-    graph = MarketGraph.from_edges([("m-0", "m-1", 1.0)])
-    with make_session("torch", store, plan, (2, 2)) as session:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            session.settle_with_analytics(
-                outcomes, now=NOW, analytics=AnalyticsOptions(graph=graph),
+    """A graph on a (2, 2) mesh: refused until the sweep could run over the
+    gathered markets axis, now served and held against the JAX session on
+    the same mesh. One step at the records' stamp reads nothing decayed,
+    so state, consensus and propagated means are bit-equal
+    (``tests/test_torch_markets_graph.py`` covers the other meshes and
+    the moments lane)."""
+    payloads, outcomes = make_payloads(2)
+    results = {}
+    for kind, graph, options in (
+        ("jax", JaxGraph.from_edges([("m-0", "m-1", 1.0), ("m-40", "m-2", 0.5)]),
+         JaxOptions),
+        ("torch", MarketGraph.from_edges([("m-0", "m-1", 1.0), ("m-40", "m-2", 0.5)]),
+         AnalyticsOptions),
+    ):
+        store = make_store(kind, payloads)
+        plan = (jpipe if kind == "jax" else tpipe).build_settlement_plan(
+            store, payloads)
+        with make_session(kind, store, plan, (2, 2)) as session:
+            result, _tb, _bands, propagated = session.settle_with_analytics(
+                outcomes, now=NOW, analytics=options(graph=graph),
             )
+            results[kind] = (np.asarray(result.consensus),
+                             np.asarray(propagated), block_state(kind, session))
+    (cons, mean, state), (cons_ref, mean_ref, state_ref) = (
+        results["torch"], results["jax"])
+    np.testing.assert_array_equal(cons, cons_ref)
+    np.testing.assert_array_equal(mean, mean_ref)
+    assert mean.shape == (len(payloads),)
+    assert not np.array_equal(mean, cons, equal_nan=True)
+    for ours, theirs in zip(state, state_ref):
+        np.testing.assert_array_equal(ours, theirs)
 
 
 def test_sorted_tiebreak_on_sources_sharded_mesh_raises():
