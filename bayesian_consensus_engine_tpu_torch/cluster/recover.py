@@ -1,31 +1,198 @@
-"""Fleet traces and the store digest — the part of the JAX package's
-``cluster/recover.py`` the replay lab reads.
+"""Journal-driven recovery onto a degraded membership view — the torch
+twin of the JAX package's ``cluster/recover.py``.
 
-* :func:`extract_cluster_trace` merges N band journals' trace sidecars
-  into one replayable workload, each bounded by its own journal's durable
-  tag as :func:`~.state.journal.extract_trace` bounds one host's.
-* :func:`store_digest` is the order-sensitive content digest of a store's
-  replayable state, the witness of the replay lab's lane-0 byte contract.
-  A port store and a JAX-package store holding the same rows in the same
-  order give the same digest.
+Host loss costs one membership epoch and a journal replay, never the
+service. The durable truth of a band is its append-only journal
+(:mod:`~.state.journal`): each host's journal replays to exactly its
+band's store, whatever mesh wrote it (replay is host-side row
+arithmetic). Recovery is therefore composition:
 
-The rest of the module (``replay_cluster_journals``, ``adopt_journal``)
-comes with the cluster slice, ROADMAP queue 1 item 9.
+* :func:`replay_cluster_journals` merges N band journals into ONE fresh
+  store, deterministically: journals in the given order, each journal's
+  pairs interned in its own replay order. A one-journal merge is
+  bit-equal to :func:`~.state.journal.replay_journal` by construction
+  (same frame walk, same intern order, same value writes).
+* :func:`adopt_journal` replays a dead band's journal INTO a live
+  surviving store mid-stream: the survivor interns the orphan pairs
+  (disjoint from its own by the band partition — enforced), absorbs the
+  replayed values, and its resident session picks the rows up on the next
+  batch's adopt (entering rows, uploaded host-exact). The survivor's own
+  next journal epoch then carries the adopted band.
+* :func:`extract_cluster_trace` merges the bands' trace sidecars into one
+  replayable workload, and :func:`store_digest` is the order-sensitive
+  content digest of a store — the byte coda's witness. A port store and a
+  JAX-package store holding the same rows in the same order give the same
+  digest.
+
+Split-brain is refused, not merged: a (source, market) pair appearing in
+two journals means two hosts both claimed its band — recovery raises
+rather than guess which history wins.
 """
 
 from __future__ import annotations
 
 import hashlib
+from dataclasses import dataclass
 from pathlib import Path
+from time import perf_counter
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from bayesian_consensus_engine_tpu_torch.obs.trace import active_tracer
 from bayesian_consensus_engine_tpu_torch.state.journal import (
+    MAGIC,
     TornTraceError,
     TraceBatch,
+    _iter_frames,
+    _read_exact,
     extract_trace,
 )
+
+#: Trace scope for live-recovery spans (obs/trace.py). Recovery runs
+#: between batches on a surviving host; :func:`adopt_journal` records its
+#: start before the replay walk, so a dispatch failure mid-adoption leaves
+#: a flight ring with an ``adopt_start`` and no ``adopt_done``.
+RECOVERY_SCOPE = "recovery"
+
+
+class ClusterModeUnsupported(RuntimeError):
+    """A cluster deployment asked for a route that is not served on this
+    topology. The message names the supported route (the shared-nothing
+    band membership of :class:`~.cluster.membership.MeshView`)."""
+
+
+@dataclass
+class ClusterReplay:
+    """The result of merging band journals onto one store.
+
+    ``tags[i]`` is journal *i*'s last complete epoch watermark (``None``
+    for a journal with no complete epoch) — with ``settle_stream``'s
+    ``journal=`` mode, the last durably covered settled batch index of
+    that band; the band resumes from ``tags[i] + 1``. ``rows[i]`` is how
+    many interned rows journal *i* contributed.
+    """
+
+    store: object
+    paths: Tuple[str, ...]
+    tags: Tuple[Optional[int], ...]
+    rows: Tuple[int, ...]
+
+    def resume_index(self, which: int) -> int:
+        """First un-durable batch index of band *which* (0 when the
+        journal held no complete epoch)."""
+        tag = self.tags[which]
+        return 0 if tag is None else tag + 1
+
+
+def _replay_into(store, path: str) -> Tuple[Optional[int], int]:
+    """Replay *path*'s epochs into *store*, remapping journal-local rows
+    onto the store's interner. Returns ``(last_tag, rows_contributed)``.
+
+    The journal's pairs intern in replay order — for a fresh store and a
+    single journal that reproduces :func:`~.state.journal.replay_journal`
+    row for row; for a merge, each journal's block appends after the
+    previous journals' rows, and any pair already interned (an
+    overlapping band) is a split-brain refusal.
+    """
+    row_map: List[int] = []
+    last_tag: Optional[int] = None
+    with open(path, "rb") as f:
+        if _read_exact(f, len(MAGIC)) != MAGIC:
+            raise ValueError(f"{path}: not a BCE journal (bad magic)")
+        for fields, decoded, _off in _iter_frames(f):
+            tag = fields[6]
+            pairs, idx, rel, conf, days, exists, iso_values = decoded
+            if pairs:
+                before = len(store)
+                rows = store.rows_for_pairs(pairs, allocate=True)
+                if list(rows) != list(range(before, before + len(pairs))):
+                    raise ValueError(
+                        f"{path}: journal pairs overlap rows already "
+                        "replayed from another journal — two hosts "
+                        "claimed the same band (split-brain); refusing "
+                        "to merge"
+                    )
+                row_map.extend(int(r) for r in rows)
+            mapped = np.asarray(row_map, dtype=np.int64)[idx.astype(np.int64)]
+            store.absorb_replayed_rows(
+                mapped, rel, conf, days, exists.astype(bool), iso_values
+            )
+            last_tag = int(tag)
+    return last_tag, len(row_map)
+
+
+def replay_cluster_journals(
+    paths: Sequence[Union[str, Path]], device=None
+) -> ClusterReplay:
+    """Rebuild ONE store from N band journals, deterministically.
+
+    Journals replay in the order given (every surviving host must pass
+    the SAME order to agree on row assignment; the kill soak sorts by
+    path). Each journal's contribution is exactly what
+    :func:`~.state.journal.replay_journal` would rebuild from it alone: a
+    one-journal call is bit-equal to ``replay_journal``. The store is
+    built on *device* (``None``: CUDA, raising without it), as
+    ``replay_journal``'s is.
+    """
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    if not paths:
+        raise ValueError("no journals to replay")
+    store = TensorReliabilityStore(device=device)
+    tags: List[Optional[int]] = []
+    rows: List[int] = []
+    for path in paths:
+        tag, contributed = _replay_into(store, str(path))
+        tags.append(tag)
+        rows.append(contributed)
+    return ClusterReplay(
+        store=store,
+        paths=tuple(str(p) for p in paths),
+        tags=tuple(tags),
+        rows=tuple(rows),
+    )
+
+
+def adopt_journal(store, path: Union[str, Path]) -> Tuple[Optional[int], int]:
+    """Replay a dead band's journal INTO a live surviving *store*.
+
+    The survivor-side half of degraded-mesh recovery, called between
+    batches: it appends the orphan band's pairs to the live interner and
+    absorbs its replayed values on the store's own device, so the next
+    batch that covers the orphan markets finds host-exact state and the
+    resident session's adopt carries it onto the device block as entering
+    rows. Returns ``(last_tag, rows_adopted)`` — the orphan band's
+    workload resumes from ``last_tag + 1``. The adopted rows are fresh by
+    the band partition (an overlap raises — split-brain), hence disjoint
+    from every pending device recipe of the live stream.
+
+    With an active tracer the adoption records a ``recovery``-scope span
+    chain (``adopt_start`` before the replay walk, ``adopt_done`` with the
+    rows and tag after) on its own flight-recorder component.
+    """
+    tracer = active_tracer()
+    if tracer.enabled:
+        tracer.span_event(
+            RECOVERY_SCOPE, 0, "adopt_start",
+            args={"journal": str(path)}, component="recovery",
+        )
+    start = perf_counter()
+    tag, rows_adopted = _replay_into(store, str(path))
+    if tracer.enabled:
+        tracer.span_event(
+            RECOVERY_SCOPE, 0, "adopt_done",
+            dur_s=perf_counter() - start,
+            args={
+                "journal": str(path),
+                "rows_adopted": rows_adopted,
+                "tag": tag,
+            },
+            component="recovery",
+        )
+    return tag, rows_adopted
 
 
 def extract_cluster_trace(

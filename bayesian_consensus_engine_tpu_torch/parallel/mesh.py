@@ -22,6 +22,12 @@ The JAX package places a global array on the mesh through a
 (over sources) and market columns (over markets), ``P(sources,
 markets)``, and :func:`unshard_slot_block` puts the pieces back together
 in that fixed order.
+
+A mesh spread over several processes (``parallel/distributed.py::
+make_hybrid_mesh``) also records which process owns each markets row of
+the grid, its ``owners``: each process holds and runs only its own rows
+(:meth:`Mesh.local`), as a JAX process holds only its addressable shards.
+A mesh that :func:`make_mesh` builds is all this process's.
 """
 
 from __future__ import annotations
@@ -40,9 +46,48 @@ SOURCES_AXIS = "sources"
 
 @dataclass(frozen=True)
 class Mesh:
-    """A (markets, sources) grid of devices, one device type throughout."""
+    """A (markets, sources) grid of devices, one device type throughout.
+
+    ``owners`` names the process that owns each markets row (the granule
+    of a hybrid mesh, in rank order); ``None`` means every row is this
+    process's, as on a mesh :func:`make_mesh` builds."""
 
     devices: tuple  # tuple of rows (one per markets shard) of torch.device
+    owners: Optional[tuple] = None  # process index per markets row
+
+    def __post_init__(self) -> None:
+        if self.owners is not None:
+            owners = tuple(int(o) for o in self.owners)
+            if len(owners) != len(self.devices):
+                raise ValueError(
+                    f"{len(owners)} owners for {len(self.devices)} markets rows"
+                )
+            # A mesh whose every row is process 0's is a one-process mesh,
+            # and compares and hashes as make_mesh's does.
+            object.__setattr__(
+                self, "owners", None if set(owners) == {0} else owners
+            )
+
+    def owner_of(self, row: int) -> int:
+        """The process that owns markets row *row*."""
+        return 0 if self.owners is None else self.owners[row]
+
+    def local(self, process: int) -> "Mesh":
+        """The rows of the grid that *process* owns, as a mesh of its own
+        (the whole mesh when every row is one process's)."""
+        if self.owners is None:
+            if process != 0:
+                raise ValueError(
+                    f"process {process} owns no row of a one-process mesh"
+                )
+            return self
+        rows = tuple(
+            row for row, owner in zip(self.devices, self.owners)
+            if owner == process
+        )
+        if not rows:
+            raise ValueError(f"process {process} owns no row of {self!r}")
+        return Mesh(rows)
 
     @property
     def shape(self) -> dict:
@@ -54,7 +99,9 @@ class Mesh:
 
     def __repr__(self) -> str:
         names = [[str(d) for d in row] for row in self.devices]
-        return f"Mesh({self.shape[MARKETS_AXIS]}x{self.shape[SOURCES_AXIS]}, {names})"
+        owners = "" if self.owners is None else f", owners={list(self.owners)}"
+        return (f"Mesh({self.shape[MARKETS_AXIS]}x{self.shape[SOURCES_AXIS]}, "
+                f"{names}{owners})")
 
 
 def make_mesh(

@@ -80,7 +80,10 @@ from bayesian_consensus_engine_tpu_torch.core.batch import (
     topology_fingerprint,
 )
 from bayesian_consensus_engine_tpu_torch.analytics.bands import AnalyticsOptions
-from bayesian_consensus_engine_tpu_torch.convert import sharded_block_from_numpy
+from bayesian_consensus_engine_tpu_torch.convert import (
+    sharded_block_from_numpy,
+    sharded_block_to_numpy,
+)
 from bayesian_consensus_engine_tpu_torch.analytics.graph import MarketGraph
 from bayesian_consensus_engine_tpu_torch.infer.blocks import MarketBlocks
 from bayesian_consensus_engine_tpu_torch.infer.bp import InferenceOptions
@@ -103,8 +106,10 @@ from bayesian_consensus_engine_tpu_torch.ops.uncertainty import (
     DEFAULT_CHUNK_SLOTS,
     UncertaintyBands,
 )
+from bayesian_consensus_engine_tpu_torch.parallel import distributed
 from bayesian_consensus_engine_tpu_torch.parallel.distributed import (
     global_slot_block,
+    process_market_rows,
 )
 from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
     MARKETS_AXIS,
@@ -845,12 +850,6 @@ def settle_payloads(
 
 # -- the resident session ------------------------------------------------------
 
-_NO_PROCESS_BANDS = (
-    "process bands (a mesh spread over several processes through "
-    "torch.distributed) are not ported yet: ROADMAP queue 1 item 9"
-)
-
-
 def _pad_plan(array: np.ndarray, widths, fill) -> np.ndarray:
     """*array* padded by *widths* with *fill*; the array itself (the plan's
     read-only copy) when nothing is padded."""
@@ -859,17 +858,26 @@ def _pad_plan(array: np.ndarray, widths, fill) -> np.ndarray:
     return np.pad(array, widths, constant_values=fill)
 
 
-def _sharded_plan_cache(plan: SettlementPlan, mesh: Mesh, dtype):
-    """The session's device copies of the plan block, cached on the plan
-    per (mesh, dtype): ``(padded_total, band_rows, band_mask, probs_g,
-    mask_g)``.
+def _sharded_plan_cache(plan: SettlementPlan, mesh: Mesh, dtype, band=None):
+    """The session's device copies of the plan block for THIS process's
+    band, cached on the plan per (mesh, dtype, band): ``(padded_total, lo,
+    hi, band_rows, band_mask, probs_g, mask_g)``.
 
     As in the JAX session, the markets axis is padded up to a multiple of
     the markets extent and the slots axis up to a multiple of the sources
     extent (pad slots: row -1, mask False, probability 0; the state build
-    gives them the cold prior). ``band_rows``/``band_mask`` are the padded
-    host arrays (in one process the band is every market) and
-    ``probs_g``/``mask_g`` grids of per-shard blocks.
+    gives them the cold prior). ``[lo, hi)`` is this process's band of the
+    padded axis (``process_market_rows``: all of it in one process);
+    ``band_rows``/``band_mask`` are its padded host columns and
+    ``probs_g``/``mask_g`` grids of this process's per-shard blocks.
+
+    ``band=None``: the plan is GLOBAL (every market on every process) and
+    this process's columns are sliced out of it. ``band=(lo,
+    global_markets)``: the plan covers ONLY this process's markets (rows
+    ``[lo, lo + plan.num_markets)`` of a ``global_markets``-wide axis) —
+    the multi-process ingest shape in which no process packs another's
+    payloads; it must tile the process's band exactly, and be built with
+    the globally agreed ``num_slots``.
 
     A plan made by :meth:`SettlementPlan.refresh` whose parent holds this
     cache pays only the probability leg: ``band_rows``, ``band_mask`` and
@@ -877,35 +885,61 @@ def _sharded_plan_cache(plan: SettlementPlan, mesh: Mesh, dtype):
     one new ``probs_g`` is uploaded, and the parent's cache is dropped so
     its stale probabilities are freed.
     """
-    key = (mesh, dtype)
+    key = (mesh, dtype, band)
     cache = getattr(plan, "_sharded_cache", None)
     if cache is None or cache[0] != key:
+        num_markets_global = plan.num_markets if band is None else band[1]
         markets_extent = mesh.shape[MARKETS_AXIS]
         sources_extent = mesh.shape[SOURCES_AXIS]
         padded_total = (
-            -(-max(plan.num_markets, 1) // markets_extent) * markets_extent
+            -(-max(num_markets_global, 1) // markets_extent) * markets_extent
         )
         num_slots = plan.num_slots
         pad_k = (
             -(-max(num_slots, 1) // sources_extent) * sources_extent - num_slots
         )
-        widths = ((0, pad_k), (0, padded_total - plan.num_markets))
+        lo, hi = process_market_rows(padded_total, mesh)
+        if band is None:
+            # A global plan: pad its columns to the whole axis, then take
+            # this process's band of them.
+            col_pad = padded_total - plan.num_markets
+            cols = None if (lo, hi) == (0, padded_total) else slice(lo, hi)
+        else:
+            live = max(0, min(hi, num_markets_global) - lo)
+            if band[0] != lo or plan.num_markets != live:
+                raise ValueError(
+                    f"band plan covers rows [{band[0]}, "
+                    f"{band[0] + plan.num_markets}) but this process owns "
+                    f"[{lo}, {min(hi, num_markets_global)}) of the "
+                    f"{num_markets_global}-market axis"
+                )
+            # A band plan: its columns ARE the band, padded to its width.
+            col_pad = (hi - lo) - plan.num_markets
+            cols = None
+        widths = ((0, pad_k), (0, col_pad))
+
+        def pad_cols(array, fill):
+            padded = _pad_plan(array, widths, fill)
+            return padded if cols is None else padded[:, cols]
+
         parent = getattr(plan, "_refreshed_from", None)
         donor = (
             getattr(parent, "_sharded_cache", None)
             if parent is not None else None
         )
         if donor is not None and donor[0] == key:
-            band_rows, band_mask, mask_g = donor[2], donor[3], donor[5]
+            band_rows, band_mask, mask_g = donor[4], donor[5], donor[7]
             object.__setattr__(parent, "_sharded_cache", None)
         else:
-            band_rows = _pad_plan(plan.slot_rows, widths, -1)
-            band_mask = _pad_plan(plan.mask, widths, False)
+            band_rows = pad_cols(plan.slot_rows, -1)
+            band_mask = pad_cols(plan.mask, False)
             mask_g = global_slot_block(band_mask, mesh, padded_total)
-        band_probs = _pad_plan(plan.probs, widths, 0.0)
+        band_probs = pad_cols(plan.probs, 0.0)
         cache = (
             key,
             padded_total,
+            lo,
+            hi,
             band_rows,
             band_mask,
             global_slot_block(band_probs, mesh, padded_total, dtype=dtype),
@@ -962,9 +996,9 @@ class _BandGather:
 
 
 class _BandView:
-    """Lazy host view of a per-market device vector: ``np.asarray`` fetches
-    it, and a scalar ``[i]`` fetches one element, so
-    ``SettlementResult.fence`` stays a one-scalar fetch."""
+    """Lazy host view of a per-market device vector — this process's live
+    band rows: ``np.asarray`` fetches it, and a scalar ``[i]`` fetches one
+    element, so ``SettlementResult.fence`` stays a one-scalar fetch."""
 
     __slots__ = ("_vector",)
 
@@ -985,6 +1019,18 @@ class _BandView:
     def __array__(self, dtype=None, copy=None):
         values = self._vector.cpu().numpy()
         return values.astype(dtype) if dtype is not None else values
+
+
+def _process_count() -> int:
+    """The runtime's process count, as a patchable indirection.
+
+    The session's adopt path branches on it (a one-process session re-lays
+    its block out on the device; a session of a multi-process runtime
+    stages the relayout through its own host buffers), and tests force the
+    multi-process branch in one process by patching this function.
+    ``torch.distributed``'s world size when a group is initialised, else 1.
+    """
+    return distributed.process_count()
 
 
 class ShardedSettlementSession:
@@ -1008,18 +1054,23 @@ class ShardedSettlementSession:
     while it is open, is not seen by the retained block. Use as a context
     manager, or call :meth:`close`.
 
-    *mesh* is a :class:`~.parallel.mesh.Mesh` (``parallel.mesh.make_mesh``)
-    that the block is spread over, padded as the JAX session pads it
-    (markets up to a multiple of the markets extent, slots up to a
-    multiple of the sources extent); ``None`` means the (1, 1) mesh of
-    the store's device, one card. Results cover the plan's markets.
-    :meth:`refresh` swaps in a probability-only twin of the plan (only the
-    probability block is uploaded); :meth:`adopt` swaps in any plan bound
-    to the same store and re-lays the resident block out on the device —
-    the two moves :func:`settle_stream` and
-    :class:`~.serve.driver.SessionDriver` make every batch. A process
-    ``band`` raises (ROADMAP queue 1 item 9), in the constructor and in
-    :meth:`adopt`.
+    *mesh* is a :class:`~.parallel.mesh.Mesh` (``parallel.mesh.make_mesh``,
+    or ``parallel.distributed.make_hybrid_mesh`` across processes) that
+    the block is spread over, padded as the JAX session pads it (markets
+    up to a multiple of the markets extent, slots up to a multiple of the
+    sources extent); ``None`` means the (1, 1) mesh of the store's device,
+    one card. On a mesh of several processes the session holds and runs
+    only this process's rows of the grid: its band of the markets axis.
+    With ``band=None`` the plan and outcomes are indexed globally on every
+    process; with ``band=(lo, global_markets)`` they cover ONLY this
+    process's markets (the multi-process ingest shape: each process packs
+    its own payloads, with a globally agreed ``num_slots``). Results cover
+    this process's band either way. :meth:`refresh` swaps in a
+    probability-only twin of the plan (only the probability block is
+    uploaded); :meth:`adopt` swaps in any plan bound to the same store and
+    carries the resident block across — the two moves
+    :func:`settle_stream` and :class:`~.serve.driver.SessionDriver` make
+    every batch.
     """
 
     def __init__(
@@ -1032,13 +1083,14 @@ class ShardedSettlementSession:
                 "mesh takes a parallel.mesh.Mesh (make_mesh) or None (one "
                 f"card); got {type(mesh).__name__}"
             )
-        if band is not None:
-            raise ValueError(f"band={band!r}: {_NO_PROCESS_BANDS}")
         self._store = store
         self._mesh = mesh
-        # Where per-market outputs and graph blocks live: the mesh's first
-        # device.
-        self._device = mesh.devices[0][0]
+        self._band = band
+        # This process's rows of the grid: the whole mesh in one process.
+        self._local_mesh = mesh.local(distributed.process_index())
+        # Where per-market outputs and graph blocks live: the first device
+        # of this process's rows.
+        self._device = self._local_mesh.devices[0][0]
         self._cdtype = resolve_dtype(dtype)
         self._bind_plan(plan)
         self._state = None  # built lazily: the epoch depends on the first now
@@ -1058,9 +1110,9 @@ class ShardedSettlementSession:
         """Take *plan*'s padded block and device copies (an ``upload``
         phase) and its touched rows."""
         with active_timeline().span("upload"):
-            (self._padded_total, self._band_rows, self._band_mask,
-             self._probs_g, self._mask_g) = _sharded_plan_cache(
-                plan, self._mesh, self._cdtype
+            (self._padded_total, self._lo, self._hi, self._band_rows,
+             self._band_mask, self._probs_g, self._mask_g) = _sharded_plan_cache(
+                plan, self._mesh, self._cdtype, self._band
             )
             # The padded global mask _BandGather selects touched slots with.
             self._gather_mask = unshard_slot_block(self._mask_g)
@@ -1086,16 +1138,17 @@ class ShardedSettlementSession:
             ).astype(np_dtype),
             band_mask & host_exists,
         )
-        self._state = sharded_block_from_numpy(fields, self._mesh)
+        self._state = sharded_block_from_numpy(fields, self._local_mesh)
         self._epoch0 = epoch0
         if self._loop is None:
-            self._loop = build_cycle_loop(self._mesh)
+            self._loop = build_cycle_loop(self._local_mesh)
 
     def _settle_preamble(self, outcomes: Sequence[bool], now: Optional[float]):
         """The shared pre-launch path of every settle entry: plan/outcome
         validation, (re)build of the resident state (an ``upload`` phase),
-        exact host confidences, and the padded outcome vector. Returns
-        ``(now_abs, conf_exact, outcome_padded)``."""
+        exact host confidences, and this process's band of outcome
+        columns, padded to the band's width. Returns ``(now_abs,
+        conf_exact, outcome_band)``."""
         store, plan = self._store, self._plan
         _check_plan(store, plan, outcomes)
         now_abs = _now_days() if now is None else now
@@ -1111,11 +1164,20 @@ class ShardedSettlementSession:
                     min(store.epoch_origin(sync=False), now_abs - 1.0)
                 )
         conf_exact = store.host_confidences(self._touched)
-        outcome_padded = np.pad(
-            np.asarray(outcomes, dtype=bool),
-            (0, self._padded_total - len(outcomes)), constant_values=False,
-        )
-        return now_abs, conf_exact, outcome_padded
+        outcome_arr = np.asarray(outcomes, dtype=bool)
+        if self._band is None:
+            # Global outcomes: pad to the whole axis, take this band.
+            outcome_band = np.pad(
+                outcome_arr, (0, self._padded_total - len(outcome_arr)),
+                constant_values=False,
+            )[self._lo:self._hi]
+        else:
+            # Band-local outcomes: pad to the band's width.
+            outcome_band = np.pad(
+                outcome_arr, (0, self._hi - self._lo - len(outcome_arr)),
+                constant_values=False,
+            )
+        return now_abs, conf_exact, outcome_band
 
     def _now0(self, now_abs: float) -> float:
         """The first step's day relative to the epoch, in the state's dtype."""
@@ -1141,15 +1203,26 @@ class ShardedSettlementSession:
         self._standing_gather = gather
         _replay_confidences(self._store, self._touched, conf_exact, steps)
 
+    def _live(self) -> int:
+        """How many of this process's band rows are live markets of the
+        current plan. A band can lie wholly in padding (more band capacity
+        than markets), so this may be 0."""
+        if self._band is not None:
+            return self._plan.num_markets  # the plan IS the band
+        return max(0, min(self._hi, self._plan.num_markets) - self._lo)
+
     def _band_live(self) -> tuple:
-        """(live, keys): in one process the band is every market of the
-        plan."""
-        return self._plan.num_markets, self._plan.market_keys
+        """(live, keys) of this process's band of the current plan."""
+        live = self._live()
+        keys = self._plan.market_keys
+        if self._band is None and (self._lo, live) != (0, len(keys)):
+            keys = keys[self._lo:self._lo + live]
+        return live, keys
 
     def _per_market(self, vector: torch.Tensor) -> "_BandView":
-        """The lazy host view of a per-market output's live markets (a
+        """The lazy host view of a per-market output's live band rows (a
         mesh pads the markets axis)."""
-        return _BandView(vector[: self._plan.num_markets])
+        return _BandView(vector[: self._live()])
 
     def settle(
         self,
@@ -1162,7 +1235,7 @@ class ShardedSettlementSession:
         with active_timeline().span("settle_dispatch"):
             new_state, consensus = self._loop(
                 self._probs_g, self._mask_g,
-                shard_market_vector(outcome, self._mesh), self._state,
+                shard_market_vector(outcome, self._local_mesh), self._state,
                 self._now0(now_abs), steps,
             )
         self._settle_commit(new_state, steps, now_abs, conf_exact)
@@ -1195,14 +1268,14 @@ class ShardedSettlementSession:
                 "DEFAULT_CHUNK_AGENTS)"
             )
         loop = build_cycle_analytics_loop(
-            self._mesh, chunk_agents=chunk_agents, precision=precision,
+            self._local_mesh, chunk_agents=chunk_agents, precision=precision,
             with_bands=False,
         )
         now_abs, conf_exact, outcome = self._settle_preamble(outcomes, now)
         with active_timeline().span("settle_dispatch"):
             new_state, consensus, tiebreak, _bands, _prop = loop(
                 self._probs_g, self._mask_g,
-                shard_market_vector(outcome, self._mesh), self._state,
+                shard_market_vector(outcome, self._local_mesh), self._state,
                 self._now0(now_abs), steps,
             )
         self._settle_commit(new_state, steps, now_abs, conf_exact)
@@ -1284,6 +1357,21 @@ class ShardedSettlementSession:
         there; on CUDA every accepted value runs the port's kernels.
         """
         options = analytics if analytics is not None else AnalyticsOptions()
+        if _process_count() > 1:
+            # Bands and the tie-break are per-market reductions and would
+            # serve a band unchanged, but the graph sweep reads every
+            # market: named here rather than failing deep in alignment.
+            from bayesian_consensus_engine_tpu_torch.cluster.recover import (
+                ClusterModeUnsupported,
+            )
+
+            raise ClusterModeUnsupported(
+                "settle_with_analytics on a multi-process runtime is not "
+                "served: route cluster deployments through the "
+                "shared-nothing band membership (cluster.membership."
+                "MeshView — each host serves its band on its local mesh, "
+                "where the full analytics tier runs unchanged)"
+            )
 
         def resolve(value, recorded, knob):
             if value == "default":
@@ -1365,11 +1453,11 @@ class ShardedSettlementSession:
             # upload, the loop's build); the launch stays on
             # settle_dispatch, as in the JAX session.
             graph_args = self._graph_blocks(graph) if sweep_steps > 0 else ()
-            loop = build_cycle_analytics_loop(self._mesh, **loop_options)
+            loop = build_cycle_analytics_loop(self._local_mesh, **loop_options)
         with timeline.span("settle_dispatch"):
             new_state, consensus, tiebreak, bands, propagated = loop(
                 self._probs_g, self._mask_g,
-                shard_market_vector(outcome, self._mesh), self._state,
+                shard_market_vector(outcome, self._local_mesh), self._state,
                 self._now0(now_abs), steps, *graph_args,
             )
         self._settle_commit(new_state, steps, now_abs, conf_exact)
@@ -1456,46 +1544,52 @@ class ShardedSettlementSession:
 
         * ``"refresh"`` — *plan* shares the current plan's topology arrays
           (the fingerprint hit): probability upload only.
-        * ``"relayout"`` — the resident block was carried across on the
-          device (:func:`~.parallel.sharded.relayout_slot_state`): rows
-          staying in the active set move with it (no host traffic), rows
-          entering upload their host values (fresh pairs enter as cold
-          defaults), and rows leaving stay covered by the standing sync
-          recipe and reach the host store at the next checkpoint or sync,
-          as any deferred gather does. Growth of the padded extents
-          re-pads the block. The result is bit-equal to tearing the
-          session down and rebuilding it.
+        * ``"relayout"`` — the resident block was carried across: rows
+          staying in the active set move with it, rows entering upload
+          their host values (fresh pairs enter as cold defaults), and rows
+          leaving stay covered by the standing sync recipe and reach the
+          host store at the next checkpoint or sync, as any deferred
+          gather does. A one-process session whose band is the whole axis
+          re-lays the block out on the device
+          (:func:`~.parallel.sharded.relayout_slot_state`: no host traffic
+          for staying rows). A session of a multi-process runtime, or one
+          whose band covers part of the axis, stages the same permutation
+          through its own host buffers: band drift is a process-local
+          event, so the staged route touches only this process's columns.
+          Growth of the padded extents re-pads the block. Either way the
+          result is bit-equal to tearing the session down and rebuilding.
         * ``"rebuild:<reason>"`` — the resident state was dropped and the
           next :meth:`settle` rebuilds from the host: ``no-resident-state``
-          (nothing to carry yet) or ``backdated-stamps`` (an entering
-          row's host stamp has no positive expression against the session
-          epoch).
-
-        The JAX package's ``band=`` route (process bands, the
-        ``rebuild:band-change`` case and the host-staged relayout of a
-        multi-process session) is ROADMAP queue 1 item 9: a ``band``
-        raises here, as in the constructor.
+          (nothing to carry yet), ``band-change`` (the global axis was
+          re-partitioned, a membership-epoch event: state crossing bands
+          travels through journal replay, ``cluster/recover.py``) or
+          ``backdated-stamps`` (an entering row's host stamp has no
+          positive expression against the session epoch).
         """
-        if band is not None:
-            raise ValueError(f"band={band!r}: {_NO_PROCESS_BANDS}")
-        if plan is self._plan:
-            return "refresh"
-        if (
-            plan.slot_rows is self._plan.slot_rows
-            and plan.mask is self._plan.mask
-        ):
-            self.refresh(plan)
-            return "refresh"
+        if band == self._band:
+            # The hit shortcut holds within the same band only: a band
+            # change under a shared topology still re-slices rows.
+            if plan is self._plan:
+                return "refresh"
+            if (
+                plan.slot_rows is self._plan.slot_rows
+                and plan.mask is self._plan.mask
+            ):
+                self.refresh(plan)
+                return "refresh"
         # A topology miss: the swap (row-set delta, host reads of entering
-        # rows, device relayout) is the state_adopt phase; the plan upload
-        # inside stays on upload (exclusive nesting).
+        # rows, relayout) is the state_adopt phase; the plan upload inside
+        # stays on upload (exclusive nesting).
         with active_timeline().span("state_adopt"):
-            return self._adopt_miss(plan)
+            return self._adopt_miss(plan, band)
 
-    def _adopt_miss(self, plan: SettlementPlan) -> str:
+    def _adopt_miss(self, plan: SettlementPlan, band) -> str:
         store = self._store
         old_state = self._state
         old_band_rows, old_band_mask = self._band_rows, self._band_mask
+        old_lo, old_hi, old_total = self._lo, self._hi, self._padded_total
+        band_changed = band != self._band
+        self._band = band
         self._bind_plan(plan)
         # Mid-swap from here: drop the resident binding FIRST, so that an
         # exception below (a sync failure, a device error in the relayout)
@@ -1507,9 +1601,12 @@ class ShardedSettlementSession:
         self._state = None
         if old_state is None:
             return "rebuild:no-resident-state"
+        if band_changed:
+            return "rebuild:band-change"
 
         # The row-set delta between the outgoing and incoming layouts, as
-        # flat slot-major positions (each plan maps a row to one slot).
+        # flat band-local slot-major positions (each plan maps a row to one
+        # slot; a whole-axis band's local positions are global).
         old_pos = np.flatnonzero(old_band_mask.ravel())
         old_rows = old_band_rows.ravel()[old_pos]
         new_pos = np.flatnonzero(self._band_mask.ravel())
@@ -1549,19 +1646,39 @@ class ShardedSettlementSession:
         # Cast exactly as _build_state casts, so the relaid block is
         # bit-equal to a rebuild.
         np_dtype = _NUMPY_DTYPE[self._cdtype]
-        src = np.full(self._band_mask.size, -1, dtype=np.int64)
-        src[new_pos[staying]] = sorted_pos[idx[staying]]
-        self._state = relayout_slot_state(
-            old_state,
-            src,
-            entering_pos,
-            host_rel.astype(np_dtype),
-            host_conf.astype(np_dtype),
-            rel_days.astype(np_dtype),
-            host_exists.astype(bool),
-            self._band_mask.shape,
-            self._mesh,
+        entering = (host_rel.astype(np_dtype), host_conf.astype(np_dtype),
+                    rel_days.astype(np_dtype), host_exists.astype(bool))
+        whole_axis = (
+            old_lo == 0 and old_hi == old_total
+            and self._lo == 0 and self._hi == self._padded_total
         )
+        if whole_axis and _process_count() == 1:
+            # One process, the whole axis: the permutation runs on the
+            # device, with no host traffic for staying rows.
+            src = np.full(self._band_mask.size, -1, dtype=np.int64)
+            src[new_pos[staying]] = sorted_pos[idx[staying]]
+            self._state = relayout_slot_state(
+                old_state, src, entering_pos, *entering,
+                self._band_mask.shape, self._local_mesh,
+            )
+            return "relayout"
+        # A multi-process runtime, or a band covering part of the axis:
+        # the same permutation staged through this process's host buffers
+        # (staying rows from the live block, entering rows host-exact, so
+        # the bytes are a rebuild's by the same argument), touching only
+        # this band's columns and dispatching nothing collective.
+        old_local = sharded_block_to_numpy(old_state)
+        fills = (DEFAULT_RELIABILITY, DEFAULT_CONFIDENCE, 0.0, False)
+        fields = []
+        for old_arr, fill, entered in zip(old_local, fills, entering):
+            flat = np.full(self._band_mask.size, fill, dtype=entered.dtype)
+            flat[new_pos[staying]] = old_arr.ravel()[
+                sorted_pos[idx[staying]]
+            ].astype(entered.dtype, copy=False)
+            if entering_pos.size:
+                flat[entering_pos] = entered
+            fields.append(flat.reshape(self._band_mask.shape))
+        self._state = sharded_block_from_numpy(fields, self._local_mesh)
         return "relayout"
 
     def sync(self) -> None:
@@ -1851,8 +1968,16 @@ def settle_stream(
     ``resident_session=False`` builds one session per batch instead.
     Results, store state and checkpoint files equal the flat stream's;
     a sources-sharded mesh re-associates each market's slot sum (within
-    an ulp on the consensus). *band* (process bands) raises: ROADMAP
-    queue 1 item 9. *dtype* is the compute dtype.
+    an ulp on the consensus). *dtype* is the compute dtype.
+
+    *band*: ``(lo, global_markets)`` marks each batch's plan as covering
+    ONLY this process's markets — rows ``[lo, lo + M_plan)`` of a
+    ``global_markets``-wide axis — or a callable ``band(batch_index) ->
+    (lo, global_markets)`` when the global width moves per batch. Band
+    mode needs ``mesh=`` and a globally agreed integer *num_slots*
+    (``"bucket"`` pads per-process maxima, which processes disagree on).
+    A band change mid-stream starts a new session (one
+    ``stream.resident_fallbacks``).
 
     *lazy_checkpoints* makes the periodic SQLite flushes snapshot the
     applied host state without resolving deferred device results, so they

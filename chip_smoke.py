@@ -3,7 +3,8 @@ and check them.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each (``script_s``: the script's seconds when the
+line was printed):
 
 1. ``device``       the card (``nvidia-smi`` name and power limit).
 2. ``build``        compile the four kernel sources from the package's
@@ -85,10 +86,13 @@ Phases, one JSON line each:
                     cut, their ``iterdump()`` equal (the CREATE statement's
                     whitespace normalised: the C writer's schema text is
                     one line).
-10. ``delta_check`` a second batch drifting from the main path's (10% of
+10. ``delta_check`` on the main path's first 250,000 markets (a cut: at
+                    full width its two 4M-row checkpoints took most of the
+                    phase), a
+                    second batch drifting from that cut (10% of
                     markets replaced, 5% of the rest given new signals, the
                     order shuffled) bound with ``intern_mode="auto"`` and
-                    ``"full"`` on twin stores that bound the main path's
+                    ``"full"`` on twin stores that bound the cut's
                     batch first: equal rows, equal checkpoint sha256 after
                     a 2-step settle of each plan, the delta route's
                     ``matched_pairs`` above 0, and a re-bind of the same
@@ -183,9 +187,11 @@ Phases, one JSON line each:
                     its launches in phase 19, and ``settle_cycles``
                     ``replay_launches``, lane 0's in phase 20, and
                     ``bp_sweep`` ``shards_launches``, its launches on phase
-                    21's markets-sharded sessions and banded sweeps. A fifth
-                    entry, ``settle_cycles_lanes``, comes from phase 20. The
-                    line is printed after phase 21.
+                    21's markets-sharded sessions and banded sweeps;
+                    ``onepass_settle`` and ``onepass_partials``
+                    ``cluster_launches``, their launches in phase 22's rank
+                    processes. A fifth entry, ``settle_cycles_lanes``, comes
+                    from phase 20. The line is printed after phase 22.
 15. ``batch_consensus`` the consensus surface, which runs none of the four
                     kernels: the main path's 1,000,000 markets as object
                     payloads (``{"sourceId", "probability"}`` dicts) with a
@@ -426,6 +432,36 @@ Phases, one JSON line each:
                     flat loop there. Prints cycles per second for every
                     loop and the peak device bytes above the inputs of the
                     compact and float32 runs.
+22. ``cluster``    the multi-process cluster tier on the card. (a) Two rank
+                    processes on the one card, joined by
+                    ``init_distributed`` over gloo on 127.0.0.1 (a free
+                    port, a 120 s rendezvous timeout; no tensor crosses a
+                    process), each making the main path's batch from the
+                    seed and, per rank, a drifted successor of its own
+                    markets (``band_drift``: ``drifted_batch`` over the
+                    band, so no market changes band). Per ici shape (1, 1)
+                    and (1, 2) of ``make_hybrid_mesh`` (one granule a
+                    rank), each rank builds its band's plan only
+                    (``MeshView.band``, the globally agreed K), runs two
+                    chained 20-step ``settle`` calls of a band session,
+                    adopts the drifted band plan (``"relayout"`` by the
+                    host-staged route, its block bit-equal to a session
+                    rebuilt from the synced host, all four fields) and
+                    settles it once; ``onepass_settle`` must launch 3 times
+                    a rank on (1, 1), ``onepass_partials`` 6 on (1, 2).
+                    Meanwhile this process runs the same calls on the whole
+                    axis through the one-card session and a (1, 2) mesh
+                    session: the ranks' consensus of every call and the
+                    stored values at both plans' slots must be those
+                    sessions', bit for bit, and the ranks' stores hold
+                    their rows. Prints each rank's rendezvous, plan, settle,
+                    adopt and rebuild-check seconds and peak device bytes.
+                    (b) The kill soak, ``python -m
+                    bayesian_consensus_engine_tpu_torch.cluster.soak
+                    --hosts 2 --markets 250000 --batches 12 --kill-after 3
+                    --json`` (the host routes' cut; workers on the card):
+                    exit 0 with its byte coda holding; prints the recovered
+                    goodput, adoption and coda seconds and rows adopted.
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -455,8 +491,10 @@ PARITY_MARKETS = 20_000
 # The host routes' full iterdump() comparison, and the delta check's drift:
 # a tenth of the markets replaced, a twentieth of the rest redrawn.
 DUMP_MARKETS, REPLACED, REDRAWN = 50_000, 0.10, 0.05
-# The two host routes side by side, a quarter of the main path's markets.
+# The two host routes side by side, a quarter of the main path's markets;
+# the delta check binds its two batches on the same cut.
 HOST_ROUTE_MARKETS = 250_000
+DELTA_MARKETS = HOST_ROUTE_MARKETS
 # The inference path's graph and sweep.
 EVENT_SIZE, CORRELATIONS, BP_TOL, BP_MAX_STEPS = 4, 2, 1e-5, 24
 # partials_check's K_loc, each with the band-tree depth of the kernel
@@ -469,8 +507,14 @@ TOL = {np.dtype(np.float32): dict(rtol=1e-5, atol=1e-6),
        np.dtype(np.float64): dict(rtol=1e-12, atol=0.0)}
 
 
+SCRIPT_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, **fields,
+                      "script_s": time.perf_counter() - SCRIPT_START}),
+          flush=True)
 
 
 def table_digest(path) -> str:
@@ -2899,6 +2943,372 @@ def shards_phase(smi, market_keys, codes, probs, offsets, outcomes, graph):
     return shards_launches
 
 
+CLUSTER_NOW = NOW + 100 * STEPS
+CLUSTER_RANKS = 2
+CLUSTER_ICI = ((1, 1), (1, 2))
+CLUSTER_DEVICE = "cuda"
+CLUSTER_TIMEOUT_S = 300
+# The kill soak: the host route phase's cut of the markets (250,000).
+SOAK_ARGS = ("--hosts", "2", "--batches", "12", "--kill-after", "3")
+
+# One rank of phase 22: joins the gloo group, makes the main path's batch
+# and its drifted successor from the seed (as main() and delta_check make
+# them), and for each per-rank ici shape settles ITS band on the card
+# through a band plan and a band session: two chained settles, the
+# drifted batch's adopt (held against a rebuild from the host) and a third
+# settle. Its consensus and the stored values at both plans' slots go to
+# an .npz; its report (seconds, launches, peak bytes) is its last line.
+RANK_BOOT = """
+import json, sys, time
+from datetime import timedelta
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import chip_smoke as smoke
+from bayesian_consensus_engine_tpu_torch import convert, pipeline
+from bayesian_consensus_engine_tpu_torch.cluster import MeshView
+from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
+from bayesian_consensus_engine_tpu_torch.ops import onepass_kernel, partials_kernel
+from bayesian_consensus_engine_tpu_torch.parallel import distributed
+from bayesian_consensus_engine_tpu_torch.parallel.mesh import make_mesh
+from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+    TensorReliabilityStore,
+)
+job = json.loads(sys.argv[2])
+rank, ranks, markets, steps, now = (job["rank"], job["ranks"], job["markets"],
+                                    job["steps"], job["now"])
+# The card (raising without CUDA), as a mesh names it.
+device = make_mesh((1, 1), [job["device"]]).devices[0][0]
+start = time.perf_counter()
+distributed.init_distributed(
+    coordinator_address="127.0.0.1:%d" % job["port"], num_processes=ranks,
+    process_id=rank, timeout=timedelta(seconds=120))
+report = {"rank": rank, "rendezvous_s": time.perf_counter() - start}
+if pipeline._process_count() != ranks:
+    raise AssertionError("the session does not see the group")
+start = time.perf_counter()
+rng = np.random.default_rng(job["seed"])
+counts = rng.poisson(smoke.MEAN_SIGNALS - 1, markets) + 1
+codes = rng.integers(0, smoke.SOURCES, counts.sum())
+probs = rng.random(counts.sum())
+offsets = np.concatenate([[0], np.cumsum(counts)])
+outcomes = rng.random(markets) < 0.5
+keys = ["market-%d" % m for m in range(markets)]
+table = ["src-%d" % i for i in range(smoke.SOURCES)]
+rows = MeshView(epoch=0, hosts=tuple(range(ranks))).owned_markets(rank, markets)
+second = smoke.band_drift(keys, counts, codes, rows, rank)
+report["data_s"] = time.perf_counter() - start
+
+
+def band_columns(batch_keys, batch_codes, batch_probs, batch_offsets,
+                 batch_outcomes, rows):
+    a, b = int(batch_offsets[rows.start]), int(batch_offsets[rows.stop])
+    return (batch_keys[rows.start:rows.stop],
+            SourceCodes(batch_codes[a:b], table), batch_probs[a:b],
+            batch_offsets[rows.start:rows.stop + 1] - a,
+            batch_outcomes[rows.start:rows.stop])
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+for ici in job["icis"]:
+    name = "%dx%d" % tuple(ici)
+    width = ici[0] * ici[1]
+    mesh = distributed.make_hybrid_mesh(ici_shape=tuple(ici),
+                                        devices=[device] * width)
+    view = MeshView(epoch=0, hosts=tuple(range(ranks)),
+                    devices_per_host=width, ici_shape=tuple(ici))
+    band = view.band(rank, markets)
+    lo, hi = distributed.process_market_rows(view.padded_markets(markets), mesh)
+    if (lo, markets) != band or view.owned_markets(rank, markets) != rows \
+            or mesh.owners is None:
+        raise AssertionError("rank %d: band %r, rows [%d, %d)" % (
+            rank, band, lo, hi))
+    onepass_kernel.LAUNCHES = partials_kernel.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    store = TensorReliabilityStore(device=device)
+    first = band_columns(keys, codes, probs, offsets, outcomes, rows)
+    plan, seconds["plan"] = timed(
+        lambda: pipeline.build_settlement_plan_columnar(
+            store, *first[:4], num_slots=job["num_slots"]))
+    session = pipeline.ShardedSettlementSession(store, plan, mesh, band=band)
+    consensus = []
+    for call in range(2):
+        result, seconds["settle_%d" % (call + 1)] = timed(
+            lambda: session.settle(first[4], steps=steps,
+                                   now=now + call * steps))
+        consensus.append(np.asarray(result.consensus))
+    drift = (second[0], SourceCodes(second[1], table), *second[2:])
+    plan2, seconds["plan_2"] = timed(
+        lambda: pipeline.build_settlement_plan_columnar(
+            store, *drift[:4], num_slots=job["num_slots"]))
+    served, seconds["adopt"] = timed(lambda: session.adopt(plan2, band=band))
+    staged = convert.sharded_block_to_numpy(session._state)
+    start = time.perf_counter()
+    store.sync()
+    rebuild = pipeline.ShardedSettlementSession(store, plan2, mesh, band=band)
+    rebuild._build_state(session._epoch0)
+    rebuilt = convert.sharded_block_to_numpy(rebuild._state)
+    del rebuild
+    seconds["rebuild_check"] = time.perf_counter() - start
+    rebuild_equal = [bool(np.array_equal(a, b))
+                     for a, b in zip(staged, rebuilt)]
+    del staged, rebuilt
+    result, seconds["settle_3"] = timed(
+        lambda: session.settle(drift[4], steps=steps, now=now + 2 * steps))
+    consensus.append(np.asarray(result.consensus))
+    session.close()
+    arrays = {"consensus_%d" % i: c for i, c in enumerate(consensus, 1)}
+    for label, bound in (("plan1", plan), ("plan2", plan2)):
+        values = store.host_rows(bound.slot_rows[bound.mask])
+        for field, column in zip(("rel", "conf", "days", "exists"), values):
+            arrays["%s_%s" % (label, field)] = column
+    np.savez(job["out"] % name, **arrays)
+    report[name] = dict(
+        band=list(band), rows=[rows.start, rows.stop], padded_band=[lo, hi],
+        local_mesh_rows=len(session._local_mesh.devices), served=served,
+        rebuild_equal=rebuild_equal, store_rows=len(store), seconds=seconds,
+        launches={"onepass_settle": onepass_kernel.LAUNCHES,
+                  "onepass_partials": partials_kernel.LAUNCHES},
+        peak_device_bytes=torch.cuda.max_memory_allocated())
+    del store, plan, plan2, session, result
+    torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+print(json.dumps(report), flush=True)
+"""
+
+
+def band_drift(market_keys, counts, codes, rows, band: int):
+    """Band *band*'s drifted successor batch: :func:`drifted_batch` over
+    its own markets (*rows* of the main path's batch), seeded by the band,
+    so that every market stays in the band that owns it; a replaced
+    market's key names its band. Returns the band-local ``(keys, codes,
+    probs, offsets, outcomes)``."""
+    rng = np.random.default_rng((SEED + 2, band))
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    keys, new_codes, new_probs, new_offsets = drifted_batch(
+        rng, market_keys[rows.start:rows.stop], counts[rows.start:rows.stop],
+        codes[starts[rows.start]:starts[rows.stop]])
+    keys = [key.replace("market-new-", f"market-new-{band}-") for key in keys]
+    return (keys, new_codes, new_probs, new_offsets,
+            rng.random(len(rows)) < 0.5)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _package_env() -> dict:
+    """This environment with the checkout first on ``PYTHONPATH``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+def run_ranks(work: str, num_slots: int, meanwhile):
+    """Phase 22's rank processes, started together; ``meanwhile()`` runs in
+    this process while they work, and every rank is killed if any
+    outlasts CLUSTER_TIMEOUT_S or ``meanwhile`` raises. Returns the ranks'
+    reports and what ``meanwhile`` returned."""
+    port = _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for rank in range(CLUSTER_RANKS):
+            job = dict(port=port, rank=rank, ranks=CLUSTER_RANKS,
+                       markets=MARKETS, steps=STEPS, now=CLUSTER_NOW, seed=SEED,
+                       num_slots=num_slots, icis=[list(s) for s in CLUSTER_ICI],
+                       device=CLUSTER_DEVICE,
+                       out=os.path.join(work, f"rank{rank}-%s.npz"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_BOOT, root, json.dumps(job)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=_package_env()))
+        deadline = time.time() + CLUSTER_TIMEOUT_S
+        done = meanwhile()
+        outputs = [proc.communicate(timeout=max(1.0, deadline - time.time()))[0]
+                   for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    reports = []
+    for rank, (proc, out) in enumerate(zip(procs, outputs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"rank {rank} failed (rc {proc.returncode}):\n"
+                                 f"{out[-4000:]}")
+        reports.append(json.loads(out.strip().splitlines()[-1]))
+    return reports, done
+
+
+def cluster_phase(smi, market_keys, codes, probs, offsets, outcomes, counts):
+    """Phase 22. Returns the ranks' launches of ``onepass_settle`` and
+    ``onepass_partials``."""
+    from bayesian_consensus_engine_tpu_torch import pipeline
+    from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
+    from bayesian_consensus_engine_tpu_torch.parallel import mesh as mesh_module
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    phase_start = time.perf_counter()
+    seconds = {}
+    from bayesian_consensus_engine_tpu_torch.cluster import MeshView
+
+    table = [f"src-{i}" for i in range(SOURCES)]
+    # The drifted batch: each band's drift over its own markets, the bands
+    # back to back (the one-process references adopt it whole).
+    view = MeshView(epoch=0, hosts=tuple(range(CLUSTER_RANKS)))
+    bands = [band_drift(market_keys, counts, codes,
+                        view.owned_markets(rank, len(market_keys)), rank)
+             for rank in view.hosts]
+    second = ([key for band in bands for key in band[0]],
+              np.concatenate([band[1] for band in bands]),
+              np.concatenate([band[2] for band in bands]),
+              np.concatenate([[0]] + [band[3][1:] + base for band, base in zip(
+                  bands, np.cumsum([0] + [band[3][-1] for band in bands[:-1]]))]))
+    second_outcomes = np.concatenate([band[4] for band in bands])
+    del bands
+    # One K for both batches, every rank and the references: a band plan
+    # is built with the globally agreed num_slots.
+    num_slots = int(max(counts.max(), np.diff(second[3]).max()))
+    work = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+
+    def references():
+        """The one-process sessions on the same card, run while the ranks
+        work: the one-card session for the ranks' (1, 1) bands, a (1, 2)
+        mesh session for their (1, 2) bands; each the ranks' calls on the
+        whole axis."""
+        out = {}
+        for ici in CLUSTER_ICI:
+            start = time.perf_counter()
+            mesh = (None if ici == (1, 1) else mesh_module.make_mesh(
+                ici, [CLUSTER_DEVICE] * (ici[0] * ici[1])))
+            store = TensorReliabilityStore()
+            plan = pipeline.build_settlement_plan_columnar(
+                store, market_keys, SourceCodes(codes, table), probs, offsets,
+                num_slots=num_slots)
+            session = pipeline.ShardedSettlementSession(store, plan, mesh)
+            consensus = [np.asarray(session.settle(
+                outcomes, steps=STEPS, now=CLUSTER_NOW + call * STEPS).consensus)
+                for call in range(2)]
+            plan2 = pipeline.build_settlement_plan_columnar(
+                store, second[0], SourceCodes(second[1], table), second[2],
+                second[3], num_slots=num_slots)
+            served = session.adopt(plan2)
+            consensus.append(np.asarray(session.settle(
+                second_outcomes, steps=STEPS,
+                now=CLUSTER_NOW + 2 * STEPS).consensus))
+            session.close()
+            if served != "relayout":
+                raise AssertionError(f"{ici} reference adopt: {served}")
+            out[f"{ici[0]}x{ici[1]}"] = (consensus, store, plan, plan2,
+                                         time.perf_counter() - start)
+        return out
+
+    try:
+        start = time.perf_counter()
+        reports, refs = run_ranks(work, num_slots, references)
+        seconds["ranks_and_references"] = time.perf_counter() - start
+        checks = {}
+        for name, (consensus, store, plan, plan2, ref_s) in refs.items():
+            ici = tuple(int(x) for x in name.split("x"))
+            start = time.perf_counter()
+            for rank, report in enumerate(reports):
+                band = report[name]
+                what = f"rank {rank} {name}"
+                if band["served"] != "relayout" or not all(band["rebuild_equal"]):
+                    raise AssertionError(
+                        f"{what}: adopt {band['served']}, staged block equal "
+                        f"to a rebuild per field {band['rebuild_equal']}")
+                lo, hi = band["rows"]
+                got = np.load(os.path.join(work, f"rank{rank}-{name}.npz"))
+                for call in range(3):
+                    if not np.array_equal(got[f"consensus_{call + 1}"],
+                                          consensus[call][lo:hi],
+                                          equal_nan=True):
+                        raise AssertionError(
+                            f"{what}: settle {call + 1}'s consensus is not the "
+                            "one-process session's")
+                for label, bound in (("plan1", plan), ("plan2", plan2)):
+                    slots = bound.slot_rows[:, lo:hi][bound.mask[:, lo:hi]]
+                    want = store.host_rows(slots)
+                    for field, column in zip(("rel", "conf", "days", "exists"),
+                                             want):
+                        if not np.array_equal(got[f"{label}_{field}"], column):
+                            raise AssertionError(
+                                f"{what}: stored {field} at {label}'s slots "
+                                "is not the one-process session's")
+                band["launches_expected"] = {
+                    "onepass_settle": 3 if ici[1] == 1 else 0,
+                    "onepass_partials": 0 if ici[1] == 1 else 3 * ici[1]}
+                if band["launches"] != band["launches_expected"]:
+                    raise AssertionError(f"{what}: launches {band['launches']}")
+            if sum(r[name]["store_rows"] for r in reports) != len(store):
+                raise AssertionError(f"{name}: the ranks' stores hold "
+                                     "other rows than the reference's")
+            checks[name] = dict(reference_rows=len(store), bit_equal=True,
+                                reference_s=ref_s,
+                                compare_s=time.perf_counter() - start)
+        del refs
+        seconds["references"] = sum(c["reference_s"] for c in checks.values())
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (b) the kill soak on the card.
+    start = time.perf_counter()
+    soak = subprocess.run(
+        [sys.executable, "-m", "bayesian_consensus_engine_tpu_torch.cluster.soak",
+         *SOAK_ARGS, "--markets", str(HOST_ROUTE_MARKETS),
+         "--device", CLUSTER_DEVICE, "--json"],
+        capture_output=True, text=True, timeout=CLUSTER_TIMEOUT_S,
+        env=_package_env())
+    seconds["soak"] = time.perf_counter() - start
+    lines = [line for line in soak.stdout.splitlines() if line.startswith("{")]
+    if soak.returncode != 0 or not lines:
+        raise AssertionError(f"the kill soak failed (rc {soak.returncode}):\n"
+                             f"{soak.stdout[-3000:]}\n{soak.stderr[-3000:]}")
+    result = json.loads(lines[-1])
+    if not (result["ok"] and result["byte_equal_store"]
+            and result["byte_equal_sqlite"]
+            and result["survivor_journal_self_contained"]):
+        raise AssertionError(f"the kill soak's byte coda: {result}")
+    launches = {kernel: sum(r[name]["launches"][kernel] for r in reports
+                            for name in r if isinstance(r[name], dict))
+                for kernel in ("onepass_settle", "onepass_partials")}
+    seconds["phase"] = time.perf_counter() - phase_start
+    emit("cluster", markets=len(market_keys), ranks=CLUSTER_RANKS,
+         icis=[list(s) for s in CLUSTER_ICI], num_slots=num_slots,
+         steps=STEPS, launches=launches, checks=checks,
+         ranks_report=reports, soak={
+             key: result[key] for key in (
+                 "ok", "device", "markets", "hosts", "goodput_within_slo",
+                 "recovery_s", "adopt_s", "coda_s", "rows_adopted",
+                 "dead_journal_tag", "byte_equal_store", "byte_equal_sqlite",
+                 "survivor_journal_self_contained", "every_batch_durable",
+                 "resident_fallbacks_survivor", "survivor_adopt_modes",
+                 "health_transitions_ok", "requests_offered", "slo",
+                 "build_s", "wall_s")},
+         seconds=seconds, nvidia_smi=smi)
+    return launches["onepass_settle"], launches["onepass_partials"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3355,10 +3765,15 @@ def main() -> int:
     # and "full" on twin stores, both having bound the main path's batch
     # first: equal rows, equal checkpoints after a settle of each plan, the
     # delta route's matched pairs, and a re-bind that hits the fingerprint.
+    # On the host routes' cut of the markets (DELTA_MARKETS).
     delta_rng = np.random.default_rng(SEED + 2)
-    second = drifted_batch(delta_rng, market_keys, counts, codes)
-    second_outcomes = delta_rng.random(MARKETS) < 0.5
-    batches = ((market_keys, sources, probs, offsets),
+    delta_cut = int(offsets[DELTA_MARKETS])
+    second = drifted_batch(delta_rng, market_keys[:DELTA_MARKETS],
+                           counts[:DELTA_MARKETS], codes[:delta_cut])
+    second_outcomes = delta_rng.random(DELTA_MARKETS) < 0.5
+    batches = ((market_keys[:DELTA_MARKETS],
+                SourceCodes(codes[:delta_cut], sources.table),
+                probs[:delta_cut], offsets[:DELTA_MARKETS + 1]),
                (second[0], SourceCodes(second[1], sources.table), second[2],
                 second[3]))
     delta_seconds, delta_plans, delta_digests = {}, {}, {}
@@ -3380,7 +3795,8 @@ def main() -> int:
                 *batches[1], intern_mode="auto").bind(twin)
             delta_seconds["auto_rebind_2"] = time.perf_counter() - start
         for bound, batch_outcomes, now in zip(
-                delta_plans[mode], (outcomes, second_outcomes), (NOW, NOW + 2)):
+                delta_plans[mode], (outcomes[:DELTA_MARKETS], second_outcomes),
+                (NOW, NOW + 2)):
             pipeline.settle(twin, bound, batch_outcomes, steps=2, now=now).fence()
         twin.sync()
         path = os.path.join(work.name, f"delta-{mode}.db")
@@ -3402,7 +3818,7 @@ def main() -> int:
             or delta_launches != 4:
         raise AssertionError(f"delta stats {stats}, re-bind "
                              f"{rebound.intern_stats}, {delta_launches} launches")
-    emit("delta_check", markets=MARKETS, replaced=REPLACED, redrawn=REDRAWN,
+    emit("delta_check", markets=DELTA_MARKETS, replaced=REPLACED, redrawn=REDRAWN,
          stats=stats, full_stats=delta_plans["full"][1].intern_stats,
          rebind_stats=rebound.intern_stats, launches=delta_launches,
          seconds=delta_seconds, sqlite_sha256=delta_digests["auto"])
@@ -4149,6 +4565,11 @@ def main() -> int:
     # 21. shards
     bp_entry["shards_launches"] = shards_phase(
         smi, market_keys, codes, probs, offsets, outcomes, graph)
+
+    # 22. cluster
+    onepass_entry["cluster_launches"], partials_entry["cluster_launches"] = (
+        cluster_phase(smi, market_keys, codes, probs, offsets, outcomes,
+                      counts))
 
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
                                   partials_entry, lanes_entry]}), flush=True)

@@ -7,20 +7,26 @@ Runs chip_smoke's ``native``, ``main_path``, ``host_routes`` and
 main path's store, its ``stream`` (17), ``serve`` (18) and
 ``analytics_rest`` (19) phases on the main path's data, its ``replay``
 phase (20) on the stream's trace and its ``shards`` phase (21) on the
-main path's data and graph, on CPU stores, from the repository root. The
+main path's data and graph, and its ``cluster`` phase (22: two rank
+processes on the CPU, then the kill soak with ``--device cpu``) on the
+main path's data, on CPU stores, from the repository root. The
 script's ``main()`` is cut to its import block and those phases,
 ``"cuda"`` becomes ``"cpu"``, stores are built with ``device="cpu"``, the
 ``serve`` phase's CLI runs with ``--device cpu``, each call of the
 settle, lane, one-pass, partials and sweep kernels' wrappers is counted
 where the card would launch it (in the CLI's subprocess too), the timed
-windows run on the host clock, and MARKETS (default 5,000), DUMP_MARKETS
+windows run on the host clock, and MARKETS (default 4,096), DUMP_MARKETS
 (default 1,000), the parity stores' 20,000 markets (at most MARKETS), the
 ring and compact loops' shapes (512 x 400 slots, 6 steps; 1,024 x 300,
 4 steps), the host routes' cut (250,000 markets, at most MARKETS),
 the journal phase's delta (100,000 markets, at most half of MARKETS) and
 the ``serve`` phase's request counts divided by DIVISOR (default 16)
-replace the full-size constants. The kernels take their plain torch versions, so no
-figure printed here is a device figure: the rehearsal finds wrong paths,
+replace the full-size constants (phase 22 holds two bands of the batch bit
+for bit against the whole axis, which on the CPU needs each band's slot
+block to be a whole number of ``exp2``'s vector widths: keep MARKETS a
+multiple of 64, as the default is). The kernels take their plain torch
+versions, so no figure printed here is a device figure: the rehearsal
+finds wrong paths,
 shapes and control flow before a chip call, and shows the host routes',
 the journal tier's and the stream's relative cost on the machine it runs
 on.
@@ -116,6 +122,32 @@ def time_cuda(fn, prepare, warmup, runs):
 """
 
 
+# Phase 22's rank processes: no card to synchronise or measure, and the
+# one-pass and partials wrappers counted where the card would launch them.
+RANK_SHIM = """
+torch.cuda.synchronize = lambda *a, **k: None
+torch.cuda.max_memory_allocated = lambda *a, **k: 0
+torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+from bayesian_consensus_engine_tpu_torch.parallel import sharded as _sharded
+_plain_onepass = _sharded.onepass_settle
+_plain_partials = _sharded.onepass_partials
+
+
+def _counted_onepass(*args, **kwargs):
+    onepass_kernel.LAUNCHES += 1
+    return _plain_onepass(*args, **kwargs)
+
+
+def _counted_partials(*args, **kwargs):
+    partials_kernel.LAUNCHES += 1
+    return _plain_partials(*args, **kwargs)
+
+
+_sharded.onepass_settle = _counted_onepass
+_sharded.onepass_partials = _counted_partials
+"""
+
+
 CHILD_SHIM = """
 from bayesian_consensus_engine_tpu_torch.ops import settle_kernel
 from bayesian_consensus_engine_tpu_torch import pipeline as _pipeline
@@ -152,6 +184,8 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
         "    blocks, edges = inference_graph(market_keys, SEED + 1, infer)\n"
         "    shards_phase(smi, market_keys, codes, probs, offsets, outcomes,\n"
         "                 blocks.to_graph(extra_edges=edges))\n"
+        "    cluster_phase(smi, market_keys, codes, probs, offsets, outcomes,\n"
+        "                  counts)\n"
     )
     head = re.sub(r"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000",
                   f"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = {markets}", head)
@@ -185,6 +219,9 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
         f"{max(8192 // divisor // 1024, 1) * 1024}, 4, 8.0")
     head = head.replace('CLI_DEVICE = None', 'CLI_DEVICE = "cpu"')
     head = head.replace(
+        "job = json.loads(sys.argv[2])\n",
+        RANK_SHIM.strip() + "\njob = json.loads(sys.argv[2])\n", 1)
+    head = head.replace(
         "from bayesian_consensus_engine_tpu_torch.ops import settle_kernel\n"
         "atexit",
         CHILD_SHIM.strip() + "\natexit", 1)
@@ -198,7 +235,7 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
 
 
 def main() -> int:
-    markets = int(sys.argv[1]) if len(sys.argv) > 1 else 5_000
+    markets = int(sys.argv[1]) if len(sys.argv) > 1 else 4_096
     dump_markets = int(sys.argv[2]) if len(sys.argv) > 2 else 1_000
     divisor = int(sys.argv[3]) if len(sys.argv) > 3 else 16
     sys.path.insert(0, str(ROOT))

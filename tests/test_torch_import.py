@@ -6,7 +6,10 @@ batched consensus documents, settling on the CPU, settling through the
 resident session with analytics and graph inference, settling on a
 sources-sharded CPU mesh, writing, replaying and compacting a two-epoch
 journal beside a background SQLite flush, streaming batches through a
-resident session with a journal and a trace, re-driving the trace and
+resident session with a journal and a trace, streaming a process band
+and recovering its journal (membership views, the cluster merge and
+adoption, the distributed helpers and the kill soak's module), re-driving
+the trace and
 replaying it under an altered config (the replay lab, its lane kernel's
 plain version and the store digest), the sorted tie-break and the
 standalone band program, and
@@ -67,7 +70,7 @@ from bayesian_consensus_engine_tpu_torch import cli, net
 from bayesian_consensus_engine_tpu_torch.net import client, server, wire
 from bayesian_consensus_engine_tpu_torch.serve import admission, coalesce
 from bayesian_consensus_engine_tpu_torch import cluster, replay
-from bayesian_consensus_engine_tpu_torch.cluster import recover
+from bayesian_consensus_engine_tpu_torch.cluster import membership, recover, soak
 from bayesian_consensus_engine_tpu_torch.replay import lab
 import asyncio
 import os
@@ -174,6 +177,23 @@ with tempfile.TemporaryDirectory() as work:
         device="cpu")
     assert swept.digest == recover.store_digest(stream_store)
     assert [lane.markets_settled for lane in swept.lanes] == [4, 4]
+    view = membership.MeshView(epoch=0, hosts=(0, 1))
+    band_store = port.TensorReliabilityStore(device="cpu")
+    band_results = list(port.settle_stream(
+        band_store, batches, steps=2, now=20150.0, columnar=True,
+        mesh=view.degraded([0]).build_mesh(devices=["cpu"]), band=(0, 3),
+        num_slots=4, journal=os.path.join(work, "b.jrnl"),
+    ))
+    assert len(band_results) == 2
+    merged = cluster.replay_cluster_journals(
+        [os.path.join(work, "b.jrnl")], device="cpu")
+    assert merged.tags == (1,)
+    assert recover.store_digest(merged.store) == recover.store_digest(band_store)
+    assert cluster.adopt_journal(
+        port.TensorReliabilityStore(device="cpu"), path)[0] == 1
+    assert distributed.init_distributed()["process_count"] == 1
+    assert distributed.make_hybrid_mesh(devices=["cpu"] * 2).shape["markets"] == 2
+    assert soak.main.__module__ == soak.__name__
 with port.ShardedSettlementSession(store, plan) as session:
     _, tb, bands_out, _ = session.settle_with_analytics(
         [True, False], steps=2, now=20020.0,
@@ -312,13 +332,16 @@ def test_import_scan_flags_exactly_the_jax_package(source, flagged):
 
 @pytest.mark.parametrize("package", ["replay", "cluster"])
 def test_replay_and_cluster_copies_are_scanned(package):
-    """The replay lab and the ``cluster/`` copy it reads are in the static
-    scan and import nothing of JAX; the exact-name test tells their JAX
-    package twins from them."""
+    """The replay lab and the ``cluster/`` tier (membership, recovery and
+    the kill soak) are in the static scan and import nothing of JAX; the
+    exact-name test tells their JAX package twins from them."""
     sources = [path for path in port_sources()
                if path.parent.name == package
                and path.parent.parent.name == "bayesian_consensus_engine_tpu_torch"]
-    assert {path.name for path in sources} >= {"__init__.py"} and len(sources) == 2
+    expected = {"replay": {"__init__.py", "lab.py"},
+                "cluster": {"__init__.py", "membership.py", "recover.py",
+                            "soak.py"}}
+    assert {path.name for path in sources} == expected[package]
     for path in sources:
         assert not forbidden_imports(path.read_text(encoding="utf-8"))
     twin = f"bayesian_consensus_engine_tpu.{package}"

@@ -440,11 +440,20 @@ def test_refresh_refuses_a_foreign_plan_as_jax_does():
 
 
 def test_adopt_band_raises_until_process_bands_are_ported():
-    side = SessionSide("torch", (1, 1))
-    side.step(_batch(11, 5, 6, "-b1")[0], "settle")
-    with pytest.raises(ValueError, match="queue 1 item 9"):
-        side.session.adopt(side.build(_batch(12, 5, 6, "-b2")[0]),
-                           band=(0, 5))
+    """Process bands are ported: adopting a plan under another band than
+    the session's is a re-partition of the axis, served as the JAX package
+    serves it (``rebuild:band-change``, no raise), and the next settle
+    rebuilds to the JAX session's consensus."""
+    served, consensus = [], []
+    for kind in ("jax", "torch"):
+        side = SessionSide(kind, (1, 1))
+        side.step(_batch(11, 5, 6, "-b1")[0], "settle")
+        side.settle(_batch(11, 5, 6, "-b1")[1], NOW)
+        payloads, outcomes = _batch(12, 5, 6, "-b2")
+        served.append(side.session.adopt(side.build(payloads), band=(0, 5)))
+        consensus.append(side.settle(outcomes, NOW + 1))
+    assert served == ["rebuild:band-change"] * 2
+    np.testing.assert_array_equal(consensus[0], consensus[1])
 
 
 def test_adopt_drops_the_resident_binding_before_it_can_raise(monkeypatch):

@@ -411,12 +411,14 @@ def test_float64_tiebreak_raises(entry):
 
 @pytest.mark.parametrize("kwargs, error, match", [
     (dict(mesh=object()), TypeError, "mesh takes a parallel.mesh.Mesh"),
-    (dict(band=(0, 10)), ValueError, "ROADMAP queue 1 item 9"),
+    (dict(band=(1, 10)), ValueError, "band plan covers rows"),
 ], ids=["kwargs0", "kwargs1"])
 def test_meshes_and_bands_raise(kwargs, error, match):
     """A mesh must be a ``parallel.mesh.Mesh`` (meshes are served since
     the sources-sharded slice, ``tests/test_torch_sharded_session.py``);
-    process bands are not ported yet."""
+    a band plan must tile this process's band of the axis, which in one
+    process starts at row 0 (bands are served,
+    ``tests/test_torch_band_session.py``)."""
     store, plan, _outcomes = _port_session()
     with pytest.raises(error, match=match):
         tpipe.ShardedSettlementSession(store, plan, **kwargs)

@@ -465,10 +465,14 @@ def test_sorted_tiebreak_on_sources_sharded_mesh_raises():
 
 
 def test_process_band_raises():
+    """A band plan that does not tile this process's band is refused (in
+    one process the band starts at row 0), with the JAX package's
+    message; bands that do are served (``tests/test_torch_band_session.py``)."""
     store, plan, _outcomes = _port_session((1, 2))
     mesh = tmesh.make_mesh((1, 2), [torch.device("cpu")] * 2)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
-        tpipe.ShardedSettlementSession(store, plan, mesh, band=(0, 45))
+    with pytest.raises(ValueError, match="band plan covers rows"):
+        tpipe.ShardedSettlementSession(store, plan, mesh,
+                                       band=(3, plan.num_markets + 3))
 
 
 def test_float64_tiebreak_raises_on_mesh():
