@@ -8,6 +8,10 @@ torch twin of the JAX package's ``cluster/``.
 * :mod:`~.cluster.recover` — journal-driven recovery: merge the surviving
   band journals into one store, adopt a dead band's journal into a live
   surviving stream, merge the bands' trace sidecars for the replay lab.
+* :mod:`~.cluster.rank` — one rank of a multi-process band settlement
+  (the gloo rendezvous, the band plan and session, the adopt of a
+  drifted batch); run it as ``python -m
+  bayesian_consensus_engine_tpu_torch.cluster.rank JOB``.
 * :mod:`~.cluster.soak` — the kill soak: a shared-nothing banded cluster
   of worker processes, one of which is killed mid-stream; run it as
   ``python -m bayesian_consensus_engine_tpu_torch.cluster.soak``.

@@ -125,6 +125,8 @@ def _band_batch(args, index: int, rows: range, key_cache: dict):
     package's ``scripts/kill_soak.py``'s, made in bulk."""
     import numpy as np
 
+    from bayesian_consensus_engine_tpu_torch.cluster.rank import band_columns
+
     markets = args.markets
     drift = index // 2
     rng_topo = np.random.default_rng((SOAK_SEED, 1, drift))
@@ -133,16 +135,14 @@ def _band_batch(args, index: int, rows: range, key_cache: dict):
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     probs = rng_vals.random(int(counts.sum()))
     outcomes = rng_vals.random(markets) < 0.5
-    lo, hi = rows.start, rows.stop
-    sig_lo, sig_hi = int(offsets[lo]), int(offsets[hi])
-    market = np.repeat(np.arange(lo, hi, dtype=np.int64), counts[lo:hi])
-    slot = np.arange(sig_lo, sig_hi, dtype=np.int64) - np.repeat(
-        offsets[lo:hi], counts[lo:hi])
+    market = np.repeat(np.arange(markets, dtype=np.int64), counts)
+    slot = np.arange(offsets[-1], dtype=np.int64) - np.repeat(
+        offsets[:-1], counts)
     codes = (market * 3 + slot * 7 + drift) % args.sources
-    if (lo, hi) not in key_cache:
-        key_cache[(lo, hi)] = [f"m{g}" for g in range(lo, hi)]
-    return (key_cache[(lo, hi)], codes, probs[sig_lo:sig_hi],
-            offsets[lo:hi + 1] - sig_lo, outcomes[lo:hi])
+    if "keys" not in key_cache:
+        key_cache["keys"] = [f"m{g}" for g in range(markets)]
+    return band_columns(
+        (key_cache["keys"], codes, probs, offsets, outcomes), rows)
 
 
 # --------------------------------------------------------------------------

@@ -36,7 +36,10 @@ import torch
 from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
     MARKETS_AXIS,
     Mesh,
+    is_initialized,
     make_mesh,
+    process_count,
+    process_index,
     shard_block,
     shard_market_vector,
     shard_slot_block,
@@ -47,21 +50,6 @@ from bayesian_consensus_engine_tpu_torch.parallel.mesh import (
 #: How long a rendezvous or a control-plane collective may wait for the
 #: other processes before it raises, unless the caller passes ``timeout=``.
 DEFAULT_TIMEOUT_S = 120.0
-
-
-def is_initialized() -> bool:
-    """True when this process has joined a ``torch.distributed`` group."""
-    return torch.distributed.is_available() and torch.distributed.is_initialized()
-
-
-def process_index() -> int:
-    """This process's rank (0 outside a group)."""
-    return torch.distributed.get_rank() if is_initialized() else 0
-
-
-def process_count() -> int:
-    """The group's process count (1 outside a group)."""
-    return torch.distributed.get_world_size() if is_initialized() else 1
 
 
 def init_distributed(

@@ -27,7 +27,8 @@ A mesh spread over several processes (``parallel/distributed.py::
 make_hybrid_mesh``) also records which process owns each markets row of
 the grid, its ``owners``: each process holds and runs only its own rows
 (:meth:`Mesh.local`), as a JAX process holds only its addressable shards.
-A mesh that :func:`make_mesh` builds is all this process's.
+A mesh that :func:`make_mesh` builds is all the building process's, on
+every rank of a group.
 """
 
 from __future__ import annotations
@@ -44,13 +45,29 @@ MARKETS_AXIS = "markets"
 SOURCES_AXIS = "sources"
 
 
+def is_initialized() -> bool:
+    """True when this process has joined a ``torch.distributed`` group."""
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
+def process_index() -> int:
+    """This process's rank (0 outside a group)."""
+    return torch.distributed.get_rank() if is_initialized() else 0
+
+
+def process_count() -> int:
+    """The group's process count (1 outside a group)."""
+    return torch.distributed.get_world_size() if is_initialized() else 1
+
+
 @dataclass(frozen=True)
 class Mesh:
     """A (markets, sources) grid of devices, one device type throughout.
 
     ``owners`` names the process that owns each markets row (the granule
-    of a hybrid mesh, in rank order); ``None`` means every row is this
-    process's, as on a mesh :func:`make_mesh` builds."""
+    of a hybrid mesh, in rank order); ``None`` means every row is the
+    process's that uses the mesh, as on a mesh :func:`make_mesh` builds,
+    whatever that process's rank."""
 
     devices: tuple  # tuple of rows (one per markets shard) of torch.device
     owners: Optional[tuple] = None  # process index per markets row
@@ -62,24 +79,23 @@ class Mesh:
                 raise ValueError(
                     f"{len(owners)} owners for {len(self.devices)} markets rows"
                 )
-            # A mesh whose every row is process 0's is a one-process mesh,
+            # A mesh whose every row is this process's is a local mesh,
             # and compares and hashes as make_mesh's does.
             object.__setattr__(
-                self, "owners", None if set(owners) == {0} else owners
+                self, "owners",
+                None if set(owners) == {process_index()} else owners,
             )
 
     def owner_of(self, row: int) -> int:
-        """The process that owns markets row *row*."""
-        return 0 if self.owners is None else self.owners[row]
+        """The process that owns markets row *row* (this process, on a
+        local mesh)."""
+        return process_index() if self.owners is None else self.owners[row]
 
     def local(self, process: int) -> "Mesh":
         """The rows of the grid that *process* owns, as a mesh of its own
-        (the whole mesh when every row is one process's)."""
+        (the whole mesh when it is a local mesh: every row is the
+        caller's)."""
         if self.owners is None:
-            if process != 0:
-                raise ValueError(
-                    f"process {process} owns no row of a one-process mesh"
-                )
             return self
         rows = tuple(
             row for row, owner in zip(self.devices, self.owners)

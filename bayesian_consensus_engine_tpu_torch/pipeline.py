@@ -82,7 +82,6 @@ from bayesian_consensus_engine_tpu_torch.core.batch import (
 from bayesian_consensus_engine_tpu_torch.analytics.bands import AnalyticsOptions
 from bayesian_consensus_engine_tpu_torch.convert import (
     sharded_block_from_numpy,
-    sharded_block_to_numpy,
 )
 from bayesian_consensus_engine_tpu_torch.analytics.graph import MarketGraph
 from bayesian_consensus_engine_tpu_torch.infer.blocks import MarketBlocks
@@ -1024,10 +1023,8 @@ class _BandView:
 def _process_count() -> int:
     """The runtime's process count, as a patchable indirection.
 
-    The session's adopt path branches on it (a one-process session re-lays
-    its block out on the device; a session of a multi-process runtime
-    stages the relayout through its own host buffers), and tests force the
-    multi-process branch in one process by patching this function.
+    ``settle_with_analytics`` refuses a multi-process runtime on it, and
+    tests force that posture in one process by patching this function.
     ``torch.distributed``'s world size when a group is initialised, else 1.
     """
     return distributed.process_count()
@@ -1085,14 +1082,13 @@ class ShardedSettlementSession:
             )
         self._store = store
         self._mesh = mesh
-        self._band = band
-        # This process's rows of the grid: the whole mesh in one process.
+        # This process's rows of the grid: the whole of a local mesh.
         self._local_mesh = mesh.local(distributed.process_index())
         # Where per-market outputs and graph blocks live: the first device
         # of this process's rows.
         self._device = self._local_mesh.devices[0][0]
         self._cdtype = resolve_dtype(dtype)
-        self._bind_plan(plan)
+        self._bind_plan(plan, band)
         self._state = None  # built lazily: the epoch depends on the first now
         self._epoch0 = None
         self._loop = None
@@ -1106,14 +1102,16 @@ class ShardedSettlementSession:
 
     # -- state lifecycle -----------------------------------------------------
 
-    def _bind_plan(self, plan: SettlementPlan) -> None:
+    def _bind_plan(self, plan: SettlementPlan, band) -> None:
         """Take *plan*'s padded block and device copies (an ``upload``
-        phase) and its touched rows."""
+        phase), its touched rows and *band*. A plan that does not fit
+        *band* raises before anything of the session changes."""
         with active_timeline().span("upload"):
             (self._padded_total, self._lo, self._hi, self._band_rows,
              self._band_mask, self._probs_g, self._mask_g) = _sharded_plan_cache(
-                plan, self._mesh, self._cdtype, self._band
+                plan, self._mesh, self._cdtype, band
             )
+            self._band = band
             # The padded global mask _BandGather selects touched slots with.
             self._gather_mask = unshard_slot_block(self._mask_g)
         self._plan = plan
@@ -1524,7 +1522,7 @@ class ShardedSettlementSession:
                 "current plan (SettlementPlan.refresh on the same "
                 "topology); this plan has its own slot layout"
             )
-        self._bind_plan(plan)
+        self._bind_plan(plan, self._band)
 
     def _release_standing(self) -> None:
         """The session is leaving its block: the standing recipe (if any)
@@ -1549,15 +1547,13 @@ class ShardedSettlementSession:
           their host values (fresh pairs enter as cold defaults), and rows
           leaving stay covered by the standing sync recipe and reach the
           host store at the next checkpoint or sync, as any deferred
-          gather does. A one-process session whose band is the whole axis
-          re-lays the block out on the device
-          (:func:`~.parallel.sharded.relayout_slot_state`: no host traffic
-          for staying rows). A session of a multi-process runtime, or one
-          whose band covers part of the axis, stages the same permutation
-          through its own host buffers: band drift is a process-local
-          event, so the staged route touches only this process's columns.
-          Growth of the padded extents re-pads the block. Either way the
-          result is bit-equal to tearing the session down and rebuilding.
+          gather does. The block is re-laid out on this process's rows of
+          the mesh (:func:`~.parallel.sharded.relayout_slot_state`: no host
+          traffic for staying rows, nothing collective): band drift is a
+          process-local event, and the positions are band-local, so one
+          route serves one process and each process of a group alike.
+          Growth of the padded extents re-pads the block. The result is
+          bit-equal to tearing the session down and rebuilding.
         * ``"rebuild:<reason>"`` — the resident state was dropped and the
           next :meth:`settle` rebuilds from the host: ``no-resident-state``
           (nothing to carry yet), ``band-change`` (the global axis was
@@ -1587,10 +1583,8 @@ class ShardedSettlementSession:
         store = self._store
         old_state = self._state
         old_band_rows, old_band_mask = self._band_rows, self._band_mask
-        old_lo, old_hi, old_total = self._lo, self._hi, self._padded_total
         band_changed = band != self._band
-        self._band = band
-        self._bind_plan(plan)
+        self._bind_plan(plan, band)
         # Mid-swap from here: drop the resident binding FIRST, so that an
         # exception below (a sync failure, a device error in the relayout)
         # leaves a clean rebuild posture — never the old layout's block
@@ -1648,37 +1642,12 @@ class ShardedSettlementSession:
         np_dtype = _NUMPY_DTYPE[self._cdtype]
         entering = (host_rel.astype(np_dtype), host_conf.astype(np_dtype),
                     rel_days.astype(np_dtype), host_exists.astype(bool))
-        whole_axis = (
-            old_lo == 0 and old_hi == old_total
-            and self._lo == 0 and self._hi == self._padded_total
+        src = np.full(self._band_mask.size, -1, dtype=np.int64)
+        src[new_pos[staying]] = sorted_pos[idx[staying]]
+        self._state = relayout_slot_state(
+            old_state, src, entering_pos, *entering,
+            self._band_mask.shape, self._local_mesh,
         )
-        if whole_axis and _process_count() == 1:
-            # One process, the whole axis: the permutation runs on the
-            # device, with no host traffic for staying rows.
-            src = np.full(self._band_mask.size, -1, dtype=np.int64)
-            src[new_pos[staying]] = sorted_pos[idx[staying]]
-            self._state = relayout_slot_state(
-                old_state, src, entering_pos, *entering,
-                self._band_mask.shape, self._local_mesh,
-            )
-            return "relayout"
-        # A multi-process runtime, or a band covering part of the axis:
-        # the same permutation staged through this process's host buffers
-        # (staying rows from the live block, entering rows host-exact, so
-        # the bytes are a rebuild's by the same argument), touching only
-        # this band's columns and dispatching nothing collective.
-        old_local = sharded_block_to_numpy(old_state)
-        fills = (DEFAULT_RELIABILITY, DEFAULT_CONFIDENCE, 0.0, False)
-        fields = []
-        for old_arr, fill, entered in zip(old_local, fills, entering):
-            flat = np.full(self._band_mask.size, fill, dtype=entered.dtype)
-            flat[new_pos[staying]] = old_arr.ravel()[
-                sorted_pos[idx[staying]]
-            ].astype(entered.dtype, copy=False)
-            if entering_pos.size:
-                flat[entering_pos] = entered
-            fields.append(flat.reshape(self._band_mask.shape))
-        self._state = sharded_block_from_numpy(fields, self._local_mesh)
         return "relayout"
 
     def sync(self) -> None:

@@ -2951,138 +2951,14 @@ CLUSTER_TIMEOUT_S = 300
 # The kill soak: the host route phase's cut of the markets (250,000).
 SOAK_ARGS = ("--hosts", "2", "--batches", "12", "--kill-after", "3")
 
-# One rank of phase 22: joins the gloo group, makes the main path's batch
-# and its drifted successor from the seed (as main() and delta_check make
-# them), and for each per-rank ici shape settles ITS band on the card
-# through a band plan and a band session: two chained settles, the
-# drifted batch's adopt (held against a rebuild from the host) and a third
-# settle. Its consensus and the stored values at both plans' slots go to
-# an .npz; its report (seconds, launches, peak bytes) is its last line.
-RANK_BOOT = """
-import json, sys, time
-from datetime import timedelta
-sys.path.insert(0, sys.argv[1])
-import numpy as np
-import torch
-import chip_smoke as smoke
-from bayesian_consensus_engine_tpu_torch import convert, pipeline
-from bayesian_consensus_engine_tpu_torch.cluster import MeshView
-from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
-from bayesian_consensus_engine_tpu_torch.ops import onepass_kernel, partials_kernel
-from bayesian_consensus_engine_tpu_torch.parallel import distributed
-from bayesian_consensus_engine_tpu_torch.parallel.mesh import make_mesh
-from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
-    TensorReliabilityStore,
-)
-job = json.loads(sys.argv[2])
-rank, ranks, markets, steps, now = (job["rank"], job["ranks"], job["markets"],
-                                    job["steps"], job["now"])
-# The card (raising without CUDA), as a mesh names it.
-device = make_mesh((1, 1), [job["device"]]).devices[0][0]
-start = time.perf_counter()
-distributed.init_distributed(
-    coordinator_address="127.0.0.1:%d" % job["port"], num_processes=ranks,
-    process_id=rank, timeout=timedelta(seconds=120))
-report = {"rank": rank, "rendezvous_s": time.perf_counter() - start}
-if pipeline._process_count() != ranks:
-    raise AssertionError("the session does not see the group")
-start = time.perf_counter()
-rng = np.random.default_rng(job["seed"])
-counts = rng.poisson(smoke.MEAN_SIGNALS - 1, markets) + 1
-codes = rng.integers(0, smoke.SOURCES, counts.sum())
-probs = rng.random(counts.sum())
-offsets = np.concatenate([[0], np.cumsum(counts)])
-outcomes = rng.random(markets) < 0.5
-keys = ["market-%d" % m for m in range(markets)]
-table = ["src-%d" % i for i in range(smoke.SOURCES)]
-rows = MeshView(epoch=0, hosts=tuple(range(ranks))).owned_markets(rank, markets)
-second = smoke.band_drift(keys, counts, codes, rows, rank)
-report["data_s"] = time.perf_counter() - start
-
-
-def band_columns(batch_keys, batch_codes, batch_probs, batch_offsets,
-                 batch_outcomes, rows):
-    a, b = int(batch_offsets[rows.start]), int(batch_offsets[rows.stop])
-    return (batch_keys[rows.start:rows.stop],
-            SourceCodes(batch_codes[a:b], table), batch_probs[a:b],
-            batch_offsets[rows.start:rows.stop + 1] - a,
-            batch_outcomes[rows.start:rows.stop])
-
-
-def timed(fn):
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - start
-
-
-for ici in job["icis"]:
-    name = "%dx%d" % tuple(ici)
-    width = ici[0] * ici[1]
-    mesh = distributed.make_hybrid_mesh(ici_shape=tuple(ici),
-                                        devices=[device] * width)
-    view = MeshView(epoch=0, hosts=tuple(range(ranks)),
-                    devices_per_host=width, ici_shape=tuple(ici))
-    band = view.band(rank, markets)
-    lo, hi = distributed.process_market_rows(view.padded_markets(markets), mesh)
-    if (lo, markets) != band or view.owned_markets(rank, markets) != rows \
-            or mesh.owners is None:
-        raise AssertionError("rank %d: band %r, rows [%d, %d)" % (
-            rank, band, lo, hi))
-    onepass_kernel.LAUNCHES = partials_kernel.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-    seconds = {}
-    store = TensorReliabilityStore(device=device)
-    first = band_columns(keys, codes, probs, offsets, outcomes, rows)
-    plan, seconds["plan"] = timed(
-        lambda: pipeline.build_settlement_plan_columnar(
-            store, *first[:4], num_slots=job["num_slots"]))
-    session = pipeline.ShardedSettlementSession(store, plan, mesh, band=band)
-    consensus = []
-    for call in range(2):
-        result, seconds["settle_%d" % (call + 1)] = timed(
-            lambda: session.settle(first[4], steps=steps,
-                                   now=now + call * steps))
-        consensus.append(np.asarray(result.consensus))
-    drift = (second[0], SourceCodes(second[1], table), *second[2:])
-    plan2, seconds["plan_2"] = timed(
-        lambda: pipeline.build_settlement_plan_columnar(
-            store, *drift[:4], num_slots=job["num_slots"]))
-    served, seconds["adopt"] = timed(lambda: session.adopt(plan2, band=band))
-    staged = convert.sharded_block_to_numpy(session._state)
-    start = time.perf_counter()
-    store.sync()
-    rebuild = pipeline.ShardedSettlementSession(store, plan2, mesh, band=band)
-    rebuild._build_state(session._epoch0)
-    rebuilt = convert.sharded_block_to_numpy(rebuild._state)
-    del rebuild
-    seconds["rebuild_check"] = time.perf_counter() - start
-    rebuild_equal = [bool(np.array_equal(a, b))
-                     for a, b in zip(staged, rebuilt)]
-    del staged, rebuilt
-    result, seconds["settle_3"] = timed(
-        lambda: session.settle(drift[4], steps=steps, now=now + 2 * steps))
-    consensus.append(np.asarray(result.consensus))
-    session.close()
-    arrays = {"consensus_%d" % i: c for i, c in enumerate(consensus, 1)}
-    for label, bound in (("plan1", plan), ("plan2", plan2)):
-        values = store.host_rows(bound.slot_rows[bound.mask])
-        for field, column in zip(("rel", "conf", "days", "exists"), values):
-            arrays["%s_%s" % (label, field)] = column
-    np.savez(job["out"] % name, **arrays)
-    report[name] = dict(
-        band=list(band), rows=[rows.start, rows.stop], padded_band=[lo, hi],
-        local_mesh_rows=len(session._local_mesh.devices), served=served,
-        rebuild_equal=rebuild_equal, store_rows=len(store), seconds=seconds,
-        launches={"onepass_settle": onepass_kernel.LAUNCHES,
-                  "onepass_partials": partials_kernel.LAUNCHES},
-        peak_device_bytes=torch.cuda.max_memory_allocated())
-    del store, plan, plan2, session, result
-    torch.distributed.barrier()
-torch.distributed.destroy_process_group()
-print(json.dumps(report), flush=True)
-"""
+# A rank of phase 22 is the port's rank routine: it joins the gloo group
+# and, for each per-rank ici shape, settles ITS band of the batches that
+# this process writes it on the card through a band plan and a band
+# session: two chained settles, the drifted batch's adopt (held against a
+# rebuild from the host) and a third settle. Its consensus and the stored
+# values at both plans' slots go to an .npz; its report (seconds,
+# launches, peak bytes) is its last line.
+RANK_COMMAND = ("-m", "bayesian_consensus_engine_tpu_torch.cluster.rank")
 
 
 def band_drift(market_keys, counts, codes, rows, band: int):
@@ -3118,27 +2994,30 @@ def _package_env() -> dict:
     return env
 
 
-def run_ranks(work: str, num_slots: int, meanwhile):
-    """Phase 22's rank processes, started together; ``meanwhile()`` runs in
-    this process while they work, and every rank is killed if any
-    outlasts CLUSTER_TIMEOUT_S or ``meanwhile`` raises. Returns the ranks'
-    reports and what ``meanwhile`` returned."""
+def run_ranks(work: str, num_slots: int, band_batches):
+    """Phase 22's rank processes, started together, each on its band's
+    ``band_batches[rank]``; every rank is killed if any outlasts
+    CLUSTER_TIMEOUT_S. Returns the ranks' reports."""
+    from bayesian_consensus_engine_tpu_torch.cluster.rank import save_batches
+
     port = _free_port()
-    root = os.path.dirname(os.path.abspath(__file__))
     procs = []
     try:
-        for rank in range(CLUSTER_RANKS):
+        for rank, (rows, batches) in enumerate(band_batches):
+            path = os.path.join(work, f"batches{rank}.npz")
+            save_batches(path, rows, batches)
             job = dict(port=port, rank=rank, ranks=CLUSTER_RANKS,
-                       markets=MARKETS, steps=STEPS, now=CLUSTER_NOW, seed=SEED,
-                       num_slots=num_slots, icis=[list(s) for s in CLUSTER_ICI],
-                       device=CLUSTER_DEVICE,
+                       device=CLUSTER_DEVICE, batches=path, markets=MARKETS,
+                       num_slots=num_slots, steps=STEPS,
+                       now=[CLUSTER_NOW + call * STEPS for call in range(3)],
+                       icis=[list(s) for s in CLUSTER_ICI], local=None,
+                       timeout_s=CLUSTER_TIMEOUT_S,
                        out=os.path.join(work, f"rank{rank}-%s.npz"))
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", RANK_BOOT, root, json.dumps(job)],
+                [sys.executable, *RANK_COMMAND, json.dumps(job)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 env=_package_env()))
         deadline = time.time() + CLUSTER_TIMEOUT_S
-        done = meanwhile()
         outputs = [proc.communicate(timeout=max(1.0, deadline - time.time()))[0]
                    for proc in procs]
     finally:
@@ -3152,13 +3031,18 @@ def run_ranks(work: str, num_slots: int, meanwhile):
             raise AssertionError(f"rank {rank} failed (rc {proc.returncode}):\n"
                                  f"{out[-4000:]}")
         reports.append(json.loads(out.strip().splitlines()[-1]))
-    return reports, done
+    return reports
 
 
 def cluster_phase(smi, market_keys, codes, probs, offsets, outcomes, counts):
     """Phase 22. Returns the ranks' launches of ``onepass_settle`` and
     ``onepass_partials``."""
     from bayesian_consensus_engine_tpu_torch import pipeline
+    from bayesian_consensus_engine_tpu_torch.cluster import MeshView
+    from bayesian_consensus_engine_tpu_torch.cluster.rank import (
+        FIELDS,
+        band_columns,
+    )
     from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
     from bayesian_consensus_engine_tpu_torch.parallel import mesh as mesh_module
     from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
@@ -3167,15 +3051,21 @@ def cluster_phase(smi, market_keys, codes, probs, offsets, outcomes, counts):
 
     phase_start = time.perf_counter()
     seconds = {}
-    from bayesian_consensus_engine_tpu_torch.cluster import MeshView
-
     table = [f"src-{i}" for i in range(SOURCES)]
-    # The drifted batch: each band's drift over its own markets, the bands
-    # back to back (the one-process references adopt it whole).
+    # Each rank's band of the main path's batch and its drifted successor:
+    # each band's drift over its own markets; the references adopt the
+    # bands' drifts back to back.
+    start = time.perf_counter()
     view = MeshView(epoch=0, hosts=tuple(range(CLUSTER_RANKS)))
-    bands = [band_drift(market_keys, counts, codes,
-                        view.owned_markets(rank, len(market_keys)), rank)
-             for rank in view.hosts]
+    whole = (market_keys, SourceCodes(codes, table), probs, offsets, outcomes)
+    band_batches, bands = [], []
+    for rank in view.hosts:
+        rows = view.owned_markets(rank, len(market_keys))
+        drift = band_drift(market_keys, counts, codes, rows, rank)
+        bands.append(drift)
+        band_batches.append((rows, [
+            band_columns(whole, rows),
+            (drift[0], SourceCodes(drift[1], table), *drift[2:])]))
     second = ([key for band in bands for key in band[0]],
               np.concatenate([band[1] for band in bands]),
               np.concatenate([band[2] for band in bands]),
@@ -3186,13 +3076,14 @@ def cluster_phase(smi, market_keys, codes, probs, offsets, outcomes, counts):
     # One K for both batches, every rank and the references: a band plan
     # is built with the globally agreed num_slots.
     num_slots = int(max(counts.max(), np.diff(second[3]).max()))
+    seconds["rank_data"] = time.perf_counter() - start
     work = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
 
     def references():
-        """The one-process sessions on the same card, run while the ranks
-        work: the one-card session for the ranks' (1, 1) bands, a (1, 2)
-        mesh session for their (1, 2) bands; each the ranks' calls on the
-        whole axis."""
+        """The one-process sessions on the same card, run after the ranks:
+        the one-card session for the ranks' (1, 1) bands, a (1, 2) mesh
+        session for their (1, 2) bands; each the ranks' calls on the whole
+        axis."""
         out = {}
         for ici in CLUSTER_ICI:
             start = time.perf_counter()
@@ -3221,9 +3112,13 @@ def cluster_phase(smi, market_keys, codes, probs, offsets, outcomes, counts):
         return out
 
     try:
+        # The ranks alone on the card, then the references: the ranks'
+        # seconds carry no other process's work.
         start = time.perf_counter()
-        reports, refs = run_ranks(work, num_slots, references)
-        seconds["ranks_and_references"] = time.perf_counter() - start
+        reports = run_ranks(work, num_slots, band_batches)
+        seconds["ranks"] = time.perf_counter() - start
+        del band_batches
+        refs = references()
         checks = {}
         for name, (consensus, store, plan, plan2, ref_s) in refs.items():
             ici = tuple(int(x) for x in name.split("x"))
@@ -3233,7 +3128,7 @@ def cluster_phase(smi, market_keys, codes, probs, offsets, outcomes, counts):
                 what = f"rank {rank} {name}"
                 if band["served"] != "relayout" or not all(band["rebuild_equal"]):
                     raise AssertionError(
-                        f"{what}: adopt {band['served']}, staged block equal "
+                        f"{what}: adopt {band['served']}, adopted block equal "
                         f"to a rebuild per field {band['rebuild_equal']}")
                 lo, hi = band["rows"]
                 got = np.load(os.path.join(work, f"rank{rank}-{name}.npz"))
@@ -3247,8 +3142,7 @@ def cluster_phase(smi, market_keys, codes, probs, offsets, outcomes, counts):
                 for label, bound in (("plan1", plan), ("plan2", plan2)):
                     slots = bound.slot_rows[:, lo:hi][bound.mask[:, lo:hi]]
                     want = store.host_rows(slots)
-                    for field, column in zip(("rel", "conf", "days", "exists"),
-                                             want):
+                    for field, column in zip(FIELDS, want):
                         if not np.array_equal(got[f"{label}_{field}"], column):
                             raise AssertionError(
                                 f"{what}: stored {field} at {label}'s slots "

@@ -122,12 +122,12 @@ def time_cuda(fn, prepare, warmup, runs):
 """
 
 
-# Phase 22's rank processes: no card to synchronise or measure, and the
-# one-pass and partials wrappers counted where the card would launch them.
+# Phase 22's rank processes run the rank module behind this shim, which
+# counts the one-pass and partials wrappers where the card would launch
+# them.
 RANK_SHIM = """
-torch.cuda.synchronize = lambda *a, **k: None
-torch.cuda.max_memory_allocated = lambda *a, **k: 0
-torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+import runpy
+from bayesian_consensus_engine_tpu_torch.ops import onepass_kernel, partials_kernel
 from bayesian_consensus_engine_tpu_torch.parallel import sharded as _sharded
 _plain_onepass = _sharded.onepass_settle
 _plain_partials = _sharded.onepass_partials
@@ -145,6 +145,8 @@ def _counted_partials(*args, **kwargs):
 
 _sharded.onepass_settle = _counted_onepass
 _sharded.onepass_partials = _counted_partials
+runpy.run_module("bayesian_consensus_engine_tpu_torch.cluster.rank",
+                 run_name="__main__")
 """
 
 
@@ -219,8 +221,8 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
         f"{max(8192 // divisor // 1024, 1) * 1024}, 4, 8.0")
     head = head.replace('CLI_DEVICE = None', 'CLI_DEVICE = "cpu"')
     head = head.replace(
-        "job = json.loads(sys.argv[2])\n",
-        RANK_SHIM.strip() + "\njob = json.loads(sys.argv[2])\n", 1)
+        'RANK_COMMAND = ("-m", "bayesian_consensus_engine_tpu_torch.cluster.rank")',
+        f"RANK_COMMAND = ('-c', {RANK_SHIM!r})", 1)
     head = head.replace(
         "from bayesian_consensus_engine_tpu_torch.ops import settle_kernel\n"
         "atexit",

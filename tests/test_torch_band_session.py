@@ -10,9 +10,9 @@ reference's ``tests/test_cluster.py`` cases), on (1, 1) and (4, 2) meshes
   per-batch-session stream, and equal to the JAX band stream: stores and
   SQLite dumps equal, journals byte-equal, consensus within rtol 1e-5,
   atol 1e-6 (XLA's ``exp2``);
-* the forced multi-process path (``_process_count`` patched to 2: the
-  host-staged relayout) is byte-equal to the device relayout and to the
-  JAX package's forced path;
+* the forced multi-process path (``_process_count`` patched to 2) is
+  byte-equal to the one-process session and to the JAX package's forced
+  path (its host-staged relayout);
 * ``rebuild:band-change`` and ``rebuild:backdated-stamps`` come where the
   JAX package returns them, and ``stream.resident_fallbacks`` reads 0;
 * a band session's analytics and graph sweep are bit-equal to the
@@ -154,22 +154,15 @@ def test_band_stream_bit_equal_to_per_batch_sessions(tmp_path, shape):
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_forced_cluster_path_is_byte_equal(tmp_path, monkeypatch, jax_forced,
                                            shape):
-    """The host-staged relayout (the multi-process posture, forced through
-    the ``_process_count`` seam) gives the device relayout's bytes and the
-    JAX package's forced path's."""
+    """The multi-process posture, forced through the ``_process_count``
+    seam, gives the one-process session's bytes (both re-lay the block out
+    on this process's rows of the mesh) and the JAX package's forced
+    path's (its host-staged relayout)."""
     device = band_stream("torch", tmp_path, "device", shape, seed=13)
     monkeypatch.setattr(tpipe, "_process_count", lambda: 2)
-    staged_calls = []
-    real = tpipe.sharded_block_to_numpy
-
-    def counted(state):
-        staged_calls.append(1)
-        return real(state)
-
-    monkeypatch.setattr(tpipe, "sharded_block_to_numpy", counted)
     cluster = band_stream("torch", tmp_path, "cluster", shape, seed=13)
     modes = adopt_modes(cluster)
-    assert "relayout" in modes and staged_calls
+    assert "relayout" in modes
     assert not any(m.startswith("rebuild") for m in modes[1:])
     assert modes == adopt_modes(jax_forced[shape])
     assert_same_stream(cluster, device, bitwise=True)
@@ -283,6 +276,38 @@ def test_driver_band_change_counts_one_fallback():
         obs.set_metrics_registry(previous)
     assert served == ["start", "relayout", "start"]
     assert registry.export()["counters"]["stream.resident_fallbacks"] == 1
+
+
+def test_failed_band_adopt_leaves_the_session_whole():
+    """An adopt whose plan does not tile its band raises before the session
+    changes: the next settle and adopt run on the bound band and plan, as
+    on a session that never saw the failed adopt."""
+    runs = []
+    for fail in (False, True):
+        store = cpu_store()
+        rng = random.Random(5)
+        pays = _payloads(rng, 10, 8)
+        session = tpipe.ShardedSettlementSession(
+            store, _plan(tpipe, store, pays),
+            make_mesh((1, 1), [torch.device("cpu")]), band=(0, 10))
+        session.settle([True] * 10, steps=1, now=NOW)
+        if fail:
+            with pytest.raises(ValueError, match="band plan covers"):
+                session.adopt(_plan(tpipe, store, pays), band=(0, 12))
+        again = session.settle([False] * 10, steps=1, now=NOW + 1)
+        served = session.adopt(
+            _plan(tpipe, store, pays[:6] + _payloads(rng, 4, 8, tag="x")),
+            band=(0, 10))
+        last = session.settle([True] * 10, steps=1, now=NOW + 2)
+        session.close()
+        runs.append((served, np.asarray(again.consensus),
+                     np.asarray(last.consensus), store.list_sources()))
+    (served, *settled, records), (served_after, *settled_after,
+                                   records_after) = runs
+    assert served == served_after == "relayout"
+    for mine, theirs in zip(settled, settled_after):
+        np.testing.assert_array_equal(mine, theirs)
+    assert records == records_after
 
 
 def _analytics_session(pipe, store_cls, mesh, band=None):

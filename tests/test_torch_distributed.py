@@ -12,17 +12,20 @@ assembly equals the JAX cycle.
 
 Multi-process: two gloo ranks, and three ranks with an uneven tail (ten
 markets over a padded axis of twelve: the last band holds two), each a
-separate process that imports torch and the port only. Every rank joins
-through ``init_distributed`` (port from a bind to port 0, a 60 s
-rendezvous timeout), builds ``make_hybrid_mesh`` over its CPU devices
-(one granule a rank), packs ONLY its band's markets into a band plan and
-runs a ``ShardedSettlementSession(band=...)``: two chained settles, an
-adopt of a drifted batch (the host-staged relayout, as the ranks make it
-a multi-process runtime) and a third settle. The union of the ranks'
-consensus and stores must equal the JAX single-process session on the
-same seed-made data, computed here: bit for bit (no settle reads a
-decayed weight). Each run is one module-scoped fixture whose processes
-are killed if they outlast 120 s.
+separate process that runs the port's rank routine
+(``cluster/rank.py``) and imports torch and the port only. This process
+makes the batches from the seed and writes each rank its band. Every rank
+joins through ``init_distributed`` (port from a bind to port 0, a 60 s
+rendezvous timeout), builds the hybrid mesh over its CPU devices (one
+granule a rank), packs ONLY its band's markets into a band plan and runs
+a ``ShardedSettlementSession(band=...)``: two chained settles, an adopt
+of a drifted batch and a third settle; then the same on a local mesh
+(``MeshView.degraded([rank])``), which every rank of the live group
+must be able to run. The union of the ranks' consensus and stores must
+equal the JAX single-process session on the same seed-made data,
+computed here: bit for bit (no settle reads a decayed weight). Each run
+is one module-scoped fixture whose processes are killed if they outlast
+120 s.
 """
 
 import json
@@ -50,6 +53,12 @@ from bayesian_consensus_engine_tpu.parallel.mesh import make_mesh as jax_mesh
 from bayesian_consensus_engine_tpu.state.tensor_store import (
     TensorReliabilityStore as JaxStore,
 )
+from bayesian_consensus_engine_tpu_torch.cluster import MeshView
+from bayesian_consensus_engine_tpu_torch.cluster.rank import (
+    band_columns,
+    save_batches,
+)
+from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import MarketBlockState
 from bayesian_consensus_engine_tpu_torch.parallel import distributed
 from bayesian_consensus_engine_tpu_torch.parallel.distributed import (
@@ -234,9 +243,10 @@ class TestGlobalArrays:
 NOW = 20_750.0
 NUM_SLOTS = 8
 
-# Seed-made columnar batches, shared by the rank processes and this one.
-_DATA = """
+
 def make_batches(markets, seed):
+    """Two seed-made global columnar batches, the second's sources
+    drifted: ``(keys, source ids, probs, offsets, outcomes)`` each."""
     rng = np.random.default_rng(seed)
     counts = rng.integers(1, 4, markets)
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
@@ -251,93 +261,18 @@ def make_batches(markets, seed):
     return batches
 
 
-def band_columns(batch, lo, hi):
-    keys, sids, probs, offsets, outcomes = batch
-    a, b = int(offsets[lo]), int(offsets[hi])
-    return (keys[lo:hi], sids[a:b], probs[a:b], offsets[lo:hi + 1] - a,
-            outcomes[lo:hi])
-"""
-
-_WORKER = """
-import json
-import sys
-from datetime import timedelta
-
-sys.path.insert(0, {root!r})
-
-import numpy as np
-import torch
-
-from bayesian_consensus_engine_tpu_torch import pipeline
-from bayesian_consensus_engine_tpu_torch.cluster import MeshView
-from bayesian_consensus_engine_tpu_torch.parallel import distributed
-from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
-    TensorReliabilityStore,
-)
-{data}
-port, pid, nproc, markets, out = (
-    sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
-    sys.argv[5])
-icis = json.loads(sys.argv[6])
-info = distributed.init_distributed(
-    coordinator_address=f"127.0.0.1:{{port}}", num_processes=nproc,
-    process_id=pid, timeout=timedelta(seconds=60))
-assert info["process_count"] == nproc and info["process_index"] == pid, info
-again = distributed.init_distributed(
-    coordinator_address=f"127.0.0.1:{{port}}", num_processes=nproc,
-    process_id=pid)
-assert again == info, (info, again)
-batches = make_batches(markets, {seed})
-report = {{"pid": pid}}
-for ici in icis:
-    ici = tuple(ici)
-    devices = [torch.device("cpu")] * (ici[0] * ici[1])
-    mesh = distributed.make_hybrid_mesh(ici_shape=ici, devices=devices)
-    view = MeshView(epoch=0, hosts=tuple(range(nproc)),
-                    devices_per_host=len(devices), ici_shape=ici)
-    assert (mesh.shape["markets"], mesh.shape["sources"]) == view.shape
-    assert mesh.owners == tuple(r for r in range(nproc) for _ in range(ici[0]))
-    lo, hi = distributed.process_market_rows(view.padded_markets(markets),
-                                             mesh)
-    band = view.band(pid, markets)
-    assert band == (lo, markets), (band, lo, hi)
-    rows = view.owned_markets(pid, markets)
-    store = TensorReliabilityStore(device="cpu")
-    first = band_columns(batches[0], rows.start, rows.stop)
-    plan = pipeline.build_settlement_plan_columnar(
-        store, *first[:4], num_slots={num_slots})
-    session = pipeline.ShardedSettlementSession(store, plan, mesh, band=band)
-    consensus = []
-    for _ in range(2):
-        result = session.settle(first[4], steps=1, now={now})
-        consensus.append(np.asarray(result.consensus).tolist())
-    second = band_columns(batches[1], rows.start, rows.stop)
-    plan2 = pipeline.build_settlement_plan_columnar(
-        store, *second[:4], num_slots={num_slots})
-    served = session.adopt(plan2, band=band)
-    result = session.settle(second[4], steps=1, now={now})
-    consensus.append(np.asarray(result.consensus).tolist())
-    keys = list(result.market_keys)
-    session.close()
-    records = [[r.source_id, r.market_id, r.reliability, r.confidence,
-                r.updated_at] for r in store.list_sources()]
-    counts = [None] * nproc
-    torch.distributed.all_gather_object(counts, len(records))
-    torch.distributed.barrier()
-    report[str(list(ici))] = {{
-        "band": [lo, hi], "rows": [rows.start, rows.stop], "served": served,
-        "keys": keys, "consensus": consensus, "records": records,
-        "counts": counts, "local_rows": len(session._local_mesh.devices),
-    }}
+# A rank: the port's rank module, then the names of the JAX modules it
+# loaded, on a line of their own.
+_RANK = """
+import json, sys
+from bayesian_consensus_engine_tpu_torch.cluster import rank
+code = rank.main()
 PACKAGE = "bayesian_consensus_engine_tpu"
-report["jax_modules"] = sorted(
+print(json.dumps(sorted(
     name for name in sys.modules
     if name == "jax" or name.startswith("jax.")
-    or name == PACKAGE or name.startswith(PACKAGE + "."))
-torch.distributed.destroy_process_group()
-with open(out, "w") as f:
-    json.dump(report, f)
-print("RANK_OK", pid)
+    or name == PACKAGE or name.startswith(PACKAGE + "."))))
+sys.exit(code)
 """
 
 
@@ -348,45 +283,60 @@ def _free_port() -> int:
 
 
 def run_ranks(tmp, nproc, markets, icis, seed):
-    script = tmp / "rank.py"
-    script.write_text(_WORKER.format(
-        root=str(_ROOT), data=_DATA, seed=seed, num_slots=NUM_SLOTS, now=NOW))
+    """Each rank's report, its loaded JAX modules and its runs' arrays."""
+    batches = make_batches(markets, seed)
+    table = sorted({sid for batch in batches for sid in batch[1]})
+    code = {sid: i for i, sid in enumerate(table)}
+    coded = [(keys, SourceCodes([code[sid] for sid in sids], table), probs,
+              offsets, outcomes)
+             for keys, sids, probs, offsets, outcomes in batches]
+    view = MeshView(epoch=0, hosts=tuple(range(nproc)))
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "BCE_NO_NATIVE"}
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(script), str(port), str(pid), str(nproc),
-             str(markets), str(tmp / f"rank{pid}.json"), json.dumps(icis)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env)
-        for pid in range(nproc)
-    ]
-    outputs = []
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(_ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                        if p])
+    procs = []
     try:
-        for proc in procs:
-            outputs.append(proc.communicate(timeout=WORKER_TIMEOUT_S)[0])
+        for pid in range(nproc):
+            rows = view.owned_markets(pid, markets)
+            path = str(tmp / f"batches{pid}.npz")
+            save_batches(path, rows,
+                         [band_columns(batch, rows) for batch in coded])
+            job = dict(port=port, rank=pid, ranks=nproc, device="cpu",
+                       batches=path, markets=markets, num_slots=NUM_SLOTS,
+                       steps=1, now=[NOW] * 3, icis=icis, local=[1, 1],
+                       records=True, timeout_s=60,
+                       out=str(tmp / f"rank{pid}-%s.npz"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RANK, json.dumps(job)], cwd=_ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env))
+        outputs = [proc.communicate(timeout=WORKER_TIMEOUT_S)[0]
+                   for proc in procs]
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+    runs = []
     for pid, (proc, out) in enumerate(zip(procs, outputs)):
-        assert proc.returncode == 0 and f"RANK_OK {pid}" in out, (
-            f"rank {pid} failed:\n{out[-4000:]}")
-    return [json.loads((tmp / f"rank{pid}.json").read_text())
-            for pid in range(nproc)]
+        assert proc.returncode == 0, f"rank {pid} failed:\n{out[-4000:]}"
+        *_, report, modules = out.strip().splitlines()
+        report = json.loads(report)
+        arrays = {name: dict(np.load(tmp / f"rank{pid}-{name}.npz"))
+                  for name in report if isinstance(report[name], dict)}
+        runs.append((report, json.loads(modules), arrays))
+    return runs
 
 
 def jax_session_run(markets, seed, shape):
     """The JAX single-process session on the whole axis: the same settles
     and adopt as the ranks, on a mesh of *shape*."""
-    namespace = {"np": np}
-    exec(_DATA, namespace)  # noqa: S102 — the ranks' own data code
-    batches = namespace["make_batches"](markets, seed)
     store = JaxStore()
     n = shape[0] * shape[1]
     mesh = jax_mesh(shape, devices=jax.devices()[:n])
-    first, second = batches
+    first, second = make_batches(markets, seed)
     plan = jpipe.build_settlement_plan_columnar(store, *first[:4],
                                                 num_slots=NUM_SLOTS)
     session = jpipe.ShardedSettlementSession(store, plan, mesh)
@@ -400,9 +350,16 @@ def jax_session_run(markets, seed, shape):
     consensus.append(np.asarray(session.settle(second[4], steps=1,
                                                now=NOW).consensus))
     session.close()
-    records = sorted([r.source_id, r.market_id, r.reliability, r.confidence,
-                      r.updated_at] for r in store.list_sources())
+    records = sorted((r.source_id, r.market_id, r.reliability, r.confidence,
+                      r.updated_at) for r in store.list_sources())
     return served, consensus, records
+
+
+def rank_records(arrays):
+    return [(s, m, float(rel), float(conf), stamp)
+            for (s, m, stamp), (rel, conf) in zip(
+                arrays["record_ids"].tolist(),
+                arrays["record_values"].tolist())]
 
 
 CLUSTERS = {
@@ -423,25 +380,52 @@ def cluster_runs(tmp_path_factory):
 
 @pytest.mark.parametrize("name", list(CLUSTERS))
 def test_ranks_load_nothing_of_jax(cluster_runs, name):
-    assert all(report["jax_modules"] == [] for report in cluster_runs[name])
+    assert all(modules == [] for _report, modules, _ in cluster_runs[name])
 
 
 @pytest.mark.parametrize("name", list(CLUSTERS))
 def test_bands_tile_the_axis_with_an_uneven_tail(cluster_runs, name):
     nproc, markets, icis, _seed = CLUSTERS[name]
     for ici in icis:
-        reports = [r[str(ici)] for r in cluster_runs[name]]
+        label = "%dx%d" % tuple(ici)
+        reports = [report[label] for report, _, _ in cluster_runs[name]]
         rows = [tuple(r["rows"]) for r in reports]
         assert rows[0][0] == 0 and rows[-1][1] == markets
         assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
-        bands = [tuple(r["band"]) for r in reports]
+        bands = [tuple(r["padded_band"]) for r in reports]
         width = bands[0][1] - bands[0][0]
         assert bands == [(p * width, (p + 1) * width) for p in range(nproc)]
-        assert all(r["local_rows"] == ici[0] for r in reports)
-        assert reports[0]["counts"] == [len(r["records"]) for r in reports]
+        assert all(r["local_mesh_rows"] == ici[0] for r in reports)
+        stored = [len(arrays[label]["record_ids"])
+                  for _, _, arrays in cluster_runs[name]]
+        assert all(r["store_rows_by_rank"] == stored for r in reports)
     if name == "three_uneven":
-        assert [r["[1, 1]"]["rows"] for r in cluster_runs[name]] == [
-            [0, 4], [4, 8], [8, 10]]
+        assert [report["1x1"]["rows"] for report, _, _ in cluster_runs[name]
+                ] == [[0, 4], [4, 8], [8, 10]]
+
+
+def _assert_union_equals_jax(runs, label, markets, jax_run):
+    served, consensus, records = jax_run
+    assert served == "relayout"
+    assert [report[label]["served"] for report, _, _ in runs] == [
+        "relayout"] * len(runs)
+    # The adopted block equals one rebuilt from the synced host in its
+    # reliabilities, stamps and existence. Its confidences carry the
+    # block's own float32 chain, which the host replaces with its exact
+    # replay (``_replay_confidences``), so a rebuild may differ there in
+    # the last place.
+    for report, _, _ in runs:
+        rel, _conf, days, exists = report[label]["rebuild_equal"]
+        assert rel and days and exists
+    keys = [k for _, _, arrays in runs for k in arrays[label]["keys"].tolist()]
+    assert keys == [f"mkt-{m}" for m in range(markets)]
+    for settle in range(3):
+        union = np.concatenate([arrays[label][f"consensus_{settle + 1}"]
+                                for _, _, arrays in runs])
+        np.testing.assert_array_equal(union, consensus[settle])
+    union_records = sorted(rec for _, _, arrays in runs
+                           for rec in rank_records(arrays[label]))
+    assert union_records == records
 
 
 @pytest.mark.parametrize("name, ici", [
@@ -450,18 +434,21 @@ def test_bands_tile_the_axis_with_an_uneven_tail(cluster_runs, name):
 ], ids=str)
 def test_band_union_bit_equal_to_jax_single_process(cluster_runs, name, ici):
     nproc, markets, _icis, seed = CLUSTERS[name]
-    reports = [r[str(ici)] for r in cluster_runs[name]]
     # The JAX single-process session on the mesh the ranks make together.
-    shape = (nproc * ici[0], ici[1])
-    served, consensus, records = jax_session_run(markets, seed, shape)
-    assert served == "relayout"
-    assert [r["served"] for r in reports] == ["relayout"] * nproc
-    keys = [k for r in reports for k in r["keys"]]
-    assert keys == [f"mkt-{m}" for m in range(markets)]
-    for settle in range(3):
-        union = np.concatenate([np.asarray(r["consensus"][settle],
-                                           dtype=np.float32)
-                                for r in reports])
-        np.testing.assert_array_equal(union, consensus[settle])
-    union_records = sorted(rec for r in reports for rec in r["records"])
-    assert union_records == [list(rec) for rec in records]
+    _assert_union_equals_jax(
+        cluster_runs[name], "%dx%d" % tuple(ici), markets,
+        jax_session_run(markets, seed, (nproc * ici[0], ici[1])))
+
+
+@pytest.mark.parametrize("name", list(CLUSTERS))
+def test_local_mesh_session_on_every_rank_equals_jax(cluster_runs, name):
+    """A session on a local mesh (the one-host view's, ``MeshView.degraded
+    ([rank])``) runs on every rank of a live group, rank 0 or not: each
+    rank's local-mesh run over its band's markets, joined, is the JAX
+    single-process session."""
+    nproc, markets, _icis, seed = CLUSTERS[name]
+    runs = cluster_runs[name]
+    assert [report["local"]["local_mesh_rows"] for report, _, _ in runs] == [
+        1] * nproc
+    _assert_union_equals_jax(runs, "local", markets,
+                             jax_session_run(markets, seed, (1, 1)))

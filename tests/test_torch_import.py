@@ -8,7 +8,8 @@ sources-sharded CPU mesh, writing, replaying and compacting a two-epoch
 journal beside a background SQLite flush, streaming batches through a
 resident session with a journal and a trace, streaming a process band
 and recovering its journal (membership views, the cluster merge and
-adoption, the distributed helpers and the kill soak's module), re-driving
+adoption, the distributed helpers, the rank routine and the kill soak's
+module), re-driving
 the trace and
 replaying it under an altered config (the replay lab, its lane kernel's
 plain version and the store digest), the sorted tie-break and the
@@ -70,7 +71,9 @@ from bayesian_consensus_engine_tpu_torch import cli, net
 from bayesian_consensus_engine_tpu_torch.net import client, server, wire
 from bayesian_consensus_engine_tpu_torch.serve import admission, coalesce
 from bayesian_consensus_engine_tpu_torch import cluster, replay
-from bayesian_consensus_engine_tpu_torch.cluster import membership, recover, soak
+from bayesian_consensus_engine_tpu_torch.cluster import (
+    membership, rank, recover, soak,
+)
 from bayesian_consensus_engine_tpu_torch.replay import lab
 import asyncio
 import os
@@ -194,6 +197,7 @@ with tempfile.TemporaryDirectory() as work:
     assert distributed.init_distributed()["process_count"] == 1
     assert distributed.make_hybrid_mesh(devices=["cpu"] * 2).shape["markets"] == 2
     assert soak.main.__module__ == soak.__name__
+    assert rank.main.__module__ == rank.__name__
 with port.ShardedSettlementSession(store, plan) as session:
     _, tb, bands_out, _ = session.settle_with_analytics(
         [True, False], steps=2, now=20020.0,
@@ -332,15 +336,15 @@ def test_import_scan_flags_exactly_the_jax_package(source, flagged):
 
 @pytest.mark.parametrize("package", ["replay", "cluster"])
 def test_replay_and_cluster_copies_are_scanned(package):
-    """The replay lab and the ``cluster/`` tier (membership, recovery and
-    the kill soak) are in the static scan and import nothing of JAX; the
+    """The replay lab and the ``cluster/`` tier (membership, recovery, the
+    rank routine and the kill soak) are in the static scan and import nothing of JAX; the
     exact-name test tells their JAX package twins from them."""
     sources = [path for path in port_sources()
                if path.parent.name == package
                and path.parent.parent.name == "bayesian_consensus_engine_tpu_torch"]
     expected = {"replay": {"__init__.py", "lab.py"},
-                "cluster": {"__init__.py", "membership.py", "recover.py",
-                            "soak.py"}}
+                "cluster": {"__init__.py", "membership.py", "rank.py",
+                            "recover.py", "soak.py"}}
     assert {path.name for path in sources} == expected[package]
     for path in sources:
         assert not forbidden_imports(path.read_text(encoding="utf-8"))
