@@ -12,9 +12,9 @@
 // The cycle's rates come from a policy type. RecordedRates holds the module
 // constants at compile time and divides by the half-life as a reciprocal
 // multiplication, as the main path's plain version does; every kernel uses
-// it unless it says otherwise. LaneRates holds one replay lane's rates,
-// read once from its float32 row of a params tensor and widened to T, and
-// divides by the half-life (ops/cycle_math.py::CycleParams, ops/decay.py).
+// it unless it says otherwise. LaneRates reads one replay lane's rates,
+// widened to T, from the lane kernel's shared memory, and divides by the
+// half-life (ops/cycle_math.py::CycleParams, ops/decay.py).
 
 #pragma once
 
@@ -66,26 +66,26 @@ struct RecordedRates {
   __device__ __forceinline__ T growth() const { return T(kConfidenceGrowth); }
 };
 
-// One replay lane's rates: its row of a (C, 5) float32 params tensor
-// (half-life, floor, base learning rate, maximum step, confidence growth),
-// widened to T once.
+// One replay lane's rates (half-life, floor, base learning rate, maximum
+// step, confidence growth): the lane kernel's shared copy of its row of a
+// (C, 5) float32 params tensor, widened to T. Each rate is read where it
+// is used, so a thread keeps no lane's rates in registers from one lane to
+// the next.
 template <typename T>
 struct LaneRates {
-  T half_life, floor_, base_lr, max_step, growth_;
+  const T* rates;  // (5,), shared memory
 
-  __device__ __forceinline__ explicit LaneRates(const float* row)
-      : half_life(T(row[0])), floor_(T(row[1])), base_lr(T(row[2])),
-        max_step(T(row[3])), growth_(T(row[4])) {}
+  __device__ __forceinline__ explicit LaneRates(const T* row) : rates(row) {}
 
   // A true division by the lane's half-life, as the JAX package's vmapped
   // replay step computes it and the plain version (ops/decay.py) does.
   __device__ __forceinline__ T decay_exponent(T elapsed) const {
-    return div_rn(-elapsed, half_life);
+    return div_rn(-elapsed, rates[0]);
   }
-  __device__ __forceinline__ T floor() const { return floor_; }
-  __device__ __forceinline__ T base_learning_rate() const { return base_lr; }
-  __device__ __forceinline__ T max_update_step() const { return max_step; }
-  __device__ __forceinline__ T growth() const { return growth_; }
+  __device__ __forceinline__ T floor() const { return rates[1]; }
+  __device__ __forceinline__ T base_learning_rate() const { return rates[2]; }
+  __device__ __forceinline__ T max_update_step() const { return rates[3]; }
+  __device__ __forceinline__ T growth() const { return rates[4]; }
 };
 
 // ops/decay.py::decayed_reliability_at on a slot that is eligible

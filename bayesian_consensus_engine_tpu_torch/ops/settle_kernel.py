@@ -38,14 +38,22 @@ within a market, and ``touched_offsets[m]`` (an exclusive prefix sum of
 the per-market mask counts, built once per plan) is where market ``m``
 starts. No second pass and no grid-wide barrier are needed.
 
-Replay lanes. :func:`settle_cycles_lanes` launches the same kernel body
-over C stacked copies of the flat state in one launch, the lane on the
-grid's second axis, each lane with its own cycle rates (a (C, 5) float32
-params tensor, :data:`PARAM_FIELDS`); it writes each lane's consensus and
-no ``rel_touched``. Its plain version, :func:`settle_cycles_lanes_reference`,
-loops over the lanes with the cycle math given the lane's
-``CycleParams``, which sums each market's slots in slot order, as the
-kernel does.
+Replay lanes. :func:`settle_cycles_lanes` settles C stacked copies of
+the flat state through one plan in one launch, each lane with its own
+cycle rates (a (C, 5) float32 params tensor, :data:`PARAM_FIELDS`); it
+writes each lane's consensus and no ``rel_touched``. A block of its
+kernel stages a tile's masked slots in shared memory and settles them for
+each lane it takes, the lanes' rates in shared memory too. Where the
+tile's markets lie in row order (a store that interned the plan's pairs
+in order) one block takes a group of up to 16 lanes, so the lanes share
+one read of the plan; where they do not (a batch that lists its markets
+in another order than the store's rows), one block takes one lane, so
+that each lane's scattered rows are visited close together in time.
+Its route report (:data:`LANE_ROUTE_SLOTS` slots) says how many tiles
+took the shared plan, and the launch's shared bytes and lane groups. Its
+plain version, :func:`settle_cycles_lanes_reference`, loops
+over the lanes with the cycle math given the lane's ``CycleParams``,
+which sums each market's slots in slot order, as the kernel does.
 
 :func:`settle_cycles` launches the kernel for CUDA tensors and raises when
 it cannot; only CPU tensors take the plain version,
@@ -83,8 +91,12 @@ LANE_LAUNCHES = 0
 
 #: The columns of a lane params tensor, in order (``CycleParams``' fields).
 PARAM_FIELDS = CycleParams._fields
-#: The most lanes one launch takes (the grid's second axis).
+#: The most lanes one launch takes.
 MAX_LANES = 65535
+#: The slots of the lane launch's full route report: :func:`settle_cycles`'
+#: three, then the tiles settled a group of lanes a block, the shared bytes
+#: a block and the most lanes a group takes.
+LANE_ROUTE_SLOTS = 6
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "settle_cycles.cu"
 
@@ -105,7 +117,7 @@ def _load():
     )
     lanes = (
         [ctypes.c_void_p] * 11
-        + [ctypes.c_double] + [ctypes.c_int64] * 6 + [ctypes.c_void_p] * 2
+        + [ctypes.c_double] + [ctypes.c_int64] * 7 + [ctypes.c_void_p] * 2
     )
     return cuda_build.load(SOURCE, {
         "settle_cycles_f32": flat, "settle_cycles_f64": flat,
@@ -335,7 +347,12 @@ def settle_cycles_lanes(
     On CUDA tensors it launches the kernel once for all lanes, which
     updates the stacked state IN PLACE and writes each lane's last-step
     consensus, (C, M); ``routes`` is :func:`settle_cycles`' route report,
-    summed over the lanes. On CPU tensors it runs
+    its tiles summed over the lanes. An int32 (:data:`LANE_ROUTE_SLOTS`,)
+    tensor also receives the tiles, summed over the lanes, that a block
+    settled for a group of lanes through one read of the plan (those whose
+    markets lie in row order) in ``routes[3]``, the shared bytes a block was
+    launched with in ``routes[4]`` and the most lanes such a group takes in
+    ``routes[5]``. On CPU tensors it runs
     :func:`settle_cycles_lanes_reference` and returns new state. Either
     way the caller must use the returned state.
     """
@@ -377,7 +394,9 @@ def settle_cycles_lanes(
         device,
     )
     if routes is not None:
-        check_tensor("routes", routes, torch.int32, (3,), device)
+        check_tensor("routes", routes, torch.int32,
+                     (LANE_ROUTE_SLOTS if routes.numel() == LANE_ROUTE_SLOTS
+                      else 3,), device)
 
     consensus = torch.empty((num_lanes, num_markets), dtype=dtype, device=device)
     if num_markets == 0 or num_lanes == 0:
@@ -394,7 +413,8 @@ def settle_cycles_lanes(
             conf.data_ptr(), days.data_ptr(), exists.data_ptr(),
             params.data_ptr(), consensus.data_ptr(), float(now0),
             num_slots, num_markets, int(num_touched), num_lanes, capacity,
-            int(steps), None if routes is None else routes.data_ptr(), stream,
+            int(steps), 0 if routes is None else routes.numel(),
+            None if routes is None else routes.data_ptr(), stream,
         )
     if status != 0:
         raise RuntimeError(

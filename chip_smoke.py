@@ -372,15 +372,29 @@ line was printed):
                     a second sweep with ``rebuild=False`` gives the same
                     lane metrics and lane-state bytes; ``replay_single`` of
                     an altered lane equals its sweep lane (settled markets,
-                    sums within rel 1e-6). ``settle_cycles_lanes`` on the
+                    sums within rel 1e-6). Every lane launch of the three
+                    runs passes a six-slot route report, and ``group_share``
+                    lists per launch the share of its (tile, lane) pairs
+                    that a block settled for a group of lanes through one
+                    read of the plan (tiles whose markets lie in row
+                    order). ``settle_cycles_lanes`` on the first and the
                     last batch's 16 lanes at their full 1M markets must be
                     bit-equal to its plain version (state and consensus;
                     ``max_abs_err`` is the measured largest difference),
-                    then is timed at the same shape in place
+                    then is timed on the last batch in place
                     (every masked row exists after a warm-up launch: the
-                    steady state) with its plain version and byte bound,
-                    and lane 0 alone through the same launch
-                    (``one_lane_ms``).
+                    steady state) with its plain version and byte bound;
+                    ``lane_scaling`` times the launch at C in {1, 4, 16,
+                    64} lanes (the captured lanes' first C, or the 16
+                    repeated), each with its time a lane and byte bound
+                    (C = 1, lane 0 alone, is also ``one_lane_ms``), and
+                    ``lane_scaling_first_batch`` the same on the first
+                    batch, whose rows the store interned in its markets'
+                    order; ``settle_cycles_lane0_ms`` times the main path's
+                    ``settle_cycles`` on lane 0's captured state and plan
+                    (what the replay plan's rows cost apart from the lane
+                    instantiation); ``stage_slots``, ``shared_bytes`` and
+                    ``group_lanes`` are the 16-lane launch's own report.
                     Prints per batch the host seconds of the plan, lane 0's
                     dispatch, the lane launch and the whole step, each
                     closed by a synchronise, and each lane's means.
@@ -1423,6 +1437,42 @@ def journal_digest(path):
     return epochs
 
 
+def stream_batches(market_keys, codes, probs, offsets, outcomes):
+    """The stream phase's four batches, ``((keys, source ids, probs,
+    offsets), outcomes)`` each: the main path's batch, the same markets in
+    the same order with new probabilities, then a drifted batch
+    (:func:`drifted_batch`, its markets shuffled) twice."""
+    rng = np.random.default_rng(STREAM_SEED)
+    table = [f"src-{i}" for i in range(SOURCES)]
+    sids = [table[c] for c in codes.tolist()]
+    drift_keys, drift_codes, drift_probs, drift_offsets = drifted_batch(
+        rng, market_keys, np.diff(offsets), codes)
+    drift_sids = [table[c] for c in drift_codes.tolist()]
+    columns = [
+        (market_keys, sids, probs, offsets),
+        (market_keys, sids, rng.random(len(probs)), offsets),
+        (drift_keys, drift_sids, drift_probs, drift_offsets),
+        (drift_keys, drift_sids, rng.random(len(drift_probs)), drift_offsets),
+    ]
+    batch_outcomes = [outcomes] + [rng.random(len(c[0])) < 0.5
+                                   for c in columns[1:]]
+    return list(zip(columns, batch_outcomes))
+
+
+def main_data():
+    """The main path's batch from SEED: ``(counts, codes, probs, offsets,
+    outcomes, market_keys)``, MARKETS markets of Poisson(MEAN_SIGNALS - 1)
+    + 1 signals from SOURCES sources."""
+    data_rng = np.random.default_rng(SEED)
+    counts = data_rng.poisson(MEAN_SIGNALS - 1, MARKETS) + 1
+    codes = data_rng.integers(0, SOURCES, counts.sum())
+    probs = data_rng.random(counts.sum())
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    outcomes = data_rng.random(MARKETS) < 0.5
+    market_keys = [f"market-{m}" for m in range(MARKETS)]
+    return counts, codes, probs, offsets, outcomes, market_keys
+
+
 def stream_phase(smi, market_keys, codes, probs, offsets, outcomes):
     """The streamed, resident settlement service at the main path's width:
     four batches through a flat stream (A) and a resident stream with the
@@ -1444,21 +1494,7 @@ def stream_phase(smi, market_keys, codes, probs, offsets, outcomes):
 
     seconds = {}
     start = time.perf_counter()
-    rng = np.random.default_rng(STREAM_SEED)
-    table = [f"src-{i}" for i in range(SOURCES)]
-    sids = [table[c] for c in codes.tolist()]
-    drift_keys, drift_codes, drift_probs, drift_offsets = drifted_batch(
-        rng, market_keys, np.diff(offsets), codes)
-    drift_sids = [table[c] for c in drift_codes.tolist()]
-    columns = [
-        (market_keys, sids, probs, offsets),
-        (market_keys, sids, rng.random(len(probs)), offsets),
-        (drift_keys, drift_sids, drift_probs, drift_offsets),
-        (drift_keys, drift_sids, rng.random(len(drift_probs)), drift_offsets),
-    ]
-    batch_outcomes = [outcomes] + [rng.random(len(c[0])) < 0.5
-                                   for c in columns[1:]]
-    batches = list(zip(columns, batch_outcomes))
+    batches = stream_batches(market_keys, codes, probs, offsets, outcomes)
     seconds["data"] = time.perf_counter() - start
     work = tempfile.TemporaryDirectory()
     mesh = make_mesh((1, 1), [torch.device("cuda")])
@@ -2323,6 +2359,9 @@ STATE_NAMES = ("reliability", "confidence", "updated_days", "exists")
 # replay: the sweep's lanes, as the JAX bench's grid walks its four knobs
 # (bench.py:4310-4318): 16 configs, lane 0 the recorded one.
 REPLAY_CONFIGS = 16
+# The lane kernel's scaling: lane counts it is timed at on the last batch
+# (beyond 16, the captured lanes repeated).
+LANE_SCALING = (1, 4, 16, 64)
 
 
 def replay_configs(replay):
@@ -2356,7 +2395,21 @@ def replay_phase(smi, trace, live_digest, ptxas):
     real_plan_for = driver.PlanCache.plan_for
     real_dispatch = driver.SessionDriver.dispatch
     real_lanes = sharded.settle_cycles_lanes
-    captured = []
+    captured = {}
+    # Per lane launch, the share of its (tile, lane) pairs that a block
+    # settled for a group of lanes through one read of the plan (the
+    # tiles whose markets lie in row order), from the launch's route
+    # report; None where the launch reported no tiles (the CPU path).
+    group_share = {"sweep": [], "sweep_again": [], "single": []}
+    shares = []
+
+    def reporting_lanes(*args, **kwargs):
+        routes = torch.zeros(settle_kernel.LANE_ROUTE_SLOTS,
+                             dtype=torch.int32, device=args[0].device)
+        out = real_lanes(*args, routes=routes, **kwargs)
+        staged, wide, _stage, grouped = routes.tolist()[:4]
+        shares.append(grouped / (staged + wide) if staged + wide else None)
+        return out
 
     def timed(key, fn):
         def wrapper(*args, **kwargs):
@@ -2368,11 +2421,13 @@ def replay_phase(smi, trace, live_digest, ptxas):
         return wrapper
 
     def capturing_lanes(*args, **kwargs):
-        if len(captured) == 0 and len(per_batch["lane_launch"]) == len(trace) - 1:
-            # The last batch's inputs, before the launch moves them.
-            captured.append([a.clone() if isinstance(a, torch.Tensor) else a
-                             for a in args])
-        return timed("lane_launch", real_lanes)(*args, **kwargs)
+        batch = len(per_batch["lane_launch"])
+        if batch in (0, len(trace) - 1):
+            # The first and the last batch's inputs, before the launch
+            # moves them.
+            captured[batch] = [a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args]
+        return timed("lane_launch", reporting_lanes)(*args, **kwargs)
 
     step = sharded.build_replay_sweep_step(steps, 0)
     sharded._REPLAY_SWEEP_CACHE[(steps, 0)] = timed("step", step)
@@ -2391,6 +2446,7 @@ def replay_phase(smi, trace, live_digest, ptxas):
         driver.PlanCache.plan_for = real_plan_for
         driver.SessionDriver.dispatch = real_dispatch
         sharded.settle_cycles_lanes = real_lanes
+    group_share["sweep"], shares = shares, []
     if launches != (len(trace), len(trace)):
         raise AssertionError(f"replay launches (settle_cycles, "
                              f"settle_cycles_lanes): {launches}, expected one "
@@ -2413,19 +2469,26 @@ def replay_phase(smi, trace, live_digest, ptxas):
     lane0_digest, result_digest = first.digest, first.result_digest
     del first, reliability  # the lane-0 store with it
 
-    start = time.perf_counter()
-    second = replay.replay_sweep(trace, configs, rebuild=False,
-                                 device="cuda")
-    seconds["sweep_again"] = time.perf_counter() - start
-    if second.lanes != first_lanes or any(
-            a.tobytes() != b.tobytes()
-            for a, b in zip(second.lane_state, first_state)):
-        raise AssertionError("a second sweep gave other lane metrics or state")
-    del second, first_state
-    altered = configs[5]
-    start = time.perf_counter()
-    alone = replay.replay_single(trace, altered, device="cuda")
-    seconds["single"] = time.perf_counter() - start
+    sharded.settle_cycles_lanes = reporting_lanes
+    try:
+        start = time.perf_counter()
+        second = replay.replay_sweep(trace, configs, rebuild=False,
+                                     device="cuda")
+        seconds["sweep_again"] = time.perf_counter() - start
+        group_share["sweep_again"], shares = shares, []
+        if second.lanes != first_lanes or any(
+                a.tobytes() != b.tobytes()
+                for a, b in zip(second.lane_state, first_state)):
+            raise AssertionError("a second sweep gave other lane metrics or "
+                                 "state")
+        del second, first_state
+        altered = configs[5]
+        start = time.perf_counter()
+        alone = replay.replay_single(trace, altered, device="cuda")
+        seconds["single"] = time.perf_counter() - start
+        group_share["single"], shares = shares, []
+    finally:
+        sharded.settle_cycles_lanes = real_lanes
     lane = dict(zip(configs, first_lanes))[altered]
     if alone.markets_settled != lane.markets_settled or not (
             np.isclose(alone.brier_sum, lane.brier_sum, rtol=1e-6, atol=0)
@@ -2433,26 +2496,32 @@ def replay_phase(smi, trace, live_digest, ptxas):
                            rtol=1e-6, atol=0)):
         raise AssertionError(f"replay_single {alone} vs the sweep's {lane}")
 
-    # The lane kernel against its plain version on the last batch's lanes,
-    # at the main path's shapes (its staging and routes are those of the
-    # timed launches below): the plain version is functional, the kernel
-    # runs on clones, and every output must be bit-equal.
+    # The lane kernel against its plain version on the first and the last
+    # batch's lanes, at the main path's shapes (their staging and routes
+    # are those of the timed launches below): the plain version is
+    # functional, the kernel runs on clones, and every output must be
+    # bit-equal. The first batch's rows lie in its markets' order (the
+    # store interned them from it), so its tiles take the shared plan; the
+    # last batch's markets come shuffled, so its tiles take a block a lane.
+    full_args, first_args = captured[len(trace) - 1], captured[0]
     (rel, conf, days, exists, slot_rows, probs_d, mask_d, outcome_d, offsets_d,
-     num_touched, now0, lane_steps, params) = captured[0]
-    full_args = captured[0]
+     num_touched, now0, lane_steps, params) = full_args
     start = time.perf_counter()
-    want = settle_kernel.settle_cycles_lanes_reference(*full_args)
-    got = settle_kernel.settle_cycles_lanes(
-        *[a.clone() if isinstance(a, torch.Tensor) else a for a in full_args])
-    torch.cuda.synchronize()
     lanes_err = 0.0
-    for name, x, y in zip(STATE_NAMES + ("consensus",), got, want):
-        check_bits(x, y, f"settle_cycles_lanes {name} vs its plain version")
-        if y.is_floating_point():
-            finite = ~torch.isnan(y)
-            lanes_err = max(lanes_err, float(
-                (x[finite] - y[finite]).abs().max()) if finite.any() else 0.0)
-    del want, got
+    for batch, args in (("last", full_args), ("first", first_args)):
+        want = settle_kernel.settle_cycles_lanes_reference(*args)
+        got = settle_kernel.settle_cycles_lanes(
+            *[a.clone() if isinstance(a, torch.Tensor) else a for a in args])
+        torch.cuda.synchronize()
+        for name, x, y in zip(STATE_NAMES + ("consensus",), got, want):
+            check_bits(x, y, f"settle_cycles_lanes {name} vs its plain "
+                       f"version, {batch} batch")
+            if y.is_floating_point():
+                finite = ~torch.isnan(y)
+                lanes_err = max(lanes_err, float(
+                    (x[finite] - y[finite]).abs().max())
+                    if finite.any() else 0.0)
+        del want, got
     seconds["lane_check"] = time.perf_counter() - start
     # Its time at the full shape, launched in place on the captured lanes
     # after a warm-up launch: every masked row then exists, the steady
@@ -2463,25 +2532,68 @@ def replay_phase(smi, trace, live_digest, ptxas):
     plain_ms, plain_paced_by = time_window(
         lambda a: settle_kernel.settle_cycles_lanes_reference(*a),
         lambda: full_args, warmup=1, runs=3)
-    # Lane 0 alone through the same launch: the time of one lane, against
-    # which the 16-lane launch's time per lane reads.
-    one_lane = [*(x[:1] for x in full_args[:4]), *full_args[4:12],
-                full_args[12][:1]]
-    one_lane_ms = time_cuda(lambda a: settle_kernel.settle_cycles_lanes(*a),
-                            lambda: one_lane, warmup=2, runs=21)
-    rows_d = slot_rows[mask_d].long()
-    lane_existing = [int(full_args[3][c][rows_d].sum())
-                     for c in range(len(configs))]
-    bound = settle_kernel.lanes_bound_bytes(
-        len(configs), int(slot_rows.shape[0]), int(slot_rows.shape[1]),
-        int(num_touched), lane_existing, lane_steps, 4)
-    routes = torch.zeros(3, dtype=torch.int32, device="cuda")
+
+    def bound_of(args, count):
+        """The byte bound of a launch over the first ``count`` lanes of
+        ``args``' (the 16 repeated beyond 16), as they stand."""
+        rows = args[4][args[6]].long()
+        existing = [int(args[3][c % len(configs)][rows].sum())
+                    for c in range(count)]
+        return settle_kernel.lanes_bound_bytes(
+            count, int(args[4].shape[0]), int(args[4].shape[1]),
+            int(args[9]), existing, lane_steps, 4)
+
+    bound = bound_of(full_args, len(configs))
+
+    def lane_scaling(args, ms_at_all):
+        """The launch at each C of LANE_SCALING lanes, in place on
+        ``args``' first C lanes (the 16 repeated up to C), its time a lane
+        against its bound; at C = 16, ``ms_at_all`` when given."""
+        entries = []
+        for count in LANE_SCALING:
+            if count == len(configs) and ms_at_all is not None:
+                ms = ms_at_all
+            else:
+                reps = -(-count // len(configs))
+                lanes_args = [
+                    *(x.repeat(reps, 1)[:count].contiguous() for x in args[:4]),
+                    *args[4:12],
+                    args[12].repeat(reps, 1)[:count].contiguous()]
+                ms = time_cuda(lambda a: settle_kernel.settle_cycles_lanes(*a),
+                               lambda: lanes_args, warmup=2, runs=21)
+                del lanes_args
+            bound_bytes = bound_of(args, count)
+            entries.append({
+                "lanes": count, "ms": ms, "ms_per_lane": ms / count,
+                "bound_bytes": bound_bytes,
+                "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3})
+        return entries
+
+    # The lane scaling on the last batch (lane 0 alone, C = 1, is the time
+    # of one lane) and on the first, whose tiles share the plan.
+    scaling = lane_scaling(full_args, lanes_ms)
+    one_lane_ms = scaling[LANE_SCALING.index(1)]["ms"]
+    settle_kernel.settle_cycles_lanes(*first_args)  # every row exists
+    first_scaling = lane_scaling(first_args, None)
+    del first_args, captured
+    # The separation: the main path's kernel, with the recorded constants,
+    # on lane 0's state (clones) and the last batch's plan, in place.
+    # Beside the lane kernel at one lane it shows what the replay plan's
+    # rows cost any kernel, apart from the lane instantiation.
+    lane0 = [x[0].clone() for x in full_args[:4]] + list(full_args[4:12])
+    settle_lane0_ms = time_cuda(lambda a: settle_kernel.settle_cycles(*a),
+                                lambda: lane0, warmup=2, runs=21)
+    del lane0
+    routes = torch.zeros(settle_kernel.LANE_ROUTE_SLOTS, dtype=torch.int32,
+                         device=rel.device)
     settle_kernel.settle_cycles_lanes(*full_args, routes=routes)
-    staged, wide, stage_slots = routes.tolist()
+    staged, wide, stage_slots, _grouped, shared_bytes, group_lanes = (
+        routes.tolist())
     emit("replay", batches=len(trace), lanes=len(configs), steps=steps,
          rows=int(rel.shape[1]), markets_settled=settled[0],
          launches={"settle_cycles": launches[0],
                    "settle_cycles_lanes": launches[1]},
+         group_share=group_share,
          lane0_digest=lane0_digest, result_digest=result_digest,
          run_twice="equal", single_vs_sweep="equal",
          lane_reports=[{"config": dict(lane.config._asdict()),
@@ -2507,21 +2619,31 @@ def replay_phase(smi, trace, live_digest, ptxas):
         "library_ms": None,
         "lanes": len(configs),
         "one_lane_ms": one_lane_ms,
-        "one_lane_bound_ms": settle_kernel.lanes_bound_bytes(
-            1, int(slot_rows.shape[0]), int(slot_rows.shape[1]),
-            int(num_touched), lane_existing[:1], lane_steps, 4,
-        ) / HBM_BYTES_PER_S * 1e3,
+        "one_lane_bound_ms": scaling[LANE_SCALING.index(1)]["bound_ms"],
+        "lane_scaling": scaling,
+        # The same at the first batch, whose tiles share the plan.
+        "lane_scaling_first_batch": first_scaling,
+        # The main path's kernel on lane 0's captured state and plan.
+        "settle_cycles_lane0_ms": settle_lane0_ms,
+        # Per lane launch of the sweep, the second sweep and replay_single,
+        # the share of (tile, lane) pairs settled through a shared plan.
+        "group_share": group_share,
         "markets": int(slot_rows.shape[1]),
         "stage_slots": stage_slots,
+        # The launch's own report: a block's shared memory (its lanes'
+        # rates and the stage) and the most lanes a block of a tile in row
+        # order takes at 16 lanes.
+        "shared_bytes": shared_bytes,
+        "group_lanes": group_lanes,
         "tiles": staged + wide,
         "wide_tiles": wide,
-        # ptxas' figures of the lane instantiations with a 32-bit step
-        # counter, float32 and float64.
-        "ptxas": {dt: next((figures for name, figures
-                            in ptxas["settle_cycles.cu"].items()
-                            if f"settle_cycles_lanes_kernelI{code}iE" in name),
-                           None)
-                  for dt, code in (("float32", "f"), ("float64", "d"))},
+        # ptxas' figures of the lane instantiations, float32 and float64,
+        # with a 32-bit step counter and (``_steps64``) a 64-bit one.
+        "ptxas": {f"{dt}{suffix}": next(
+            (figures for name, figures in ptxas["settle_cycles.cu"].items()
+             if f"settle_cycles_lanes_kernelI{code}{n}E" in name), None)
+                  for dt, code in (("float32", "f"), ("float64", "d"))
+                  for suffix, n in (("", "i"), ("_steps64", "l"))},
     }
     return entry, launches[0]
 
@@ -3448,13 +3570,7 @@ def main() -> int:
     work = tempfile.TemporaryDirectory()
     seconds = {}
     start = time.perf_counter()
-    data_rng = np.random.default_rng(SEED)
-    counts = data_rng.poisson(MEAN_SIGNALS - 1, MARKETS) + 1
-    codes = data_rng.integers(0, SOURCES, counts.sum())
-    probs = data_rng.random(counts.sum())
-    offsets = np.concatenate([[0], np.cumsum(counts)])
-    outcomes = data_rng.random(MARKETS) < 0.5
-    market_keys = [f"market-{m}" for m in range(MARKETS)]
+    counts, codes, probs, offsets, outcomes, market_keys = main_data()
     sources = SourceCodes(codes, [f"src-{i}" for i in range(SOURCES)])
     seconds["data"] = time.perf_counter() - start
 

@@ -13,15 +13,22 @@ lane's ``CycleParams``; ``tests/test_torch_replay.py`` holds the replay
 lanes built on it against the JAX package. Here, on the CPU: the plain
 version against that lane-by-lane loop, the rates reaching the state, and
 the byte bound. On the card (the ``cuda`` cases skip without one): the
-kernel against its plain version at float32 and float64, C in {1, 3,
-16}, steps in {0, 1, 2, 20}, over plans whose tiles take both routes (a
-ragged market overflows the shared stage): the stacked state bit-equal
-and each lane's consensus bit-equal (the plain version adds a market's
-slots in slot order, as the kernel does, and both take ``exp2`` from the
-card's math library), in place, one launch for all lanes; and the replay
-step on the card against the same step on the CPU (state bit-equal,
-metrics within rtol 1e-5) and against itself run twice (metrics
-bit-equal).
+kernel against its plain version at float32 and float64, C in {1, 3, 16,
+17, 33, 64} (a block settles a group of up to 16 lanes, so 17, 33 and 64
+lanes take two, three and four groups), steps in {0, 1, 2, 20}, over
+plans whose tiles take both routes (a ragged market overflows the shared
+stage), with the three rate rows cycled over the lanes and, on one plan,
+every lane's rates drawn apart, each plan's rows shuffled (a block a tile
+and lane) and in plan order (a block a tile and lane group, which reads
+the plan once for the group): the stacked state bit-equal and each
+lane's consensus bit-equal (the plain version adds a market's slots in
+slot order, as the kernel does, and both take ``exp2`` from the card's
+math library), in place, one launch for all lanes, its route report
+covering every (tile, lane), counting every tile as settled a group of
+lanes a block on rows in plan order and none on shuffled rows, and
+giving the shared bytes and the lanes a group; and the replay step on the card against the same step on the
+CPU (state bit-equal, metrics within rtol 1e-5) and against itself run
+twice (metrics bit-equal).
 """
 
 import numpy as np
@@ -44,12 +51,31 @@ RATES = np.float32([
 ])
 
 
+def distinct_rates(seed, lanes):
+    """(C, 5) float32 rates, every lane's drawn apart from the others'."""
+    rng = np.random.default_rng(seed)
+    low = np.float32([5.0, 0.02, 0.01, 0.02, 0.02])
+    high = np.float32([90.0, 0.40, 0.40, 0.30, 0.30])
+    return (low + (high - low) * rng.random((lanes, 5))).astype(np.float32)
+
+
 def lane_case(seed, num_slots, num_markets, np_dtype, lanes, kind="random",
-              steps=2, device="cpu"):
+              steps=2, device="cpu", rates="cycled", order="shuffled"):
     """One plan over C lanes of flat state: lane 0 is ``_flat_case``'s
-    state, the others redrawn from the seed over the same rows."""
+    state, the others redrawn from the seed over the same rows. ``rates``
+    "cycled" gives the lanes :data:`RATES`' rows in turn, "distinct"
+    every lane its own (:func:`distinct_rates`). ``order`` "shuffled"
+    keeps ``_flat_case``'s rows (each slot a row drawn at random), "rows"
+    gives the masked slots the rows 0, 1, ... market by market, in slot
+    order: the layout of a store that interned the plan's pairs in order,
+    whose tiles the lane kernel settles a group of lanes a block."""
     block, rows, flat = _flat_case(seed, num_slots, num_markets, np_dtype,
                                    kind=kind)
+    if order == "rows":
+        mask_t = block["mask"].T
+        rows_t = rows.T.copy()
+        rows_t[mask_t] = np.arange(int(mask_t.sum()), dtype=np.int32)
+        rows = np.ascontiguousarray(rows_t.T)
     rng = np.random.default_rng(seed + 1)
     capacity = len(flat["rel"])
     stacked = {key: [flat[key]] for key in flat}
@@ -62,7 +88,9 @@ def lane_case(seed, num_slots, num_markets, np_dtype, lanes, kind="random",
     lanes_flat = {key: np.stack(values) for key, values in stacked.items()}
     _touched, args = _args(block, rows, lanes_flat, DTYPES_OF[np_dtype], steps,
                            device)
-    params = torch.tensor(RATES[np.arange(lanes) % len(RATES)], device=device)
+    table = (RATES[np.arange(lanes) % len(RATES)] if rates == "cycled"
+             else distinct_rates(seed + 2, lanes))
+    params = torch.tensor(table, device=device)
     return (*args, params)
 
 
@@ -130,28 +158,49 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("steps", [0, 1, 2, 20])
-@pytest.mark.parametrize("lanes", [1, 3, 16])
-@pytest.mark.parametrize("num_slots, num_markets, kind", [
-    (5, 1037, "random"), (15, 600, "random"), (200, 1037, "ragged"),
+@pytest.mark.parametrize("lanes", [1, 3, 16, 17, 33, 64])
+@pytest.mark.parametrize("num_slots, num_markets, kind, rates, order", [
+    (5, 1037, "random", "cycled", "shuffled"),
+    (15, 600, "random", "cycled", "shuffled"),
+    (200, 1037, "ragged", "cycled", "shuffled"),
+    (15, 600, "random", "distinct", "shuffled"),
+    (5, 1037, "random", "cycled", "rows"),
+    (200, 1037, "ragged", "cycled", "rows"),
+    (15, 600, "random", "distinct", "rows"),
 ])
 @pytest.mark.parametrize("name", ["f32", "f64"])
 def test_cuda_lane_kernel_matches_plain_version(cuda_device, name, num_slots,
-                                                num_markets, kind, lanes,
-                                                steps):
-    np_dtype, _torch_dtype = DTYPES[name]
+                                                num_markets, kind, rates,
+                                                order, lanes, steps):
+    np_dtype, torch_dtype = DTYPES[name]
     args = lane_case(8, num_slots, num_markets, np_dtype, lanes, kind=kind,
-                     steps=steps, device=cuda_device)
+                     steps=steps, device=cuda_device, rates=rates,
+                     order=order)
     want = settle_kernel.settle_cycles_lanes_reference(*args)
     clones = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
     launches = settle_kernel.LANE_LAUNCHES
-    routes = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    routes = torch.zeros(settle_kernel.LANE_ROUTE_SLOTS, dtype=torch.int32,
+                         device=cuda_device)
     got = settle_kernel.settle_cycles_lanes(*clones, routes=routes)
     torch.cuda.synchronize()
     assert settle_kernel.LANE_LAUNCHES == launches + 1
-    staged, wide, _stage = routes.tolist()
+    staged, wide, stage, grouped, shared, group_lanes = routes.tolist()
     assert staged + wide == lanes * -(-num_markets // 256)
     if kind == "ragged":
         assert wide == lanes
+    # Rows in plan order: every tile settled a group of lanes a block;
+    # shuffled: none.
+    assert grouped == (staged + wide if order == "rows" else 0)
+    itemsize = torch.empty((), dtype=torch_dtype).element_size()
+    assert stage * (2 * itemsize + 5) < shared <= 48 * 1024
+    groups = -(-lanes // 16)
+    assert group_lanes == -(-lanes // groups)
+    # The main kernel's three-slot report still takes the lane launch.
+    three = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    settle_kernel.settle_cycles_lanes(
+        *[a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+        routes=three)
+    assert three.tolist() == [staged, wide, stage]
     assert got.reliability.data_ptr() == clones[0].data_ptr()  # in place
     for field in range(5):
         ours, theirs = got[field].cpu().numpy(), want[field].cpu().numpy()
