@@ -44,6 +44,7 @@ from bayesian_consensus_engine_tpu_torch.ops.propagate import (
     bp_sweep_math,
     sweep_constants,
 )
+from bayesian_consensus_engine_tpu_torch.utils.profiling import annotate
 
 #: Kernel launches made by :func:`bp_sweep` in this process.
 LAUNCHES = 0
@@ -94,6 +95,7 @@ def _check(means, variances, neighbor_idx, neighbor_w, tol) -> None:
         )
 
 
+@annotate("bce.bp_sweep")
 def bp_sweep(
     means, variances, neighbor_idx, neighbor_w, *,
     damping: float = DEFAULT_DAMPING, max_steps: int = DEFAULT_SWEEP_STEPS,

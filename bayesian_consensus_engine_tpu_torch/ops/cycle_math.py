@@ -27,6 +27,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from bayesian_consensus_engine_tpu_torch.ops.decay import decayed_reliability_at
 from bayesian_consensus_engine_tpu_torch.ops.update import outcome_update
@@ -242,14 +243,19 @@ def _cycle_math(
     """The full cycle on one block; ``slots_axis=0`` is the slot-major
     (K, M) layout the settlement plan uses. ``params`` sets the rates;
     ``ordered`` adds the consensus slots in slot order
-    (:func:`consensus_local_sums`)."""
-    read_rel, read_conf = read_phase(state, now_days, params)
-    consensus, confidence_out, total_weight = consensus_reduce(
-        probs, mask, read_rel, read_conf, slots_axis, ordered
-    )
-    new_state = update_phase(
-        probs, mask, outcome, state, read_conf, now_days, slots_axis, params
-    )
+    (:func:`consensus_local_sums`). Each phase runs under the JAX
+    package's ``bce.*`` label (``utils/profiling.py``)."""
+    with record_function("bce.read_decay"):
+        read_rel, read_conf = read_phase(state, now_days, params)
+    with record_function("bce.consensus_reduce"):
+        consensus, confidence_out, total_weight = consensus_reduce(
+            probs, mask, read_rel, read_conf, slots_axis, ordered
+        )
+    with record_function("bce.outcome_update"):
+        new_state = update_phase(
+            probs, mask, outcome, state, read_conf, now_days, slots_axis,
+            params,
+        )
     return CycleResult(new_state, consensus, confidence_out, total_weight)
 
 
@@ -275,17 +281,20 @@ def _fast_cycle_math(
 
     Returns ``(reliability', confidence', consensus)``.
     """
-    stamps = prev_now.expand(reliability.shape)
-    read_rel = decayed_reliability_at(
-        reliability, stamps, now_days, True, *_decay_params(params)
-    )
-    consensus, _, _ = consensus_reduce(
-        probs, mask, read_rel, confidence, slots_axis, ordered
-    )
-    correct = (probs >= 0.5) == outcome.unsqueeze(slots_axis)
-    new_rel, new_conf = _update(reliability, confidence, correct, params)
-    reliability = torch.where(mask, new_rel, reliability)
-    confidence = torch.where(mask, new_conf, confidence)
+    with record_function("bce.read_decay"):
+        stamps = prev_now.expand(reliability.shape)
+        read_rel = decayed_reliability_at(
+            reliability, stamps, now_days, True, *_decay_params(params)
+        )
+    with record_function("bce.consensus_reduce"):
+        consensus, _, _ = consensus_reduce(
+            probs, mask, read_rel, confidence, slots_axis, ordered
+        )
+    with record_function("bce.outcome_update"):
+        correct = (probs >= 0.5) == outcome.unsqueeze(slots_axis)
+        new_rel, new_conf = _update(reliability, confidence, correct, params)
+        reliability = torch.where(mask, new_rel, reliability)
+        confidence = torch.where(mask, new_conf, confidence)
     return reliability, confidence, consensus
 
 
@@ -301,11 +310,16 @@ def _sums_cycle_math(
     sums: the (3, M) stack Σw / Σw·p / Σw·conf of one sources shard, for
     :func:`consensus_merge` to sum across shards and normalise. Only
     ``.state`` and ``.consensus`` are meaningful."""
-    read_rel, read_conf = read_phase(state, now_days)
-    tw, wp, wc = consensus_local_sums(probs, mask, read_rel, read_conf, slots_axis)
-    new_state = update_phase(
-        probs, mask, outcome, state, read_conf, now_days, slots_axis
-    )
+    with record_function("bce.read_decay"):
+        read_rel, read_conf = read_phase(state, now_days)
+    with record_function("bce.consensus_local_sums"):
+        tw, wp, wc = consensus_local_sums(
+            probs, mask, read_rel, read_conf, slots_axis
+        )
+    with record_function("bce.outcome_update"):
+        new_state = update_phase(
+            probs, mask, outcome, state, read_conf, now_days, slots_axis
+        )
     return CycleResult(new_state, torch.stack([tw, wp, wc]), wc, tw)
 
 
@@ -321,15 +335,18 @@ def _sums_fast_cycle_math(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`_fast_cycle_math` returning the (3, M) raw local sums in
     place of the consensus: ``(reliability', confidence', sums)``."""
-    stamps = prev_now.expand(reliability.shape)
-    read_rel = decayed_reliability_at(reliability, stamps, now_days, True)
-    sums = torch.stack(consensus_local_sums(
-        probs, mask, read_rel, confidence, slots_axis
-    ))
-    correct = (probs >= 0.5) == outcome.unsqueeze(slots_axis)
-    new_rel, new_conf = outcome_update(reliability, confidence, correct)
-    reliability = torch.where(mask, new_rel, reliability)
-    confidence = torch.where(mask, new_conf, confidence)
+    with record_function("bce.read_decay"):
+        stamps = prev_now.expand(reliability.shape)
+        read_rel = decayed_reliability_at(reliability, stamps, now_days, True)
+    with record_function("bce.consensus_local_sums"):
+        sums = torch.stack(consensus_local_sums(
+            probs, mask, read_rel, confidence, slots_axis
+        ))
+    with record_function("bce.outcome_update"):
+        correct = (probs >= 0.5) == outcome.unsqueeze(slots_axis)
+        new_rel, new_conf = outcome_update(reliability, confidence, correct)
+        reliability = torch.where(mask, new_rel, reliability)
+        confidence = torch.where(mask, new_conf, confidence)
     return reliability, confidence, sums
 
 

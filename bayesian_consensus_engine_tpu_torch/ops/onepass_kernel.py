@@ -60,6 +60,7 @@ from bayesian_consensus_engine_tpu_torch.ops.tiebreak import (
     ring_tiebreak_math,
 )
 from bayesian_consensus_engine_tpu_torch.ops.uncertainty import band_sums
+from bayesian_consensus_engine_tpu_torch.utils.profiling import annotate
 
 #: Kernel launches made by :func:`onepass_settle` in this process.
 LAUNCHES = 0
@@ -134,6 +135,7 @@ def onepass_settle_reference(
     return OnepassOutputs(new_state, consensus, tiebreak, sums, count)
 
 
+@annotate("bce.onepass_settle")
 def onepass_settle(
     probs, mask, outcome, state: MarketBlockState, now0: float, steps: int,
     *, with_tiebreak: bool = True, with_bands: bool = True,

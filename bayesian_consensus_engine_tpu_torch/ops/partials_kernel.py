@@ -63,6 +63,7 @@ from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
     read_phase,
 )
 from bayesian_consensus_engine_tpu_torch.ops.uncertainty import band_sums
+from bayesian_consensus_engine_tpu_torch.utils.profiling import annotate
 
 #: Kernel launches made by :func:`onepass_partials` in this process.
 LAUNCHES = 0
@@ -132,6 +133,7 @@ def onepass_partials_reference(
     return PartialsOutputs(new_state, csums, sums, count, read_rel, read_conf)
 
 
+@annotate("bce.onepass_partials")
 def onepass_partials(
     probs, mask, outcome, state: MarketBlockState, now0: float, steps: int,
     *, with_views: bool = True, with_bands: bool = True,

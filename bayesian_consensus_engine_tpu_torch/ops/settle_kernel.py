@@ -83,6 +83,7 @@ from bayesian_consensus_engine_tpu_torch.utils.config import (
     DEFAULT_CONFIDENCE,
     DEFAULT_RELIABILITY,
 )
+from bayesian_consensus_engine_tpu_torch.utils.profiling import annotate
 
 #: Kernel launches made by :func:`settle_cycles` in this process.
 LAUNCHES = 0
@@ -210,6 +211,7 @@ def settle_cycles_reference(
     )
 
 
+@annotate("bce.settle_cycles")
 def settle_cycles(
     rel, conf, days, exists, slot_rows, probs, mask, outcome,
     touched_offsets, num_touched: int, now0: float, steps: int,
@@ -329,6 +331,7 @@ def settle_cycles_lanes_reference(
     ))
 
 
+@annotate("bce.settle_cycles_lanes")
 def settle_cycles_lanes(
     rel, conf, days, exists, slot_rows, probs, mask, outcome,
     touched_offsets, num_touched: int, now0: float, steps: int, params,

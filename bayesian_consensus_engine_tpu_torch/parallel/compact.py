@@ -41,6 +41,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from bayesian_consensus_engine_tpu_torch.ops.collectives import psum
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
@@ -216,21 +217,24 @@ def _tile_loop_math(probs, mask, outcome, state, now0, steps, slots_axis,
     ]
 
     def cycle(rel_steps, conf_steps, read_rel):
-        sums = [
-            torch.stack(consensus_local_sums(
-                decoded[j], mask[j], read_rel[j],
-                decode_confidence(conf_steps[j]), slots_axis,
-            ))
-            for j in shards
-        ]
-        total = sums[0].to(device) if len(sums) == 1 else torch.stack([
-            psum([s[row] for s in sums], device) for row in range(3)
-        ])
-        consensus, _ = consensus_epilogue(*total)
-        bumped = [
-            _counter_update(rel_steps[j], conf_steps[j], correct[j], mask[j])
-            for j in shards
-        ]
+        with record_function("bce.consensus_reduce"):
+            sums = [
+                torch.stack(consensus_local_sums(
+                    decoded[j], mask[j], read_rel[j],
+                    decode_confidence(conf_steps[j]), slots_axis,
+                ))
+                for j in shards
+            ]
+            total = sums[0].to(device) if len(sums) == 1 else torch.stack([
+                psum([s[row] for s in sums], device) for row in range(3)
+            ])
+            consensus, _ = consensus_epilogue(*total)
+        with record_function("bce.outcome_update"):
+            bumped = [
+                _counter_update(rel_steps[j], conf_steps[j], correct[j],
+                                mask[j])
+                for j in shards
+            ]
         return [b[0] for b in bumped], [b[1] for b in bumped], consensus
 
     if steps == 0:
@@ -238,13 +242,14 @@ def _tile_loop_math(probs, mask, outcome, state, now0, steps, slots_axis,
         return list(state), torch.zeros(
             outcome[0].shape[0], dtype=dtype, device=device)
     # Step 0 decays against the real per-slot stamps.
-    read0 = [
-        decayed_reliability_at(
-            decode_reliability(st.rel_steps), st.updated_days.to(torch.float32),
-            day0[j], st.conf_steps > 0,
-        )
-        for j, st in enumerate(state)
-    ]
+    with record_function("bce.read_decay"):
+        read0 = [
+            decayed_reliability_at(
+                decode_reliability(st.rel_steps),
+                st.updated_days.to(torch.float32), day0[j], st.conf_steps > 0,
+            )
+            for j, st in enumerate(state)
+        ]
     rel, conf, consensus0 = cycle(
         [st.rel_steps for st in state], [st.conf_steps for st in state], read0)
 
@@ -252,13 +257,15 @@ def _tile_loop_math(probs, mask, outcome, state, now0, steps, slots_axis,
     # stamped the previous step's day.
     consensus = consensus0
     for i in range(1, steps):
-        read = [
-            decayed_reliability_at(
-                decode_reliability(rel[j]),
-                (day0[j] + (i - 1)).expand(rel[j].shape), day0[j] + i, True,
-            )
-            for j in shards
-        ]
+        with record_function("bce.read_decay"):
+            read = [
+                decayed_reliability_at(
+                    decode_reliability(rel[j]),
+                    (day0[j] + (i - 1)).expand(rel[j].shape), day0[j] + i,
+                    True,
+                )
+                for j in shards
+            ]
         rel, conf, consensus = cycle(rel, conf, read)
     return [
         CompactBlockState(rel[j], conf[j], _stamp_updated_days(

@@ -58,11 +58,18 @@ import numpy as np
 import torch
 
 from bayesian_consensus_engine_tpu_torch.ops.bp_kernel import bp_sweep
+from bayesian_consensus_engine_tpu_torch.ops.collectives import psum
 from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
     CycleParams,
+    CycleResult,
     MarketBlockState,
+    consensus_epilogue,
     consensus_merge,
+    consensus_reduce,
+    make_loop_math,
     read_phase,
+    run_fast_loop,
+    update_phase,
 )
 from bayesian_consensus_engine_tpu_torch.ops.fma import fma
 from bayesian_consensus_engine_tpu_torch.ops.onepass_kernel import onepass_settle
@@ -98,6 +105,28 @@ from bayesian_consensus_engine_tpu_torch.utils.config import (
     DEFAULT_RELIABILITY,
 )
 from bayesian_consensus_engine_tpu_torch.utils.device import resolve_device
+
+__all__ = [
+    # re-exports from ops/cycle_math.py, as the JAX package's module has
+    "CycleParams",
+    "CycleResult",
+    "MarketBlockState",
+    "consensus_epilogue",
+    "consensus_reduce",
+    "make_loop_math",
+    "read_phase",
+    "run_fast_loop",
+    "update_phase",
+    # mesh-level builders
+    "build_cycle",
+    "build_cycle_loop",
+    "build_cycle_tiebreak_loop",
+    "build_cycle_analytics_loop",
+    "build_replay_sweep_step",
+    "relayout_slot_state",
+    "pad_markets",
+    "init_block_state",
+]
 
 
 def build_cycle_analytics_loop(
@@ -142,8 +171,7 @@ def build_cycle_analytics_loop(
     several markets shards the sweep runs once over the gathered axis
     (module docstring).
     """
-    if not isinstance(mesh, Mesh):
-        mesh = make_mesh((1, 1), [mesh])
+    mesh = _grid_mesh(mesh)
     device = mesh.devices[0][0]
     n_sources = mesh.shape[SOURCES_AXIS]
     n_market_shards = mesh.shape[MARKETS_AXIS]
@@ -321,13 +349,7 @@ def build_cycle_analytics_loop(
                 "cannot emit a zero-step consensus as raw sums; use "
                 "kernel='xla' for zero-step settles"
             )
-        for i, row in enumerate(mesh.devices):
-            for j, shard_device in enumerate(row):
-                if probs[i][j].device != shard_device:
-                    raise ValueError(
-                        f"shard ({i}, {j}) is on {probs[i][j].device}, the "
-                        f"mesh places it on {shard_device}"
-                    )
+        _check_shard_devices(mesh, probs)
         new_state, per_market = [], []
         for i in range(n_market_shards):
             if n_sources == 1:
@@ -369,22 +391,267 @@ def _concat(pieces, device):
     return torch.cat([piece.to(device) for piece in pieces], dim=-1)
 
 
-def build_cycle_loop(mesh=None):
-    """The N-cycle loop alone: :func:`build_cycle_analytics_loop` with both
-    analytics stages off, on a mesh (or a device's (1, 1) mesh).
-    ``loop(probs, mask, outcome, state, now0, steps) -> (state',
-    consensus)``."""
-    inner = build_cycle_analytics_loop(
-        mesh, with_tiebreak=False, with_bands=False,
+def _grid_mesh(mesh) -> Mesh:
+    """*mesh* as a :class:`Mesh`: a device names its (1, 1) mesh."""
+    return mesh if isinstance(mesh, Mesh) else make_mesh((1, 1), [mesh])
+
+
+def _whole_or_grid(mesh, build):
+    """The public loops' call convention. ``build(mesh)`` makes a function
+    over grids of per-shard blocks on *mesh*, ``(probs, mask, outcome,
+    state, ...) -> (state', *outputs)``, the state a grid like the one
+    given and every other output whole on the mesh's first device.
+
+    With a :class:`Mesh` or a device (its (1, 1) mesh) that function is
+    returned as it is. With ``mesh=None`` the returned function takes
+    whole tensors, as the JAX package's ``mesh=None`` programs do, and
+    runs on their own device's (1, 1) mesh (CUDA, or the CPU; any other
+    device raises), its state whole too."""
+    if mesh is not None:
+        return build(_grid_mesh(mesh))
+    built = {}
+
+    def whole(probs, mask, outcome, state, *rest):
+        device = probs.device
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"the cycle runs on cuda or cpu tensors, not {device}")
+        run = built.get(device)
+        if run is None:
+            run = built[device] = build(make_mesh((1, 1), [device]))
+        result = run(((probs,),), ((mask,),), ((outcome,),), ((state,),),
+                     *rest)
+        if isinstance(result, CycleResult):
+            return result._replace(state=result.state[0][0])
+        return (result[0][0][0], *result[1:])
+
+    return whole
+
+
+def _kernel_block(x, slot_major: bool):
+    """A blocked input in the kernels' slot-major (K, M) layout: a
+    market-major (M, K) block is copied transposed, a slot-major one is
+    passed as it is."""
+    return x if slot_major else x.T.contiguous()
+
+
+def _kernel_state(state: MarketBlockState, slot_major: bool, donate: bool):
+    """The (K, M) state block a kernel may update in place, from a shard's
+    state in the caller's layout.
+
+    A market-major block is always copied transposed (even where its
+    transpose is a contiguous view of the caller's storage); a slot-major
+    one is handed over as it is when donated, else cloned, so that the
+    caller's tensors come back unchanged. A state without ``exists`` (the
+    loop's reduced carry) takes an all-true block: every slot is read as
+    stored and updated from its stored value, the bits the JAX package's
+    ``exists=None`` programs compute."""
+
+    def block(x):
+        if not slot_major:
+            return x.T.clone(memory_format=torch.contiguous_format)
+        return x if donate else x.clone()
+
+    fields = [block(x) for x in state[:3]]
+    exists = (
+        torch.ones(fields[0].shape, dtype=torch.bool, device=fields[0].device)
+        if state.exists is None else block(state.exists)
+    )
+    return MarketBlockState(*fields, exists)
+
+
+def _caller_state(new: MarketBlockState, like: MarketBlockState,
+                  slot_major: bool) -> MarketBlockState:
+    """A kernel's (K, M) state back in the layout and form of *like*, the
+    state the caller gave: transposed back for market-major blocks, and
+    ``exists`` dropped for the reduced carry."""
+
+    def back(x):
+        return x if slot_major else x.T.contiguous()
+
+    return MarketBlockState(
+        back(new.reliability), back(new.confidence), back(new.updated_days),
+        None if like.exists is None else back(new.exists),
     )
 
-    def loop(probs, mask, outcome, state, now0: float, steps: int):
-        new_state, consensus, _tb, _bands, _prop = inner(
-            probs, mask, outcome, state, now0, steps
-        )
-        return new_state, consensus
 
-    return loop
+def _grid_map(fn, *grids):
+    """``fn`` applied shard by shard over grids of the same shape."""
+    return tuple(
+        tuple(fn(*shards) for shards in zip(*rows)) for rows in zip(*grids)
+    )
+
+
+def build_cycle(mesh=None, donate: bool = True, slot_major: bool = False):
+    """One consensus + update cycle, on one card or over a mesh.
+
+    Returns ``cycle(probs, mask, outcome, state, now_days) ->
+    CycleResult(state', consensus, confidence, total_weight)``, as the JAX
+    package's ``build_cycle`` does: the state read at ``now_days`` (decay
+    on read), the weighted consensus, its confidence and total weight per
+    market (NaN consensus where the weight is 0), and the update of the
+    undecayed state; ``exists=None`` states (the reduced carry) are
+    accepted and come back without ``exists``.
+
+    Blocks are market-major (M, K) by default, slot-major (K, M) with
+    ``slot_major=True``. ``mesh=None`` takes whole tensors on their own
+    device; a :class:`~.parallel.mesh.Mesh` (or a device, its (1, 1)
+    mesh) takes grids of per-shard blocks (``parallel/mesh.shard_block``,
+    or ``shard_slot_block`` when slot-major) and outcome vectors
+    (``shard_market_vector``), and returns the state as such a grid and
+    the per-market outputs whole on the mesh's first device.
+
+    On each sources shard one launch of the partials kernel
+    (``ops/partials_kernel.py``, one step, views and bands off) updates
+    the shard's (K, M) block in place and gives the step's raw sums Σw,
+    Σw·p and Σw·conf; the sums are added over the sources shards in mesh
+    order (``ops/collectives.psum``) and normalised
+    (``consensus_epilogue``), as the JAX package's psum and epilogue do.
+    A market-major block is settled in a transposed copy.
+
+    ``donate``: the JAX package lets XLA reuse the donated state's buffer;
+    here the kernel writes the (K, M) block in place. With
+    ``donate=True`` a slot-major state's tensors are that block, so the
+    caller must use the returned state; with ``donate=False`` they are
+    cloned first and come back unchanged. A market-major state is never
+    written (its transposed copy is).
+    """
+
+    def build(grid_mesh):
+        def cycle(probs, mask, outcome, state, now_days):
+            _check_shard_devices(grid_mesh, probs)
+            now0 = float(now_days)
+            new_state, per_market = [], []
+            for i, row in enumerate(grid_mesh.devices):
+                shard_states, sums = [], []
+                for j in range(len(row)):
+                    part = onepass_partials(
+                        _kernel_block(probs[i][j], slot_major),
+                        _kernel_block(mask[i][j], slot_major), outcome[i][j],
+                        _kernel_state(state[i][j], slot_major, donate), now0, 1,
+                        with_views=False, with_bands=False,
+                    )
+                    shard_states.append(
+                        _caller_state(part.state, state[i][j], slot_major))
+                    sums.append(part.consensus_sums)
+                total_weight, weighted_prob, weighted_conf = (
+                    psum([shard_sums[k] for shard_sums in sums], row[0])
+                    for k in range(3)
+                )
+                consensus, confidence = consensus_epilogue(
+                    total_weight, weighted_prob, weighted_conf)
+                new_state.append(tuple(shard_states))
+                per_market.append((consensus, confidence, total_weight))
+            return CycleResult(tuple(new_state), *(
+                _concat([shard[k] for shard in per_market],
+                        grid_mesh.devices[0][0])
+                for k in range(3)
+            ))
+
+        return cycle
+
+    return _whole_or_grid(mesh, build)
+
+
+def _check_shard_devices(mesh: Mesh, probs) -> None:
+    for i, row in enumerate(mesh.devices):
+        for j, shard_device in enumerate(row):
+            if probs[i][j].device != shard_device:
+                raise ValueError(
+                    f"shard ({i}, {j}) is on {probs[i][j].device}, the mesh "
+                    f"places it on {shard_device}"
+                )
+
+
+def build_cycle_loop(mesh=None, slot_major: bool = True, donate: bool = True):
+    """The N-cycle loop: ``loop(probs, mask, outcome, state, now0, steps)
+    -> (state', consensus)``, ``steps`` consecutive cycles (day ``now0 +
+    i`` each) with the last step's consensus, as the JAX package's
+    ``build_cycle_loop``.
+
+    :func:`build_cycle_analytics_loop` with both analytics stages off: on
+    each markets shard one launch of the one-pass kernel
+    (``ops/onepass_kernel.py``) with one sources shard, one partials
+    launch a sources shard and the consensus merge with several. Blocks
+    are slot-major (K, M) by default, market-major (M, K) with
+    ``slot_major=False`` (settled in a transposed copy). ``mesh=None``
+    takes whole tensors on their own device; a mesh (or a device) takes
+    grids and returns the state as a grid, as :func:`build_cycle` says.
+    ``donate`` and ``exists=None`` states as in :func:`build_cycle`.
+    """
+
+    def build(grid_mesh):
+        inner = build_cycle_analytics_loop(
+            grid_mesh, with_tiebreak=False, with_bands=False,
+        )
+
+        def loop(probs, mask, outcome, state, now0: float, steps: int):
+            new_state, consensus, _tb, _bands, _prop = inner(
+                _grid_map(lambda x: _kernel_block(x, slot_major), probs),
+                _grid_map(lambda x: _kernel_block(x, slot_major), mask),
+                outcome,
+                _grid_map(lambda x: _kernel_state(x, slot_major, donate), state),
+                now0, steps,
+            )
+            return _grid_map(
+                lambda new, like: _caller_state(new, like, slot_major),
+                new_state, state,
+            ), consensus
+
+        return loop
+
+    return _whole_or_grid(mesh, build)
+
+
+def build_cycle_tiebreak_loop(
+    mesh=None,
+    chunk_agents: "int | None" = None,
+    donate: bool = True,
+    precision: int = 6,
+):
+    """N cycles plus the ring tie-break on the one resident block:
+    ``loop(probs, mask, outcome, state, now0, steps) -> (state',
+    consensus, RingTieBreakResult)``, as the JAX package's
+    ``build_cycle_tiebreak_loop``.
+
+    A view of :func:`build_cycle_analytics_loop` with the bands off: the
+    tie-break reads the state at ``now0``, before the cycles update it
+    (each signalling slot one agent, weighted by its decayed read
+    reliability). One sources shard: one launch of the one-pass kernel
+    with the tie-break on; several: one partials launch a sources shard
+    and the sharded ring tie-break over their read views. Blocks are
+    slot-major (K, M), float32. ``mesh=None`` takes whole tensors on their
+    own device; a mesh (or a device) takes grids. ``donate`` and
+    ``exists=None`` states as in :func:`build_cycle`. ``chunk_agents``
+    bounds the ring's working set and changes no output; ``"auto"`` (the
+    shape tuner) is not ported yet and raises ``NotImplementedError``.
+    """
+    if chunk_agents == "auto":
+        raise NotImplementedError(
+            "chunk_agents='auto' (the ring chunk tuner, which needs "
+            "utils/autotune.py's ShapeTuner) is not ported yet: ROADMAP "
+            "queue 1 item 10"
+        )
+
+    def build(grid_mesh):
+        inner = build_cycle_analytics_loop(
+            grid_mesh, chunk_agents=chunk_agents, precision=precision,
+            with_bands=False,
+        )
+
+        def loop(probs, mask, outcome, state, now0: float, steps: int):
+            new_state, consensus, tiebreak, _bands, _prop = inner(
+                probs, mask, outcome,
+                _grid_map(lambda x: _kernel_state(x, True, donate), state),
+                now0, steps,
+            )
+            return _grid_map(
+                lambda new, like: _caller_state(new, like, True),
+                new_state, state,
+            ), consensus, tiebreak
+
+        return loop
+
+    return _whole_or_grid(mesh, build)
 
 
 def pad_markets(probs, mask, outcome, state=None, multiple: int = 128,

@@ -38,9 +38,13 @@ Durability, two tiers:
     package's bytes; ``replay_journal`` rebuilds a store from it.
 
 The two tiers keep separate dirty flags, so neither steals rows from the
-other. The device is explicit (``device=None`` means CUDA, and a machine
-without CUDA raises unless ``device="cpu"`` was asked for). Not ported
-yet: the orbax checkpoint (``save_checkpoint`` / ``load_checkpoint``).
+other. Beside them, ``save_checkpoint`` / ``load_checkpoint`` snapshot
+the whole store (its four row arrays, pair ids and ISO stamps) through
+``state/checkpoint.CycleCheckpointer``, deferred device truth synced
+first, for a settle chain to resume after a preemption; the bytes are
+the port's own, where the JAX package writes orbax's. The device is
+explicit (``device=None`` means CUDA, and a machine without CUDA raises
+unless ``device="cpu"`` was asked for).
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from bayesian_consensus_engine_tpu_torch.obs.metrics import (
 from bayesian_consensus_engine_tpu_torch.obs.timeline import (
     active_timeline as _active_timeline,
 )
+from bayesian_consensus_engine_tpu_torch.state.checkpoint import CycleCheckpointer
 from bayesian_consensus_engine_tpu_torch.state.decay import (
     apply_reliability_decay,
     days_since_update,
@@ -1338,6 +1343,55 @@ class TensorReliabilityStore:
         if str(db_path) != ":memory:":
             store._last_flush_path = str(Path(db_path).resolve())
             store._last_flush_fp = interchange_fingerprint(db_path)
+        return store
+
+    @_locked
+    def save_checkpoint(self, directory: Union[str, Path], step: int = 0) -> None:
+        """Snapshot the whole store as checkpoint *step* of *directory*
+        (``state/checkpoint.CycleCheckpointer``, one step kept): the four
+        row arrays as float64 and bool tensors, the pair ids in row order
+        and the ISO stamps as ``meta``. Deferred device truth (a pending
+        settled state, sync recipes) is merged first, so a snapshot taken
+        mid-chain holds every settled row. Returns once the step is on
+        disk."""
+        self._sync_pending()
+        used = len(self._pairs)
+        state = {
+            "reliability": torch.from_numpy(self._rel[:used]),
+            "confidence": torch.from_numpy(self._conf[:used]),
+            "updated_days": torch.from_numpy(self._days[:used]),
+            "exists": torch.from_numpy(self._exists[:used]),
+        }
+        meta = {
+            "pairs": [list(pair) for pair in self._pairs.ids()],
+            "iso": self._iso[:used],
+        }
+        with CycleCheckpointer(directory, max_to_keep=1) as checkpointer:
+            checkpointer.save(step, state, meta=meta, force=True)
+
+    @classmethod
+    def load_checkpoint(
+        cls, directory: Union[str, Path], step: Optional[int] = None,
+        device=None,
+    ) -> "TensorReliabilityStore":
+        """A store rebuilt from :meth:`save_checkpoint` (*step*, default
+        the latest), on *device* (``None``: CUDA). The pairs are interned
+        in the saved row order, so a plan built again binds to the same
+        rows."""
+        with CycleCheckpointer(directory) as checkpointer:
+            state, meta = checkpointer.restore(step)
+        rel = state["reliability"].numpy().astype(np.float64)
+        used = len(rel)
+        store = cls(capacity=max(used, _MIN_CAPACITY), device=device)
+        rows = store._pairs.intern_all(tuple(pair) for pair in meta["pairs"])
+        if list(rows) != list(range(used)):
+            raise ValueError(f"{directory}: the saved pairs are not {used} "
+                             "distinct rows")
+        store._rel[:used] = rel
+        store._conf[:used] = state["confidence"].numpy()
+        store._days[:used] = state["updated_days"].numpy()
+        store._exists[:used] = state["exists"].numpy()
+        store._iso = list(meta["iso"])
         return store
 
     @_locked

@@ -476,6 +476,45 @@ line was printed):
                     --json`` (the host routes' cut; workers on the card):
                     exit 0 with its byte coda holding; prints the recovered
                     goodput, adoption and coda seconds and rows adopted.
+23. ``surface``    the rest of the public surface at the main path's width
+                    (its 1M-market (K, M) block, K = 15, with a warm state
+                    from the seed: cold slots and stamps 1, 10 and 30 days
+                    old). (a) ``build_cycle`` market-major and slot-major,
+                    with ``donate=True`` and ``False``: one
+                    ``onepass_partials`` launch a call, the state bit-equal
+                    to the plain cycle math on the card, consensus,
+                    confidence and total weight within tolerance; with
+                    ``donate=False`` the caller's state unchanged, with
+                    ``donate=True`` (slot-major) settled in place.
+                    (b) ``build_cycle_loop(slot_major=False,
+                    donate=False)`` for 20 steps against the plain one-pass
+                    version. (c) ``build_cycle_tiebreak_loop`` on the
+                    card's (1, 1) mesh against the plain one-pass version
+                    (tie-break bit-equal), and on a (1, 2) mesh of the card
+                    (K padded to 16) against the same loop with the plain
+                    partials, its state also the (1, 1) loop's. (d) The
+                    20-step loop resumed from a ``CycleCheckpointer``
+                    snapshot after 10 steps (restored with ``like=`` onto
+                    the card) bit-equal to the straight run; prints the
+                    save's synchronous and commit seconds, the restore
+                    seconds and the bytes on disk. (e) The slot-major loop
+                    under ``auto_trace(every_n=3)`` for 6 calls: exactly
+                    two Chrome traces, each holding ``bce.onepass_settle``;
+                    where they hold device events (CUPTI), one
+                    ``onepass_settle`` kernel each, and the traced window's
+                    device busy share and the kernel's device ms are
+                    printed (``device_events`` 0 otherwise). (f) On the
+                    host routes' cut, a child process (this script with
+                    ``--surface-child``, started at the phase's start, at
+                    most 300 s) settles two days through the flat C route,
+                    calls ``save_checkpoint`` with the settled state still
+                    deferred on the card and is killed with ``SIGKILL``;
+                    this process loads the snapshot onto the card, rebuilds
+                    the plan (the same rows) and settles the third day:
+                    its consensus bit-equal and its SQLite bytes equal to
+                    an uninterrupted chain's. Launches: ``settle_cycles``
+                    4, ``onepass_settle`` 10, ``onepass_partials`` 6 (the
+                    ``kernels`` line's ``surface_launches``).
 
 Then the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line; so does a machine without
@@ -488,6 +527,7 @@ import contextlib
 import hashlib
 import json
 import os
+import shutil
 import sqlite3
 import subprocess
 import sys
@@ -3325,6 +3365,455 @@ def cluster_phase(smi, market_keys, codes, probs, offsets, outcomes, counts):
     return launches["onepass_settle"], launches["onepass_partials"]
 
 
+SURFACE_NOW0 = 600.0  # the surface phase's first day, relative
+SURFACE_STAMPS = (0.0, 570.0, 590.0, 599.0)  # cold, then 30, 10, 1 days old
+SURFACE_HALF = 10  # the resume's cut: 10 steps, snapshot, 10 more
+SURFACE_CHAIN_NOW = NOW + 120 * STEPS  # the kill-resume chain's first day
+SURFACE_CHILD_TIMEOUT_S = 300
+SURFACE_CHILD_FLAG = "--surface-child"
+# The preempted child's command line (the work directory follows).
+SURFACE_CHILD = (os.path.abspath(__file__), SURFACE_CHILD_FLAG)
+TRACE_EVERY, TRACE_CALLS = 3, 6
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def surface_columns(market_keys, codes, probs, offsets, num_markets):
+    """The first *num_markets* markets of the main path's batch as the
+    columnar plan's inputs."""
+    from bayesian_consensus_engine_tpu_torch.core.batch import SourceCodes
+
+    cut = int(offsets[num_markets])
+    table = [f"src-{i}" for i in range(SOURCES)]
+    return (market_keys[:num_markets], SourceCodes(codes[:cut], table),
+            probs[:cut], offsets[: num_markets + 1])
+
+
+def surface_chain_settle(store, plan, outcomes, day: int):
+    """Day *day* (0, 1, 2) of the kill-resume chain: one flat settle."""
+    from bayesian_consensus_engine_tpu_torch import pipeline
+
+    return pipeline.settle(store, plan, outcomes, steps=STEPS,
+                           now=SURFACE_CHAIN_NOW + day * STEPS)
+
+
+def surface_child(work: str) -> int:
+    """Phase 23's preempted process: on the host routes' cut of the main
+    path's batch, a fresh card store settles two days through the flat C
+    route, snapshots itself with ``save_checkpoint`` while the settled
+    state is still deferred on the card, writes ``saved`` beside the
+    snapshot, and waits to be killed (``SIGKILL``: nothing is synced,
+    flushed or closed)."""
+    from bayesian_consensus_engine_tpu_torch import pipeline
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+
+    _counts, codes, probs, offsets, outcomes, market_keys = main_data()
+    store = TensorReliabilityStore()
+    plan = pipeline.build_settlement_plan_columnar(
+        store, *surface_columns(market_keys, codes, probs, offsets,
+                                HOST_ROUTE_MARKETS))
+    for day in (0, 1):
+        surface_chain_settle(store, plan, outcomes[:HOST_ROUTE_MARKETS], day)
+    if store._pending is None:
+        raise AssertionError("the chain holds no deferred device truth")
+    store.save_checkpoint(os.path.join(work, "preempt"))
+    with open(os.path.join(work, "saved"), "w", encoding="utf-8") as handle:
+        handle.write(json.dumps({"pairs": len(store)}))
+    time.sleep(SURFACE_CHILD_TIMEOUT_S)
+    return 3  # only reached when nobody killed it
+
+
+def start_surface_child(work: str):
+    log = open(os.path.join(work, "child.log"), "w", encoding="utf-8")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, *SURFACE_CHILD, work], stdout=log,
+            stderr=subprocess.STDOUT, env=_package_env())
+    finally:
+        log.close()
+    return proc
+
+
+def kill_surface_child(proc, work: str) -> float:
+    """Wait for the child's snapshot (at most SURFACE_CHILD_TIMEOUT_S),
+    then ``SIGKILL`` it. Returns the seconds from the start of the wait to
+    the kill. A child that exits or runs out of time fails the phase."""
+    import signal
+
+    start = time.perf_counter()
+    marker = os.path.join(work, "saved")
+    while not os.path.exists(marker):
+        if proc.poll() is not None or \
+                time.perf_counter() - start > SURFACE_CHILD_TIMEOUT_S:
+            with open(os.path.join(work, "child.log"), encoding="utf-8") as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(
+                f"the preempted child did not snapshot (rc {proc.poll()}):\n"
+                f"{tail}")
+        time.sleep(0.05)
+    waited = time.perf_counter() - start
+    os.kill(proc.pid, signal.SIGKILL)
+    proc.wait(timeout=60)
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the child ended with rc {proc.returncode}, "
+                             "not by SIGKILL")
+    return waited
+
+
+def trace_device_share(path, label: str, kernel: str) -> dict:
+    """From one ``auto_trace`` Chrome trace: its device events, the share
+    of the *label* window the card was busy (the union of kernel, copy and
+    set events inside it), and *kernel*'s summed device time."""
+    with open(path, encoding="utf-8") as handle:
+        events = json.load(handle)["traceEvents"]
+    names = {event.get("name") for event in events}
+    window = [e for e in events if e.get("name") == label
+              and e.get("cat") == "user_annotation"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES
+              and e.get("ph") == "X"]
+    out = {"labels_present": sorted(n for n in names
+                                    if isinstance(n, str) and n.startswith("bce.")),
+           "device_events": len(device)}
+    if not window or not device:
+        return out
+    lo = float(window[0]["ts"])
+    hi = lo + float(window[0]["dur"])
+    spans = sorted((max(lo, float(e["ts"])), min(hi, float(e["ts"]) + float(e["dur"])))
+                   for e in device)
+    busy, reach = 0.0, lo
+    for begin, end in spans:
+        begin = max(begin, reach)
+        if end > begin:
+            busy += end - begin
+            reach = end
+    out.update(
+        window_us=hi - lo, busy_us=busy, busy_share=busy / (hi - lo),
+        kernel_events=sum(kernel in e.get("name", "") for e in device),
+        kernel_device_ms=sum(float(e["dur"]) for e in device
+                             if kernel in e.get("name", "")) / 1e3,
+    )
+    return out
+
+
+def surface_phase(smi, market_keys, codes, probs, offsets, outcomes):
+    """Phase 23. Returns the phase's launches of ``settle_cycles``,
+    ``onepass_settle`` and ``onepass_partials``."""
+    from bayesian_consensus_engine_tpu_torch import pipeline
+    from bayesian_consensus_engine_tpu_torch.ops import (
+        onepass_kernel,
+        partials_kernel,
+        settle_kernel,
+    )
+    from bayesian_consensus_engine_tpu_torch.ops.cycle_math import (
+        MarketBlockState,
+        _cycle_math,
+    )
+    from bayesian_consensus_engine_tpu_torch.ops.onepass_kernel import (
+        OnepassOutputs,
+    )
+    from bayesian_consensus_engine_tpu_torch import parallel
+    from bayesian_consensus_engine_tpu_torch.parallel import sharded
+    from bayesian_consensus_engine_tpu_torch.state.checkpoint import (
+        CycleCheckpointer,
+    )
+    from bayesian_consensus_engine_tpu_torch.state.tensor_store import (
+        TensorReliabilityStore,
+    )
+    from bayesian_consensus_engine_tpu_torch.utils.profiling import (
+        TRACE_SUFFIX,
+        auto_trace,
+    )
+
+    seconds = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_surface_")
+    child = start_surface_child(work)
+    try:
+        settle_kernel.LAUNCHES = 0
+        onepass_kernel.LAUNCHES = 0
+        partials_kernel.LAUNCHES = 0
+        card = torch.device("cuda")
+
+        # The main path's (K, M) block and a warm state made from the seed:
+        # cold slots and stamps 1, 10 and 30 days before the first day.
+        start = time.perf_counter()
+        plan_store = TensorReliabilityStore()
+        plan = pipeline.build_settlement_plan_columnar(
+            plan_store, *surface_columns(market_keys, codes, probs, offsets,
+                                         MARKETS))
+        del plan_store
+        num_slots = int(plan.num_slots)
+        rng = np.random.default_rng(SEED + 23)
+        shape = (num_slots, MARKETS)
+        probs_k = torch.tensor(plan.probs, dtype=torch.float32, device=card)
+        mask_k = torch.tensor(plan.mask, device=card)
+        outcome = torch.tensor(outcomes, device=card)
+        state_k = MarketBlockState(
+            torch.tensor(rng.uniform(0.0, 1.0, shape), dtype=torch.float32,
+                         device=card),
+            torch.tensor(rng.uniform(0.0, 1.0, shape), dtype=torch.float32,
+                         device=card),
+            torch.tensor(rng.choice(SURFACE_STAMPS, shape), dtype=torch.float32,
+                         device=card),
+            torch.tensor(rng.random(shape) < 0.7, device=card),
+        )
+        del plan
+        seconds["data"] = time.perf_counter() - start
+
+        def copies(state):
+            return MarketBlockState(*(x.clone() for x in state))
+
+        def transposed(state):
+            return MarketBlockState(*(x.T.contiguous() for x in state))
+
+        now_t = torch.tensor(SURFACE_NOW0, dtype=torch.float32, device=card)
+        errors = {}
+
+        # (a) build_cycle: one partials launch a call, held against the
+        # plain cycle math on the card.
+        plain = _cycle_math(probs_k, mask_k, outcome, state_k, now_t,
+                            slots_axis=0)
+        for slot_major in (False, True):
+            for donate in (True, False):
+                what = (f"build_cycle {'slot' if slot_major else 'market'}"
+                        f"-major donate={donate}")
+                given = copies(state_k) if slot_major else transposed(state_k)
+                before = copies(given)
+                blocks = ((probs_k, mask_k) if slot_major else
+                          (probs_k.T.contiguous(), mask_k.T.contiguous()))
+                launched = partials_kernel.LAUNCHES
+                out, took = timed_run(lambda: parallel.build_cycle(
+                    donate=donate, slot_major=slot_major)(
+                    *blocks, outcome, given, SURFACE_NOW0))
+                seconds[what] = took
+                if partials_kernel.LAUNCHES - launched != 1:
+                    raise AssertionError(f"{what}: {partials_kernel.LAUNCHES - launched} "
+                                         "partials launches, expected 1")
+                got = out.state if slot_major else transposed(out.state)
+                for field, a, b in zip(MarketBlockState._fields, got, plain.state):
+                    check_equal(a, b, f"{what} {field}")
+                errors[what] = max(
+                    check_consensus(a, b, f"{what} {name}") for name, a, b in zip(
+                        ("consensus", "confidence", "total_weight"), out[1:],
+                        plain[1:]))
+                if not donate:
+                    for field, a, b in zip(MarketBlockState._fields, given, before):
+                        device_bits(a, b, f"{what}: the caller's {field}")
+                elif slot_major and given.reliability.is_cuda and \
+                        out.state.reliability.data_ptr() != \
+                        given.reliability.data_ptr():
+                    # On the card the kernel settles the donated block in
+                    # place (the plain version, on the CPU, makes new ones).
+                    raise AssertionError(f"{what}: the state was not donated")
+        del plain
+
+        # (b) build_cycle_loop(slot_major=False, donate=False), 20 steps,
+        # against the plain one-pass version (stages off).
+        loop = parallel.build_cycle_loop(slot_major=False, donate=False)
+        blocks_m = (probs_k.T.contiguous(), mask_k.T.contiguous(), outcome)
+        state_m = transposed(state_k)
+        before = copies(state_m)
+        (full_state, full_consensus), seconds["loop_20"] = timed_run(
+            lambda: loop(*blocks_m, state_m, SURFACE_NOW0, STEPS))
+        for field, a, b in zip(MarketBlockState._fields, state_m, before):
+            device_bits(a, b, f"loop: the caller's {field}")
+        want = onepass_kernel.onepass_settle_reference(
+            probs_k, mask_k, outcome, state_k, SURFACE_NOW0, STEPS,
+            with_tiebreak=False, with_bands=False)
+        errors["loop"] = compare_onepass(
+            OnepassOutputs(transposed(full_state), full_consensus, None,
+                           None, None), want, "build_cycle_loop")
+        del want
+
+        # (c) build_cycle_tiebreak_loop on the card's (1, 1) mesh and on a
+        # (1, 2) mesh of the card (K padded to 16 slots).
+        grid = ((probs_k,),), ((mask_k,),), ((outcome,),)
+        (tb_state, tb_consensus, tiebreak), seconds["tiebreak_1x1"] = timed_run(
+            lambda: parallel.build_cycle_tiebreak_loop(card, donate=False)(
+                *grid, ((copies(state_k),),), SURFACE_NOW0, STEPS))
+        want = onepass_kernel.onepass_settle_reference(
+            probs_k, mask_k, outcome, state_k, SURFACE_NOW0, STEPS,
+            with_tiebreak=True, with_bands=False)
+        errors["tiebreak_1x1"] = compare_onepass(
+            OnepassOutputs(tb_state[0][0], tb_consensus, tiebreak, None, None),
+            want, "tiebreak loop (1, 1)")
+        del want
+        pad = num_slots % 2
+
+        def padded(x, fill):
+            if not pad:
+                return x
+            return torch.cat([x, torch.full((1, MARKETS), fill, dtype=x.dtype,
+                                            device=card)])
+
+        half = (num_slots + pad) // 2
+        mesh2 = parallel.make_mesh((1, 2), [card, card])
+
+        def cut(x, fill):
+            whole = padded(x, fill)
+            return ((whole[:half].contiguous(), whole[half:].contiguous()),)
+
+        state_p = MarketBlockState(
+            padded(state_k.reliability, 0.5), padded(state_k.confidence, 0.25),
+            padded(state_k.updated_days, 0.0), padded(state_k.exists, False))
+        grid2 = (cut(probs_k, 0.0), cut(mask_k, False), ((outcome, outcome),))
+
+        def state_grid():  # fresh copies: the loop settles them in place
+            return ((tuple(MarketBlockState(*(f[j * half:(j + 1) * half].clone()
+                                               for f in state_p))
+                           for j in range(2))),)
+
+        loop2 = parallel.build_cycle_tiebreak_loop(mesh2, donate=True)
+        launched = partials_kernel.LAUNCHES
+        got2, seconds["tiebreak_1x2"] = timed_run(
+            lambda: loop2(*grid2, state_grid(), SURFACE_NOW0, STEPS))
+        if partials_kernel.LAUNCHES - launched != 2:
+            raise AssertionError("tiebreak loop (1, 2): "
+                                 f"{partials_kernel.LAUNCHES - launched} partials "
+                                 "launches, expected 2")
+        real_partials = sharded.onepass_partials
+        sharded.onepass_partials = partials_kernel.onepass_partials_reference
+        try:
+            want2 = loop2(*grid2, state_grid(), SURFACE_NOW0, STEPS)
+        finally:
+            sharded.onepass_partials = real_partials
+        for j in range(2):
+            for field, a, b in zip(MarketBlockState._fields, got2[0][0][j],
+                                   want2[0][0][j]):
+                check_bits(a, b, f"tiebreak loop (1, 2) shard {j} {field}")
+            rows = min(half, num_slots - j * half)  # shard 1 holds the pad
+            for field, a, b in zip(MarketBlockState._fields, got2[0][0][j],
+                                   tb_state[0][0]):
+                check_bits(a[:rows], b[j * half:j * half + rows],
+                           f"tiebreak loop (1, 2) shard {j} {field} vs (1, 1)")
+        errors["tiebreak_1x2"] = check_consensus(
+            got2[1], want2[1], "tiebreak loop (1, 2) consensus")
+        for field, a, b in zip(got2[2]._fields, got2[2], want2[2]):
+            check_bits(a, b, f"tiebreak loop (1, 2) {field}")
+        del got2, want2, state_p, grid2, tb_state, tiebreak
+
+        # (d) resume: 10 steps, a CycleCheckpointer snapshot, a restore onto
+        # the card, 10 more: bit-equal to the 20-step run.
+        mid_state, _ = loop(*blocks_m, state_m, SURFACE_NOW0, SURFACE_HALF)
+        checkpoint = {}
+        with CycleCheckpointer(os.path.join(work, "loop")) as ckpt:
+            start = time.perf_counter()
+            ckpt.save(SURFACE_HALF, mid_state,
+                      meta={"next_now": SURFACE_NOW0 + SURFACE_HALF})
+            checkpoint["save_sync_s"] = time.perf_counter() - start
+            start = time.perf_counter()
+            ckpt.wait()
+            checkpoint["commit_s"] = time.perf_counter() - start
+            step_dir = os.path.join(work, "loop", str(SURFACE_HALF))
+            checkpoint["bytes"] = sum(
+                os.path.getsize(os.path.join(step_dir, name))
+                for name in os.listdir(step_dir))
+            start = time.perf_counter()
+            restored, meta = ckpt.restore(like=mid_state)
+            torch.cuda.synchronize()
+            checkpoint["restore_s"] = time.perf_counter() - start
+        resumed_state, resumed = loop(*blocks_m, restored, meta["next_now"],
+                                      STEPS - SURFACE_HALF)
+        for field, a, b in zip(MarketBlockState._fields, resumed_state,
+                               full_state):
+            device_bits(a, b, f"resumed {field}")
+        device_bits(resumed, full_consensus, "resumed consensus")
+        del mid_state, restored, resumed_state, full_state
+
+        # (e) profiler: the slot-major loop under auto_trace, every third of
+        # six calls captured.
+        trace_dir = os.path.join(work, "traces")
+        traced = auto_trace(parallel.build_cycle_loop(), trace_dir,
+                            every_n=TRACE_EVERY, label="surface")
+        carry = copies(state_k)
+        start = time.perf_counter()
+        for call in range(TRACE_CALLS):
+            carry, _ = traced(probs_k, mask_k, outcome, carry,
+                              SURFACE_NOW0 + call * STEPS, STEPS)
+        torch.cuda.synchronize()
+        seconds["traced_calls"] = time.perf_counter() - start
+        paths = sorted(name for name in os.listdir(trace_dir)
+                       if name.endswith(TRACE_SUFFIX))
+        if len(paths) != TRACE_CALLS // TRACE_EVERY:
+            raise AssertionError(f"auto_trace wrote {paths}")
+        profiler = [trace_device_share(os.path.join(trace_dir, name),
+                                       "surface", "onepass_settle")
+                    for name in paths]
+        for report in profiler:
+            if "bce.onepass_settle" not in report["labels_present"]:
+                raise AssertionError(f"a trace lacks bce.onepass_settle: {report}")
+            if report["device_events"] and report.get("kernel_events") != 1:
+                raise AssertionError(f"a trace holds device events but not "
+                                     f"one onepass_settle kernel: {report}")
+        del carry, state_m, blocks_m
+
+        # (f) kill-resume: the child's snapshot of its deferred chain, a
+        # fresh store from it on the card, the third day; the SQLite bytes
+        # of an uninterrupted chain.
+        columns = surface_columns(market_keys, codes, probs, offsets,
+                                  HOST_ROUTE_MARKETS)
+        cut_outcomes = outcomes[:HOST_ROUTE_MARKETS]
+        start = time.perf_counter()
+        straight = TensorReliabilityStore()
+        straight_plan = pipeline.build_settlement_plan_columnar(straight, *columns)
+        for day in (0, 1, 2):
+            expected = surface_chain_settle(straight, straight_plan,
+                                            cut_outcomes, day)
+        straight.sync()
+        straight_db = os.path.join(work, "straight.db")
+        straight.flush_to_sqlite(straight_db)
+        seconds["straight_chain"] = time.perf_counter() - start
+        seconds["child_wait"] = kill_surface_child(child, work)
+        start = time.perf_counter()
+        snapshot = os.path.join(work, "preempt")
+        resumed_store = TensorReliabilityStore.load_checkpoint(snapshot)
+        seconds["store_load"] = time.perf_counter() - start
+        resumed_plan = pipeline.build_settlement_plan_columnar(
+            resumed_store, *columns)
+        if not np.array_equal(resumed_plan.slot_rows, straight_plan.slot_rows):
+            raise AssertionError("the resumed store bound the plan to other rows")
+        day3 = surface_chain_settle(resumed_store, resumed_plan, cut_outcomes, 2)
+        resumed_store.sync()
+        resumed_db = os.path.join(work, "resumed.db")
+        resumed_store.flush_to_sqlite(resumed_db)
+        if not np.array_equal(day3.consensus, expected.consensus,
+                              equal_nan=True):
+            raise AssertionError("the resumed day's consensus differs")
+        with open(straight_db, "rb") as a, open(resumed_db, "rb") as b:
+            sqlite_bytes = a.read()
+            if sqlite_bytes != b.read():
+                raise AssertionError("the resumed chain's SQLite bytes differ")
+        snapshot_bytes = sum(
+            os.path.getsize(os.path.join(root, name))
+            for root, _dirs, names in os.walk(snapshot)
+            for name in names)
+        launches = {"settle_cycles": settle_kernel.LAUNCHES,
+                    "onepass_settle": onepass_kernel.LAUNCHES,
+                    "onepass_partials": partials_kernel.LAUNCHES}
+        expected_launches = {"settle_cycles": 4,
+                             "onepass_settle": 1 + 1 + 2 + TRACE_CALLS,
+                             "onepass_partials": 4 + 2}
+        if launches != expected_launches:
+            raise AssertionError(f"launches {launches}, expected "
+                                 f"{expected_launches}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    device_events = sum(report["device_events"] for report in profiler)
+    emit("surface", markets=MARKETS, slots=num_slots, steps=STEPS,
+         now0=SURFACE_NOW0, nvidia_smi=smi, launches=launches,
+         max_abs_err=errors, seconds=seconds, checkpoint=checkpoint,
+         kill_resume={"markets": HOST_ROUTE_MARKETS,
+                      "pairs": len(resumed_store),
+                      "snapshot_bytes": snapshot_bytes,
+                      "sqlite_bytes": len(sqlite_bytes), "sqlite_equal": True},
+         device_events=device_events, profiler=profiler)
+    return (launches["settle_cycles"], launches["onepass_settle"],
+            launches["onepass_partials"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4581,6 +5070,11 @@ def main() -> int:
         cluster_phase(smi, market_keys, codes, probs, offsets, outcomes,
                       counts))
 
+    # 23. surface
+    (settle_entry["surface_launches"], onepass_entry["surface_launches"],
+     partials_entry["surface_launches"]) = surface_phase(
+        smi, market_keys, codes, probs, offsets, outcomes)
+
     print(json.dumps({"kernels": [settle_entry, onepass_entry, bp_entry,
                                   partials_entry, lanes_entry]}), flush=True)
     print(smi, flush=True)
@@ -4591,4 +5085,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == SURFACE_CHILD_FLAG:
+        sys.exit(surface_child(sys.argv[2]))
     sys.exit(main())

@@ -9,7 +9,9 @@ main path's store, its ``stream`` (17), ``serve`` (18) and
 phase (20) on the stream's trace and its ``shards`` phase (21) on the
 main path's data and graph, and its ``cluster`` phase (22: two rank
 processes on the CPU, then the kill soak with ``--device cpu``) on the
-main path's data, on CPU stores, from the repository root. The
+main path's data, and its ``surface`` phase (23: the preempted child
+is this script with ``--surface-child``), on CPU stores, from the
+repository root. The
 script's ``main()`` is cut to its import block and those phases,
 ``"cuda"`` becomes ``"cpu"``, stores are built with ``device="cpu"``, the
 ``serve`` phase's CLI runs with ``--device cpu``, each call of the
@@ -188,6 +190,7 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
         "                 blocks.to_graph(extra_edges=edges))\n"
         "    cluster_phase(smi, market_keys, codes, probs, offsets, outcomes,\n"
         "                  counts)\n"
+        "    surface_phase(smi, market_keys, codes, probs, offsets, outcomes)\n"
     )
     head = re.sub(r"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = 1_000_000",
                   f"MARKETS, MEAN_SIGNALS, SOURCES, SEED, STEPS = {markets}", head)
@@ -221,6 +224,10 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
         f"{max(8192 // divisor // 1024, 1) * 1024}, 4, 8.0")
     head = head.replace('CLI_DEVICE = None', 'CLI_DEVICE = "cpu"')
     head = head.replace(
+        "SURFACE_CHILD = (os.path.abspath(__file__), SURFACE_CHILD_FLAG)",
+        f"SURFACE_CHILD = ({str(ROOT / 'scripts' / 'rehearse_chip_smoke.py')!r}, "
+        f"SURFACE_CHILD_FLAG, '{markets}', '{dump_markets}', '{divisor}')", 1)
+    head = head.replace(
         'RANK_COMMAND = ("-m", "bayesian_consensus_engine_tpu_torch.cluster.rank")',
         f"RANK_COMMAND = ('-c', {RANK_SHIM!r})", 1)
     head = head.replace(
@@ -233,18 +240,25 @@ def rehearsal_source(markets: int, dump_markets: int, divisor: int = 16) -> str:
     text = (head + HOST_TIMING + "def main() -> int:\n" + imports + phases
             + journal + "    return 0\n")
     return text.replace('"cuda"', '"cpu"').replace(
-        "TensorReliabilityStore()", 'TensorReliabilityStore(device="cpu")')
+        "TensorReliabilityStore()", 'TensorReliabilityStore(device="cpu")'
+    ).replace("load_checkpoint(snapshot)", 'load_checkpoint(snapshot, device="cpu")')
 
 
 def main() -> int:
-    markets = int(sys.argv[1]) if len(sys.argv) > 1 else 4_096
-    dump_markets = int(sys.argv[2]) if len(sys.argv) > 2 else 1_000
-    divisor = int(sys.argv[3]) if len(sys.argv) > 3 else 16
+    args = sys.argv[1:]
+    child = bool(args) and args[0] == "--surface-child"
+    if child:  # phase 23's preempted child: the sizes, then its work directory
+        args = args[1:]
+    markets = int(args[0]) if len(args) > 0 else 4_096
+    dump_markets = int(args[1]) if len(args) > 1 else 1_000
+    divisor = int(args[2]) if len(args) > 2 else 16
     sys.path.insert(0, str(ROOT))
     namespace = {"__name__": "chip_smoke_rehearsal",
                  "__file__": str(ROOT / "chip_smoke.py")}
     exec(compile(rehearsal_source(markets, dump_markets, divisor),  # noqa: S102
                  "chip_smoke_rehearsal", "exec"), namespace)
+    if child:
+        return namespace["surface_child"](args[3])
     return namespace["main"]()
 
 

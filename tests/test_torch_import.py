@@ -14,10 +14,13 @@ the trace and
 replaying it under an altered config (the replay lab, its lane kernel's
 plain version and the store digest), the sorted tie-break and the
 standalone band program, and
-rendering, serving and folding the telemetry, and serving two requests
+rendering, serving and folding the telemetry, serving two requests
 through the request front door (the coalescing service with analytics on
 a (1, 1) CPU mesh and a journal, behind the socket server, to the
-client) loads neither JAX nor any module of the JAX package (its
+client), and the rest of the public surface (``build_cycle``, the cycle
+loop and the tie-break loop under ``auto_trace``, a ``CycleCheckpointer``
+snapshot of the loop's state and the store's ``save_checkpoint`` /
+``load_checkpoint``) loads neither JAX nor any module of the JAX package (its
 ``_native`` extensions included); a static scan of every port source,
 ``chip_smoke.py`` and its rehearsal script (``replay/`` and the
 ``cluster/`` copy among them) finds no import of either, even inside a
@@ -248,6 +251,33 @@ with tempfile.TemporaryDirectory() as work:
 assert [r.market_id for r in served] == ["m1", "m2"], served
 assert served[0].band_lo is not None
 assert cli.build_parser().parse_args(["--device", "cpu", "serve"]).device == "cpu"
+
+from bayesian_consensus_engine_tpu_torch import parallel as surface
+from bayesian_consensus_engine_tpu_torch.state import checkpoint
+
+block = surface.init_block_state(4, 2, device="cpu")
+cycle_args = (torch.rand(4, 2), torch.ones(4, 2, dtype=torch.bool),
+              torch.zeros(4, dtype=torch.bool))
+cycled = surface.build_cycle(donate=False)(*cycle_args, block, 3.0)
+assert cycled.consensus.shape == (4,)
+slot_args = tuple(x.T.contiguous() for x in cycle_args[:2]) + cycle_args[2:]
+slot_block = surface.MarketBlockState(*(x.T.contiguous() for x in block))
+with tempfile.TemporaryDirectory() as work:
+    traced = profiling.auto_trace(
+        surface.build_cycle_loop(donate=False), work, every_n=1)
+    looped, _ = traced(*slot_args, slot_block, 3.0, 2)
+    assert any(name.endswith(profiling.TRACE_SUFFIX) for name in os.listdir(work))
+    tied = surface.build_cycle_tiebreak_loop(donate=False)(
+        *slot_args, slot_block, 3.0, 2)
+    assert len(tied[2].prediction) == 4
+    with checkpoint.CycleCheckpointer(os.path.join(work, "c")) as ckpt:
+        ckpt.save(2, looped, meta={{"next_now": 5.0}})
+        again, meta = ckpt.restore(like=looped)
+    assert meta == {{"next_now": 5.0}} and torch.equal(again[0], looped[0])
+    store.save_checkpoint(os.path.join(work, "s"))
+    reloaded = port.TensorReliabilityStore.load_checkpoint(
+        os.path.join(work, "s"), device="cpu")
+    assert reloaded.list_sources() == store.list_sources()
 
 PACKAGE = "bayesian_consensus_engine_tpu"
 loaded = sorted(
